@@ -1,0 +1,273 @@
+"""Scene tables, camera uniforms and the static render configuration.
+
+Counterpart of ``bevyray_tpu/core/types.py``: the same three logical tables
+(spheres, materials, triangles) as structure-of-arrays tensors padded to lane
+multiples, and the same ``RenderConfig`` fields, defaults and validation, so a
+configuration written for the JAX package means the same thing here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .vec import Vec3
+
+LANE = 128  # scene tables are padded to a multiple of this (the JAX package's).
+
+
+class Spheres(NamedTuple):
+    """Analytic sphere table (reference ``Model``: extract.rs:213-218)."""
+
+    cx: torch.Tensor          # [S] f32 centers
+    cy: torch.Tensor
+    cz: torch.Tensor
+    radius: torch.Tensor      # [S] f32
+    material_id: torch.Tensor  # [S] i32
+    valid: torch.Tensor       # [S] bool — False for padding lanes
+
+    @property
+    def capacity(self) -> int:
+        return self.cx.shape[0]
+
+    def center(self) -> Vec3:
+        return Vec3(self.cx, self.cy, self.cz)
+
+
+class Materials(NamedTuple):
+    """Material table (reference ``RaytraceMaterial``: extract.rs:181-189)."""
+
+    base_r: torch.Tensor
+    base_g: torch.Tensor
+    base_b: torch.Tensor
+    metallic: torch.Tensor
+    roughness: torch.Tensor
+    reflectance: torch.Tensor
+    ior: torch.Tensor
+    specular_transmission: torch.Tensor
+    emissive_r: torch.Tensor
+    emissive_g: torch.Tensor
+    emissive_b: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.base_r.shape[0]
+
+    def base_color(self) -> Vec3:
+        return Vec3(self.base_r, self.base_g, self.base_b)
+
+
+class Triangles(NamedTuple):
+    """World-space triangle table (extension), SoA of vertex components."""
+
+    ax: torch.Tensor
+    ay: torch.Tensor
+    az: torch.Tensor
+    bx: torch.Tensor
+    by: torch.Tensor
+    bz: torch.Tensor
+    cx: torch.Tensor
+    cy: torch.Tensor
+    cz: torch.Tensor
+    material_id: torch.Tensor  # i32
+    valid: torch.Tensor        # bool
+
+    @property
+    def capacity(self) -> int:
+        return self.ax.shape[0]
+
+
+class SceneBuffers(NamedTuple):
+    """The device scene. ``bvh`` and ``tri_bvh`` stay None until the BVH is
+    ported (ROADMAP §A item 8); the fields keep the JAX package's layout."""
+
+    spheres: Spheres
+    materials: Materials
+    bvh: None = None
+    triangles: Optional[Triangles] = None
+    tri_bvh: None = None
+
+
+class CameraState(NamedTuple):
+    """Per-frame camera uniforms (reference ``CameraExtract``: extract.rs:83-97),
+    each a 0-d float32 tensor."""
+
+    position: Vec3
+    direction: Vec3   # unit forward
+    up: Vec3          # unit up
+    fov: torch.Tensor      # vertical fov, radians
+    near: torch.Tensor
+    far: torch.Tensor
+    aspect: torch.Tensor   # width / height
+    aperture: torch.Tensor       # thin-lens diameter; 0 = pinhole
+    focus_distance: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Static render settings, field for field the JAX package's.
+
+    Mirrors ``RaytracedCamera { level, sample_count, bounces }`` (mod.rs:86-91)
+    plus the framebuffer size. The ``pallas_*`` knobs keep their names: on the
+    JAX package they pick value-identical schedules of its TPU kernel, and the
+    port's fused renderer maps them onto the one path it has
+    (:class:`..engine.fused_renderer.FusedRenderer`).
+    """
+
+    width: int
+    height: int
+    samples_per_pixel: int = 4   # main.rs:68
+    bounces: int = 4             # main.rs:69
+    level: int = 2               # Raytracing::FallbackRaytraced (main.rs:67)
+    sphere_chunk: int = 512      # spheres per inner block in the brute path
+    intersect_backend: str = "auto"  # "auto" | "brute" | "bvh"
+    defocus: bool = False        # thin-lens blur (uses cam.aperture/focus_distance)
+    diffuse_sampling: str = "reference"  # "reference" | "cosine"
+    pallas_intersect: str = "auto"   # "auto" | "grouped" | "candidates"
+    pallas_primary: str = "auto"     # "auto" | "split" | "off"
+    # Sphere-test discriminant handling: True lets sqrt(disc < 0) = NaN fail
+    # both accept compares instead of an explicit disc >= 0 test — the same
+    # accept set either way.
+    pallas_fast_disc: bool = True
+    pallas_cand_size: int = 0
+    pallas_grouping: str = "kd"      # "kd" | "morton" sphere-table order
+    bvh_leaf_size: int = 1
+
+    def __post_init__(self):
+        if self.width < 1 or self.height < 1:
+            raise ValueError(f"frame size {self.width}x{self.height} must be "
+                             "at least 1x1")
+        if self.samples_per_pixel < 1:
+            raise ValueError(f"samples_per_pixel {self.samples_per_pixel} "
+                             "must be >= 1")
+        if self.bounces < 0:
+            raise ValueError(f"bounces {self.bounces} must be >= 0")
+        if self.level not in (0, 1, 2, 3):
+            raise ValueError(f"level {self.level} must be one of 0..3 "
+                             "(Raytracing enum)")
+        if self.sphere_chunk < 1:
+            raise ValueError(f"sphere_chunk {self.sphere_chunk} must be >= 1")
+        if self.bvh_leaf_size < 1:
+            raise ValueError(f"bvh_leaf_size {self.bvh_leaf_size} must be "
+                             ">= 1")
+        if self.pallas_cand_size % 8 or self.pallas_cand_size < 0:
+            raise ValueError(f"pallas_cand_size {self.pallas_cand_size} must "
+                             "be a non-negative multiple of 8 (0 = auto)")
+        for field, allowed in (("intersect_backend", ("auto", "brute", "bvh")),
+                               ("diffuse_sampling", ("reference", "cosine")),
+                               ("pallas_intersect",
+                                ("auto", "grouped", "candidates")),
+                               ("pallas_primary", ("auto", "split", "off")),
+                               ("pallas_grouping", ("kd", "morton"))):
+            v = getattr(self, field)
+            if v not in allowed:
+                raise ValueError(f"{field}={v!r} must be one of {allowed}")
+
+    @property
+    def n_pixels(self) -> int:
+        return self.width * self.height
+
+
+def pad_to(n: int, multiple: int = LANE) -> int:
+    return int(-(-n // multiple) * multiple)
+
+
+def make_spheres_np(centers: np.ndarray, radii: np.ndarray,
+                    material_ids: np.ndarray, capacity: Optional[int] = None,
+                    device=None) -> Spheres:
+    """Padded sphere table from host arrays. Padding lanes get ``valid=False``
+    and are parked far away with zero radius so arithmetic on them stays finite."""
+    n = centers.shape[0]
+    cap = capacity or pad_to(max(n, 1))
+    if cap < n:
+        raise ValueError(f"capacity {cap} < sphere count {n}")
+
+    def pad(a, fill, dtype):
+        out = np.full((cap,), fill, dtype)
+        out[:n] = a.astype(dtype)
+        return torch.as_tensor(out, device=device)
+
+    valid = np.zeros((cap,), bool)
+    valid[:n] = True
+    return Spheres(
+        cx=pad(centers[:, 0], 1e6, np.float32),
+        cy=pad(centers[:, 1], 1e6, np.float32),
+        cz=pad(centers[:, 2], 1e6, np.float32),
+        radius=pad(radii, 0.0, np.float32),
+        material_id=pad(material_ids, 0, np.int32),
+        valid=torch.as_tensor(valid, device=device),
+    )
+
+
+def make_triangles_np(verts_a: np.ndarray, verts_b: np.ndarray,
+                      verts_c: np.ndarray, material_ids: np.ndarray,
+                      capacity: Optional[int] = None, device=None) -> Triangles:
+    """[T,3] per-corner world-space vertex arrays -> padded triangle table."""
+    n = verts_a.shape[0]
+    cap = capacity or pad_to(max(n, 1))
+    if cap < n:
+        raise ValueError(f"capacity {cap} < triangle count {n}")
+
+    def pad_f(a):
+        out = np.full((cap,), 1e6, np.float32)
+        out[:n] = a.astype(np.float32)
+        return torch.as_tensor(out, device=device)
+
+    mid = np.zeros((cap,), np.int32)
+    mid[:n] = material_ids.astype(np.int32)
+    valid = np.zeros((cap,), bool)
+    valid[:n] = True
+    return Triangles(
+        *(pad_f(v[:, k]) for v in (verts_a, verts_b, verts_c) for k in range(3)),
+        material_id=torch.as_tensor(mid, device=device),
+        valid=torch.as_tensor(valid, device=device))
+
+
+def make_materials_np(table: np.ndarray, capacity: Optional[int] = None,
+                      device=None) -> Materials:
+    """``table``: [M, 11] float32 columns (base_r,g,b, metallic, roughness,
+    reflectance, ior, specular_transmission, emissive_r,g,b)."""
+    m = table.shape[0]
+    cap = capacity or pad_to(max(m, 1))
+    out = np.zeros((cap, 11), np.float32)
+    out[:m] = table.astype(np.float32)
+    return Materials(*(torch.as_tensor(out[:, i].copy(), device=device)
+                       for i in range(11)))
+
+
+def scene_from_numpy(scene, cam, device=None):
+    """The JAX package's ``SceneBuffers`` and ``CameraState``, given with numpy
+    leaves (``np.asarray`` of each), as the port's ``(SceneBuffers,
+    CameraState)`` on ``device``.
+
+    Field names and layouts are the same in both packages, so each leaf is
+    carried over as it is. A scene with a BVH raises: the BVH is not ported yet
+    (ROADMAP §A item 8).
+    """
+    if scene.bvh is not None or scene.tri_bvh is not None:
+        raise NotImplementedError(
+            "BVH tables are not ported yet (ROADMAP §A item 8); extract the "
+            "scene with with_bvh=False")
+
+    def t(v):
+        return torch.as_tensor(np.array(v), device=device)
+
+    def table(cls, src):
+        return cls(*(t(getattr(src, f)) for f in cls._fields))
+
+    def vec(v):
+        return Vec3(t(v.x), t(v.y), t(v.z))
+
+    tris = (None if scene.triangles is None
+            else table(Triangles, scene.triangles))
+    buffers = SceneBuffers(spheres=table(Spheres, scene.spheres),
+                           materials=table(Materials, scene.materials),
+                           triangles=tris)
+    camera = CameraState(
+        position=vec(cam.position), direction=vec(cam.direction),
+        up=vec(cam.up),
+        **{f: t(getattr(cam, f)) for f in CameraState._fields[3:]})
+    return buffers, camera

@@ -1,0 +1,495 @@
+"""The fused path-tracing kernel: scene preparation, the CUDA kernel's wrapper
+and its plain PyTorch version.
+
+Counterpart of ``bevyray_tpu/kernels/pallas/megakernel.py``. The TPU kernel
+(``render_tiles`` -> ``_render_kernel``) traces the whole frame in one
+``pallas_call``; here ``render_tiles`` launches ``csrc/megakernel.cu``, one
+thread per pixel looping over samples, bounces and spheres. It computes the
+JAX kernel's plain branch: the persistent sample loop over the full sphere
+table with the exact PCG streams (``pallas_primary="off"``,
+``pallas_intersect="grouped"``, ``exact_rng=True``, no triangles). The JAX
+package pins every other branch of its kernel as value-identical to that one.
+
+The contract carried over from the TPU kernel:
+
+- outputs are block-ordered flat r/g/b/depth (64x64 pixel blocks, row-major
+  over the padded block grid; :func:`unshuffle_blocks` restores scanlines),
+  per-spp means or, with ``normalize=False``, sums, plus the segment count;
+- sphere tests run in q = a·t space: accept ``q > a·T_MIN`` and strict
+  ``q < best_q`` in ascending table order, so the lowest index wins ties and
+  the sphere-0 padding duplicates lose every tie; a negative discriminant
+  gives a NaN that fails both compares;
+- draws are keyed by (row-major pixel id, sample, slot) (:mod:`...engine.slots`);
+- gamma is applied per sample, and the depth sum uses ``far + 10`` (level 1)
+  or ``far - 1`` (other levels) where a sample's first segment missed.
+
+The TPU kernel fetches hit attributes through a one-hot matmul over a bf16
+hi/lo table (~16 mantissa bits); the port stores and loads them in float32.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ...core import rng
+from ...core.constants import INF, T_MIN
+from ...core.types import CameraState, RenderConfig, SceneBuffers
+from ...core.vec import Vec3
+from ...engine import slots
+from ..composite import background_gradient, linear_to_gamma
+from ..intersect import HitInfo, MaterialLanes
+from ..shade import scatter
+
+BLOCK_W = 64           # pixel-block width
+BLOCK_H = 64           # pixel-block height
+TILE = BLOCK_W * BLOCK_H   # lanes per pixel block
+GROUP = 32             # spheres per culling group (group AABB columns)
+SUPER = 8              # groups per supergroup (appended when >= 4*SUPER groups)
+CAND_UNIT = 16         # the auto candidate-group size quantum
+MAX_CAND_GROUPS = 62   # candidate groups the two-word per-lane mask holds
+
+# Attribute table rows: sphere center (triangle unit normal), then materials.
+N_MAT = 10             # base rgb, metallic, roughness, ior, transmission, emissive rgb
+N_ATTR = 3 + N_MAT
+
+# Camera/scalar uniform slots of the packed camera row (the JAX kernel's).
+(C_POS_X, C_POS_Y, C_POS_Z, C_DIR_X, C_DIR_Y, C_DIR_Z, C_UP_X, C_UP_Y, C_UP_Z,
+ C_RIGHT_X, C_RIGHT_Y, C_RIGHT_Z, C_SCALE, C_ASPECT, C_NEAR, C_FAR,
+ C_WIDTH, C_HEIGHT, C_NPIX, C_APERTURE, C_FOCUS) = range(21)
+N_CAM = 24
+
+_M32 = 0xFFFFFFFF
+# f32 max, the miss sentinel (constants.INF) as a float32 value.
+_INF32 = float(np.float32(INF))
+# Lanes per step of the plain version's dense [lanes x spheres] test, so its
+# temporaries stay near 16 MB whatever the frame size.
+_DENSE_ELEMS = 1 << 22
+
+
+class KernelScene(NamedTuple):
+    """Kernel-ready scene tables, all float32 on the scene's device.
+
+    The sphere order is a permutation (kd clusters by default) whose group
+    AABBs are consecutive runs; padding lanes duplicate sphere 0 (or, in an
+    empty scene, sit at the origin with r² = -1e30, so every test misses).
+    """
+
+    sph: torch.Tensor    # (4, S): cx, cy, cz, radius²
+    attr: torch.Tensor   # (N_ATTR, S+T): center|normal xyz, 10 material floats
+    gaabb: torch.Tensor  # (6, n_groups [+ n_super]): min xyz, max xyz
+    tri: torch.Tensor    # (10, T): ax..cz, valid — T = 0 without meshes
+
+
+def auto_cand_size(s: int) -> int:
+    """Candidate-group size for ``s`` padded spheres: the smallest CAND_UNIT
+    multiple keeping the group count within MAX_CAND_GROUPS. It sets the
+    grid that the kd order aligns its clusters to."""
+    return CAND_UNIT * (-(-(s // CAND_UNIT) // MAX_CAND_GROUPS))
+
+
+def morton_order(spheres) -> torch.Tensor:
+    """The ``pallas_grouping="morton"`` order: padding last, oversized spheres
+    (r > 0.25 x extent) first, the rest in 3x10-bit morton order (stable)."""
+    x, y, z, radius, valid = (spheres.cx, spheres.cy, spheres.cz,
+                              spheres.radius, spheres.valid)
+    inf = torch.tensor(float("inf"), device=x.device)
+    mins = [torch.where(valid, v, inf).min() for v in (x, y, z)]
+    maxs = [torch.where(valid, v, -inf).max() for v in (x, y, z)]
+    extent = torch.clamp(torch.stack([hi - lo for lo, hi in zip(mins, maxs)])
+                         .max(), min=1e-6)
+
+    def spread(v, lo):
+        q = torch.clamp((v - lo) / extent * 1023.0, 0.0, 1023.0).to(torch.int32)
+        q = (q | (q << 16)) & 0x030000FF
+        q = (q | (q << 8)) & 0x0300F00F
+        q = (q | (q << 4)) & 0x030C30C3
+        q = (q | (q << 2)) & 0x09249249
+        return q
+
+    morton = (spread(x, mins[0]) | (spread(y, mins[1]) << 1)
+              | (spread(z, mins[2]) << 2))
+    big = radius > 0.25 * extent
+    key = torch.where(big, morton - (1 << 30), morton)
+    key = torch.where(valid, key, torch.iinfo(torch.int32).max)
+    return torch.argsort(key, stable=True)
+
+
+def kernel_scene_cache_key(scene: SceneBuffers):
+    """(key, leaves) naming every tensor :func:`prepare_kernel_scene` reads,
+    plus the kd split rule. Callers keep ``leaves`` alive beside the key:
+    id() values are unique only among live objects."""
+    from . import grouping
+    leaves = tuple(scene.spheres) + tuple(scene.materials) + (
+        tuple(scene.triangles) if scene.triangles is not None else ())
+    return (tuple(id(x) for x in leaves), grouping.KD_RULE), leaves
+
+
+def _group_boxes(mins, maxs, size):
+    """Per-run AABBs over ``size`` consecutive columns (inf/-inf where a run
+    holds no live sphere)."""
+    n = mins.shape[1] // size
+    gmin = mins.reshape(3, n, size).amin(dim=2)
+    gmax = maxs.reshape(3, n, size).amax(dim=2)
+    return gmin, gmax
+
+
+def _invert_empty(gmin, gmax):
+    """Give empty runs the inverted unit box, which no slab test passes."""
+    empty = ~torch.isfinite(gmin[0])
+    return (torch.where(empty[None, :], 1.0, gmin),
+            torch.where(empty[None, :], -1.0, gmax))
+
+
+def prepare_kernel_scene(scene: SceneBuffers, cand_size: int = 0,
+                         order=None) -> KernelScene:
+    """Permute the sphere table, resolve the material indirection to per-sphere
+    rows, and build the group (and, from 4*SUPER groups on, supergroup) AABBs.
+
+    ``order``: sphere permutation (a tensor of table indices); None takes the
+    kd cluster order for group size ``cand_size`` (0 = :func:`auto_cand_size`),
+    the JAX package's shipped default. Hit results do not depend on it.
+    """
+    from .grouping import cached_order
+
+    if order is None:
+        order = cached_order(scene, cand_size)
+    sp = type(scene.spheres)(*(leaf[order] for leaf in scene.spheres))
+    mt = scene.materials
+    valid = sp.valid
+
+    mid = torch.clamp(sp.material_id.long(), 0, mt.capacity - 1)
+    # Padding lanes duplicate sphere 0 everywhere (geometry, center and
+    # material), so even a padding lane that won a tie would shade as sphere 0.
+    mid = torch.where(valid, mid, mid[0])
+    radius = torch.where(valid, torch.abs(sp.radius), 0.0)
+    pad_c = [torch.where(valid[0], c[0], 0.0) for c in (sp.cx, sp.cy, sp.cz)]
+    center = torch.stack([torch.where(valid, c, p)
+                          for c, p in zip((sp.cx, sp.cy, sp.cz), pad_c)])
+
+    def mat_rows(ids):
+        return torch.stack([mt.base_r[ids], mt.base_g[ids], mt.base_b[ids],
+                            mt.metallic[ids], mt.roughness[ids], mt.ior[ids],
+                            mt.specular_transmission[ids], mt.emissive_r[ids],
+                            mt.emissive_g[ids], mt.emissive_b[ids]])
+
+    attr = torch.cat([center, mat_rows(mid)])
+    tr = scene.triangles
+    if tr is not None:
+        a, b, c = (Vec3(tr.ax, tr.ay, tr.az), Vec3(tr.bx, tr.by, tr.bz),
+                   Vec3(tr.cx, tr.cy, tr.cz))
+        up = Vec3.full((), 0.0, 1.0, 0.0, device=tr.ax.device)
+        normal = Vec3.where(tr.valid, (b - a).cross(c - a).normalize(), up)
+        tmid = torch.clamp(tr.material_id.long(), 0, mt.capacity - 1)
+        attr = torch.cat([attr, torch.cat([torch.stack(normal),
+                                           mat_rows(tmid)])], dim=1)
+        tri = torch.stack([tr.ax, tr.ay, tr.az, tr.bx, tr.by, tr.bz,
+                           tr.cx, tr.cy, tr.cz, tr.valid.float()])
+    else:
+        tri = torch.zeros((10, 0), dtype=torch.float32, device=attr.device)
+
+    r2 = radius * radius
+    pad_r2 = torch.where(valid[0], r2[0], -1e30)
+    sph = torch.stack([center[0], center[1], center[2],
+                       torch.where(valid, r2, pad_r2)])
+
+    # Conservative group AABBs over the permuted order: center ± |radius|.
+    s = sph.shape[1]
+    live = radius > 0.0
+    mins = torch.stack([torch.where(live, c - radius, float("inf"))
+                        for c in (sp.cx, sp.cy, sp.cz)])
+    maxs = torch.stack([torch.where(live, c + radius, float("-inf"))
+                        for c in (sp.cx, sp.cy, sp.cz)])
+    n_groups = s // GROUP
+    gmin, gmax = _group_boxes(mins, maxs, GROUP)
+    gmin_f, gmax_f = _invert_empty(gmin, gmax)
+    if n_groups >= 4 * SUPER:
+        # Supergroup columns n_groups + gs: boxes over SUPER-group spans,
+        # built from the un-inverted group bounds so empty spans invert too.
+        pad_g = (-n_groups) % SUPER
+        fill = torch.full((3, pad_g), float("inf"), device=sph.device)
+        smin, smax = _group_boxes(torch.cat([gmin, fill], dim=1),
+                                  torch.cat([gmax, -fill], dim=1), SUPER)
+        smin, smax = _invert_empty(smin, smax)
+        gmin_f = torch.cat([gmin_f, smin], dim=1)
+        gmax_f = torch.cat([gmax_f, smax], dim=1)
+    gaabb = torch.cat([gmin_f, gmax_f])
+    return KernelScene(sph=sph.contiguous(), attr=attr.contiguous(),
+                       gaabb=gaabb.contiguous(), tri=tri)
+
+
+def pack_camera(cam: CameraState, config: RenderConfig) -> torch.Tensor:
+    """The (N_CAM,) float32 uniform row the kernel reads (the JAX kernel's
+    slot layout), on the camera's device."""
+    right = cam.direction.cross(cam.up)   # wgsl:149
+    dev = cam.fov.device
+    entries = {
+        C_POS_X: cam.position.x, C_POS_Y: cam.position.y,
+        C_POS_Z: cam.position.z, C_DIR_X: cam.direction.x,
+        C_DIR_Y: cam.direction.y, C_DIR_Z: cam.direction.z,
+        C_UP_X: cam.up.x, C_UP_Y: cam.up.y, C_UP_Z: cam.up.z,
+        C_RIGHT_X: right.x, C_RIGHT_Y: right.y, C_RIGHT_Z: right.z,
+        C_SCALE: torch.tan(cam.fov * 0.5), C_ASPECT: cam.aspect,
+        C_NEAR: cam.near, C_FAR: cam.far,
+        C_WIDTH: config.width, C_HEIGHT: config.height,
+        C_NPIX: config.n_pixels,
+        C_APERTURE: cam.aperture, C_FOCUS: cam.focus_distance,
+    }
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    return torch.stack([
+        torch.as_tensor(entries[k], dtype=torch.float32, device=dev)
+        if k in entries else zero for k in range(N_CAM)])
+
+
+def block_grid(config: RenderConfig):
+    """(nbx, nby): the BLOCK_W x BLOCK_H pixel-block grid covering the frame."""
+    return -(-config.width // BLOCK_W), -(-config.height // BLOCK_H)
+
+
+def unshuffle_blocks(flat: torch.Tensor, config: RenderConfig) -> torch.Tensor:
+    """Block-ordered kernel output -> row-major [H*W] pixels."""
+    nbx, nby = block_grid(config)
+    img = flat[:nbx * nby * TILE].reshape(nby, nbx, BLOCK_H, BLOCK_W)
+    img = img.permute(0, 2, 1, 3).reshape(nby * BLOCK_H, nbx * BLOCK_W)
+    return img[:config.height, :config.width].reshape(-1)
+
+
+def shuffle_blocks(flat: torch.Tensor, config: RenderConfig,
+                   fill=0) -> torch.Tensor:
+    """Row-major [H*W] per-pixel values -> the kernel's block order
+    (n_tiles, BLOCK_H*BLOCK_W // 128, 128); the inverse of
+    :func:`unshuffle_blocks` (off-image padding lanes get ``fill``)."""
+    nbx, nby = block_grid(config)
+    h, w = config.height, config.width
+    img = torch.as_tensor(flat).reshape(h, w)
+    img = torch.nn.functional.pad(
+        img, (0, nbx * BLOCK_W - w, 0, nby * BLOCK_H - h), value=fill)
+    img = img.reshape(nby, BLOCK_H, nbx, BLOCK_W).permute(0, 2, 1, 3)
+    return img.reshape(nbx * nby, TILE // 128, 128)
+
+
+def _check_slice(pscene: KernelScene, exact_rng, block_offset, sample_offset,
+                 n_blocks_local, sl, spp_map):
+    """Raise for the inputs whose kernel branch is not ported yet."""
+    missing = [
+        (sl is not None, "phase-split shortlists (sl)", "B3"),
+        (spp_map is not None, "adaptive sampling (spp_map)", "B2"),
+        (bool(block_offset) or bool(sample_offset)
+         or n_blocks_local is not None,
+         "shard offsets (block_offset/sample_offset/n_blocks_local)", "A10"),
+        (pscene.tri.shape[1] > 0, "triangles", "B9"),
+        (not exact_rng, "the fast RNG (exact_rng=False)", "B8"),
+    ]
+    for bad, what, item in missing:
+        if bad:
+            raise NotImplementedError(
+                f"{what} is not ported to the CUDA kernel yet (ROADMAP {item})")
+
+
+def render_tiles(pscene: KernelScene, cam: CameraState, config: RenderConfig,
+                 frame_seed, exact_rng: bool = True, block_offset=0,
+                 sample_offset=0, n_blocks_local=None, normalize: bool = True,
+                 sl=None, spp_map=None):
+    """Trace the frame. Returns (r, g, b, depth) as flat block-ordered float32
+    tensors of nbx*nby*TILE lanes (pass through :func:`unshuffle_blocks`) and
+    the traced-segment count as a 0-d int64 tensor; ``normalize=False`` gives
+    sample sums instead of per-spp means.
+
+    On CPU tensors this runs :func:`render_tiles_reference`. On CUDA tensors
+    it launches the CUDA kernel (built on first use) or raises; it never
+    falls back. ``render_tiles.launches`` counts the kernel's launches.
+    """
+    _check_slice(pscene, exact_rng, block_offset, sample_offset,
+                 n_blocks_local, sl, spp_map)
+    dev = pscene.sph.device
+    if dev.type == "cpu":
+        return render_tiles_reference(pscene, cam, config, frame_seed,
+                                      normalize=normalize)
+    if dev.type != "cuda":
+        raise ValueError(f"render_tiles takes CPU or CUDA tensors, not {dev}")
+    from .build import extension
+
+    ext = extension()
+    nbx, nby = block_grid(config)
+    n_lanes = nbx * nby * TILE
+    cam_row = pack_camera(cam, config).to(dev)
+    outs = [torch.empty(n_lanes, dtype=torch.float32, device=dev)
+            for _ in range(4)]
+    segs = torch.zeros(1, dtype=torch.int64, device=dev)
+    ext.render_tiles(cam_row, pscene.sph, pscene.attr, *outs, segs,
+                     nbx, config.width, config.height,
+                     config.samples_per_pixel, config.bounces,
+                     int(frame_seed) & _M32, _inv_spp(config, normalize),
+                     config.level, config.defocus,
+                     config.diffuse_sampling == "cosine")
+    render_tiles.launches += 1
+    return (*outs, segs[0])
+
+
+render_tiles.launches = 0
+
+
+def _inv_spp(config: RenderConfig, normalize: bool) -> float:
+    return (float(np.float32(1.0 / config.samples_per_pixel)) if normalize
+            else 1.0)
+
+
+def _intersect_dense(o: Vec3, d: Vec3, sph: torch.Tensor):
+    """Nearest sphere hit per lane as (t, index), INF / -1 on a miss.
+
+    A dense [lanes x S] q = a·t matrix: entries that fail ``q > a·T_MIN`` or
+    ``q < INF`` (a NaN from a negative discriminant fails both) become +inf,
+    and ``argmin`` takes the first minimum — the strict-< ascending walk of
+    the kernel. Steps over lanes to bound the temporaries.
+    """
+    a = d.dot(d)
+    inv_a = 1.0 / a
+    q_min = a * T_MIN
+    n, s = a.shape[0], sph.shape[1]
+    best_q = torch.empty_like(a)
+    best_i = torch.empty(n, dtype=torch.int64, device=a.device)
+    step = max(1, _DENSE_ELEMS // s)
+    for lo in range(0, n, step):
+        sl = slice(lo, lo + step)
+        dx, dy, dz = d.x[sl, None], d.y[sl, None], d.z[sl, None]
+        ocx = sph[0] - o.x[sl, None]
+        ocy = sph[1] - o.y[sl, None]
+        ocz = sph[2] - o.z[sl, None]
+        h = dx * ocx + dy * ocy + dz * ocz
+        cc = ocx * ocx + ocy * ocy + ocz * ocz - sph[3]
+        disc = h * h - a[sl, None] * cc
+        q = h - torch.sqrt(disc)
+        ok = (q > q_min[sl, None]) & (q < _INF32)
+        q = torch.where(ok, q, float("inf"))
+        idx = torch.argmin(q, dim=1)
+        best_i[sl] = idx
+        best_q[sl] = torch.gather(q, 1, idx[:, None])[:, 0]
+    hit = best_q < _INF32
+    t = torch.where(hit, best_q * inv_a, _INF32)
+    return t, torch.where(hit, best_i, -1)
+
+
+def _raygen(cam: torch.Tensor, config: RenderConfig, stream, u, v):
+    """Jittered primary ray (random_ray_from_uv, wgsl:139-156), the JAX
+    kernel's own raygen, with the thin lens when ``config.defocus``."""
+    pos = Vec3(cam[C_POS_X], cam[C_POS_Y], cam[C_POS_Z])
+    cdir = Vec3(cam[C_DIR_X], cam[C_DIR_Y], cam[C_DIR_Z])
+    up = Vec3(cam[C_UP_X], cam[C_UP_Y], cam[C_UP_Z])
+    right = Vec3(cam[C_RIGHT_X], cam[C_RIGHT_Y], cam[C_RIGHT_Z])
+    scale, aspect = cam[C_SCALE], cam[C_ASPECT]
+    ju = rng.draw(stream, slots.JITTER_U)
+    jv = rng.draw(stream, slots.JITTER_V)
+    h_px = cam[C_HEIGHT]
+    w_px = h_px * aspect
+    ndc_x = (u * 2.0 - 1.0) + (ju - 0.5) / w_px
+    ndc_y = (1.0 - v * 2.0) + (jv - 0.5) / h_px
+    d = (cdir + right.scale(ndc_x * aspect * scale)
+         + up.scale(ndc_y * scale)).normalize()
+    o = Vec3(*(c.expand_as(d.x) for c in pos))
+    if config.defocus:
+        lu = rng.draw(stream, slots.LENS_U)
+        lv = rng.draw(stream, slots.LENS_V)
+        rr = cam[C_APERTURE] * 0.5 * torch.sqrt(lu)
+        theta = rng.TWO_PI * lv
+        lx = rr * torch.cos(theta)
+        ly = rr * torch.sin(theta)
+        focal = o + d.scale(cam[C_FOCUS])
+        o = o + right.scale(lx) + up.scale(ly)
+        d = (focal - o).normalize()
+    return o, d
+
+
+def _ball(stream, first: int) -> Vec3:
+    return rng.unit_ball_from_uniforms(
+        *(rng.draw(stream, first + k) for k in range(rng.BALL_DRAWS)))
+
+
+def render_tiles_reference(pscene: KernelScene, cam: CameraState,
+                           config: RenderConfig, frame_seed,
+                           normalize: bool = True):
+    """The plain PyTorch version of the kernel, on any device.
+
+    Tensors over all lanes of the padded block grid, like the JAX kernel, and
+    a Python loop over samples and bounces. Per lane this adds the same values
+    in the same order as the kernel's persistent loop. Returns what
+    :func:`render_tiles` returns.
+    """
+    render_tiles_reference.calls += 1
+    dev = pscene.sph.device
+    cam_row = pack_camera(cam, config).to(dev)
+    nbx, nby = block_grid(config)
+    lane = torch.arange(nbx * nby * TILE, device=dev)
+    blk, r = lane // TILE, lane % TILE
+    px = (blk % nbx) * BLOCK_W + r % BLOCK_W
+    py = (blk // nbx) * BLOCK_H + r // BLOCK_W
+    in_image = (px < config.width) & (py < config.height)
+    pixel = py * config.width + px        # row-major id keys the streams
+    u = (px.float() + 0.5) / cam_row[C_WIDTH]
+    v = (py.float() + 0.5) / cam_row[C_HEIGHT]
+    far = cam_row[C_FAR]
+    fallback_far = far + 10.0 if config.level == 1 else far - 1.0
+    seed = int(frame_seed) & _M32
+    sph, attr = pscene.sph, pscene.attr
+
+    zero = torch.zeros_like(u)
+    cr, cg, cb, dsum = zero, zero, zero, zero
+    segs = torch.zeros((), dtype=torch.int64, device=dev)
+    for s in range(config.samples_per_pixel):
+        stream = rng.stream_init(pixel, s, seed)
+        o, d = _raygen(cam_row, config, stream, u, v)
+        ray_color = Vec3(zero + 1.0, zero + 1.0, zero + 1.0)
+        radiance = Vec3(zero, zero, zero)
+        first_depth = torch.full_like(u, _INF32)
+        active = in_image
+        for b in range(config.bounces + 1):
+            segs = segs + active.sum()
+            t, idx = _intersect_dense(o, d, sph)
+            miss = t >= _INF32
+            if b == 0:
+                first_depth = torch.where(active, t, first_depth)
+            radiance = Vec3.where(active & miss,
+                                  radiance + ray_color * background_gradient(d),
+                                  radiance)
+            active_hit = active & ~miss
+            rows = attr[:, idx.clamp(min=0)]
+            center = Vec3(rows[0], rows[1], rows[2])
+            position = o + d.scale(torch.where(miss, 0.0, t))
+            up = Vec3(zero, zero + 1.0, zero)
+            normal = Vec3.where(miss, up, (position - center).normalize())
+            hit = HitInfo(t=t, miss=miss, position=position, normal=normal,
+                          material_id=idx, front_face=d.dot(normal) < 0.0)
+            mat = MaterialLanes(base_color=Vec3(rows[3], rows[4], rows[5]),
+                                metallic=rows[6], roughness=rows[7],
+                                ior=rows[8], specular_transmission=rows[9],
+                                emissive=Vec3(rows[10], rows[11], rows[12]))
+            radiance = Vec3.where(active_hit,
+                                  radiance + ray_color * mat.emissive, radiance)
+            base = slots.bounce_base(b)
+            sc = scatter(d, hit, mat, rng.draw(stream, base + slots.S_METAL),
+                         rng.draw(stream, base + slots.S_TRANS),
+                         rng.draw(stream, base + slots.S_REFLECT),
+                         _ball(stream, base + slots.S_BALL1),
+                         _ball(stream, base + slots.S_BALL2),
+                         diffuse_mode=config.diffuse_sampling)
+            cont = active_hit & ~sc.absorbed
+            ray_color = Vec3.where(cont, ray_color * sc.attenuation, ray_color)
+            o = Vec3.where(active_hit, position, o)
+            d = Vec3.where(active_hit, sc.direction, d)
+            cont = cont & (b < config.bounces)
+            died = active & ~cont
+            # Harvest the samples that ended (gamma is per sample, wgsl:226-228).
+            g = linear_to_gamma(radiance)
+            cr = cr + torch.where(died, g.x, 0.0)
+            cg = cg + torch.where(died, g.y, 0.0)
+            cb = cb + torch.where(died, g.z, 0.0)
+            depth = torch.where(first_depth >= _INF32, fallback_far,
+                                first_depth)
+            dsum = dsum + torch.where(died, depth, 0.0)
+            active = cont
+    inv_spp = _inv_spp(config, normalize)
+    return cr * inv_spp, cg * inv_spp, cb * inv_spp, dsum * inv_spp, segs
+
+
+render_tiles_reference.calls = 0

@@ -1,0 +1,231 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one CUDA card.
+
+    python3 chip_smoke.py
+
+Run from the repository root (or anywhere: it imports the package beside
+it). It builds the port's CUDA kernel from the sources in the checkout, holds
+it against its plain PyTorch version on the card, drives the fused-renderer
+main path once at the headline settings (RTiOW final scene, 1920x1080,
+16 spp, 4 bounces) and checks that every frame went through the kernel. Each
+phase prints one line; the line before the last is the kernel table as JSON,
+and the last line is ``{"ok": true, "device": {...}}``. Any failed phase
+raises and the script exits nonzero without that line. It exits nonzero at
+once when there is no CUDA card or no port beside it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+KERNEL_SOURCE = "bevyray_tpu_torch/kernels/cuda/csrc/megakernel.cu"
+TPU_KERNEL = "bevyray_tpu/kernels/pallas/megakernel.py:1492"
+
+WIDTH, HEIGHT, SPP, BOUNCES = 1920, 1080, 16, 4
+TIMED_FRAMES = 5
+# Kernel against plain version on the card: both round in IEEE float32 with no
+# contraction, but the card's libm (log/sin/cos/exp) and torch's rsqrt differ
+# from the kernel's by ulps, which flips a path now and then; such a pixel
+# differs by up to the whole color of a sample, and its depth by up to
+# (far - 1) / spp where a first hit flips to a miss. The bars hold color and
+# depth alike: the share of pixels within PIXEL_TOL, and the mean |d| (depth's
+# relative to the plain version's mean depth).
+PIXEL_TOL, PIXEL_FRAC, MEAN_TOL, DEPTH_MEAN_RTOL, SEG_RTOL = (
+    1e-3, 0.999, 5e-5, 1e-4, 1e-3)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` in ms over ``reps`` calls, by CUDA events."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def compare(config, got, want) -> dict:
+    """Pixel agreement of two render_tiles results (block-ordered)."""
+    import torch
+
+    from bevyray_tpu_torch.kernels.cuda.megakernel import unshuffle_blocks
+
+    rgb = [torch.stack([unshuffle_blocks(c, config) for c in out[:3]], -1)
+           for out in (got, want)]
+    diff = (rgb[0] - rgb[1]).abs()
+    want_depth = unshuffle_blocks(want[3], config)
+    depth = (unshuffle_blocks(got[3], config) - want_depth).abs()
+    segs = (int(got[4]), int(want[4]))
+    return {
+        "frac_within": float((diff.amax(-1) <= PIXEL_TOL).float().mean()),
+        "mean_abs": float(diff.mean()), "max_abs": float(diff.max()),
+        "depth_frac_within": float((depth <= PIXEL_TOL).float().mean()),
+        "depth_mean_rel": float(depth.mean() / want_depth.abs().mean()),
+        "depth_max_abs": float(depth.max()),
+        "segments": segs,
+        "seg_rel": abs(segs[0] - segs[1]) / max(segs[1], 1),
+        "finite": bool(torch.isfinite(rgb[0]).all()
+                       and torch.isfinite(got[3]).all()),
+    }
+
+
+def check_agreement(name: str, stats: dict) -> None:
+    print(f"{name}: {json.dumps(stats)}", flush=True)
+    if not (stats["finite"] and stats["frac_within"] >= PIXEL_FRAC
+            and stats["mean_abs"] < MEAN_TOL
+            and stats["depth_frac_within"] >= PIXEL_FRAC
+            and stats["depth_mean_rel"] < DEPTH_MEAN_RTOL
+            and stats["seg_rel"] <= SEG_RTOL):
+        raise SystemExit(f"{name}: kernel disagrees with the plain version "
+                         f"(bars: >= {PIXEL_FRAC:.1%} of pixels within "
+                         f"{PIXEL_TOL} in color and in depth, mean |d| < "
+                         f"{MEAN_TOL}, depth mean |d| < {DEPTH_MEAN_RTOL} of "
+                         f"the mean depth, segments within {SEG_RTOL:.1%})")
+
+
+def main() -> int:
+    if not (ROOT / "bevyray_tpu_torch").is_dir():
+        print("chip_smoke: the bevyray_tpu_torch package is not beside this "
+              "script", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke run needs the card",
+              file=sys.stderr)
+        return 2
+
+    from bevyray_tpu_torch import (FusedRenderer, RaytracedCamera,
+                                   RenderConfig, rtiow)
+    from bevyray_tpu_torch.kernels.cuda import build
+    from bevyray_tpu_torch.kernels.cuda.megakernel import (
+        prepare_kernel_scene, render_tiles, render_tiles_reference)
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+
+    # Phase 1: the card and the kernel build.
+    t0 = time.perf_counter()
+    build.extension()
+    print(f"phase 1 card: {card} | kernel build {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # Phase 2: kernel against plain version on the same CUDA tensors. Level 1
+    # differs from the others in the kernel only by its fallback depth; the
+    # night scene carries the emissive term, the last case the thin lens and
+    # cosine-weighted diffuse bounces.
+    small = RenderConfig(128, 128, 4, 4, level=3, pallas_primary="off",
+                         pallas_intersect="grouped")
+    lens = RaytracedCamera(aperture=0.2, focus_distance=4.0)
+    cases = [("material_test_scene", rtiow.material_test_scene, {}),
+             ("material_test_scene", rtiow.material_test_scene, {"level": 1}),
+             ("final_scene(grid=4)",
+              lambda: rtiow.final_scene(seed=42, grid=4), {}),
+             ("final_scene(grid=4)",
+              lambda: rtiow.final_scene(seed=42, grid=4), {"level": 1}),
+             ("night_scene", rtiow.night_scene, {}),
+             ("material_test_scene(aperture=0.2)",
+              lambda: rtiow.material_test_scene(lens),
+              {"defocus": True, "diffuse_sampling": "cosine"})]
+    small_times = {}
+    for name, scene_fn, options in cases:
+        cfg = dataclasses.replace(small, **options)
+        world = scene_fn()
+        kscene = prepare_kernel_scene(world.extract(with_bvh=False, device=dev))
+        cam = world.camera_state(aspect=1.0, device=dev)
+        got = render_tiles(kscene, cam, cfg, 7)
+        want = render_tiles_reference(kscene, cam, cfg, 7)
+        label = " ".join([name] + [f"{k}={v}" for k, v in options.items()])
+        check_agreement(f"phase 2 {label} 128x128 4spp",
+                        compare(cfg, got, want))
+        if cfg.level == 3:
+            small_times[label] = (
+                cuda_ms(lambda: render_tiles(kscene, cam, cfg, 7), 10),
+                cuda_ms(lambda: render_tiles_reference(kscene, cam, cfg, 7), 3))
+    print("phase 2 times at 128x128 4spp 4 bounces (kernel ms, plain ms): "
+          + json.dumps(small_times) + f" | {card}", flush=True)
+
+    # Phase 3: the main path at full size, through the public entry points.
+    world = rtiow.final_scene(seed=42)
+    scene = world.extract(with_bvh=False, device=dev)
+    cam = world.camera_state(aspect=WIDTH / HEIGHT, device=dev)
+    config = RenderConfig(WIDTH, HEIGHT, SPP, BOUNCES, level=3,
+                          pallas_primary="off", pallas_intersect="grouped")
+    renderer = FusedRenderer(config)
+    warm = renderer.render(scene, cam, seed=0)
+    torch.cuda.synchronize()
+    render_tiles.launches = 0
+    render_tiles_reference.calls = 0
+    times, rays = [], []
+    for i in range(TIMED_FRAMES):
+        t0 = time.perf_counter()
+        frame = renderer.render(scene, cam, seed=i + 1)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        rays.append(int(frame.rays_traced))
+    launches, plain_calls = render_tiles.launches, render_tiles_reference.calls
+    if launches != TIMED_FRAMES or plain_calls:
+        raise SystemExit(f"phase 3: {launches} kernel launches and "
+                         f"{plain_calls} plain calls in {TIMED_FRAMES} frames")
+    image = frame.image
+    if (tuple(image.shape) != (HEIGHT, WIDTH, 3)
+            or not bool(torch.isfinite(image).all())
+            or not bool(torch.isfinite(frame.rt_depth).all())
+            or min(rays) <= 0 or not 0.0 < float(image.mean()) < 2.0):
+        raise SystemExit("phase 3: frame is not a finite image with traced "
+                         "segments")
+    times.sort()
+    p50_ms = times[len(times) // 2] * 1e3
+    rays_per_frame = sum(rays) / len(rays)
+    print(f"phase 3 main path {WIDTH}x{HEIGHT} {SPP}spp {BOUNCES} bounces, "
+          f"{world.n_spheres} spheres: p50 {p50_ms:.3f} ms, "
+          f"{rays_per_frame / (p50_ms * 1e-3) / 1e6:.2f} Mrays/s, "
+          f"{rays_per_frame:.0f} segments/frame, frame ms "
+          f"{[round(t * 1e3, 3) for t in times]} | {card}", flush=True)
+
+    # Phase 4: the plain version once at the main path's shapes, held against
+    # the kernel's frame of the same seed.
+    kscene = renderer.prepare(scene)
+    got = render_tiles(kscene, cam, config, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = render_tiles_reference(kscene, cam, config, 1)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    full = compare(config, got, want)
+    kernel_ms = cuda_ms(lambda: render_tiles(kscene, cam, config, 1), 3)
+    check_agreement(f"phase 4 main-path shapes, kernel {kernel_ms:.3f} ms, "
+                    f"plain {plain_ms:.1f} ms | {card}", full)
+    del warm
+
+    print(json.dumps({"kernels": [{
+        "name": "render_tiles", "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": TPU_KERNEL, "launches": launches,
+        "max_abs_err": full["max_abs"], "ms": kernel_ms,
+        "plain_ms": plain_ms}]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,165 @@
+"""The port's scene extraction and kernel-table preparation against the JAX
+package's, on the CPU.
+
+Bars: extracted tables, camera uniforms, sphere rows, group and supergroup
+AABBs, orders and the packed camera row are equal element for element. The
+port stores hit attributes in float32 where the JAX kernel keeps bf16 hi+lo
+pairs (~16 mantissa bits), so attributes agree to rtol 1e-4."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import bevyray_tpu_torch as bt
+from bevyray_tpu import RenderConfig as JRenderConfig
+from bevyray_tpu import rtiow as jrtiow
+from bevyray_tpu.kernels.pallas import grouping as jgrouping
+from bevyray_tpu.kernels.pallas import megakernel as jmk
+from bevyray_tpu.scene import components as jcomp
+from bevyray_tpu.scene.world import World as JWorld
+from bevyray_tpu_torch.core.types import scene_from_numpy
+from bevyray_tpu_torch.kernels.cuda import grouping
+from bevyray_tpu_torch.kernels.cuda import megakernel as mk
+
+torch.set_num_threads(2)
+
+SCENES = ["final_scene", "simple_scene", "material_test_scene", "night_scene"]
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _assert_tree_equal(got, want):
+    """Port NamedTuples of tensors vs JAX NamedTuples of arrays, leaf by leaf."""
+    g_leaves, w_leaves = jax.tree.leaves(
+        jax.tree.map(lambda t: t.numpy(), got)), jax.tree.leaves(_np(want))
+    assert len(g_leaves) == len(w_leaves)
+    for g, w in zip(g_leaves, w_leaves):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_extract_and_camera_equal(name):
+    pw, jw = getattr(bt.rtiow, name)(), getattr(jrtiow, name)()
+    _assert_tree_equal(pw.extract(with_bvh=False), jw.extract(with_bvh=False))
+    for aspect in (None, 16 / 9):
+        _assert_tree_equal(pw.camera_state(aspect=aspect),
+                           jw.camera_state(aspect=aspect))
+    assert pw.n_spheres == jw.n_spheres and pw.n_raster == jw.n_raster
+
+
+def test_extract_cache_and_bvh_guard():
+    w = bt.rtiow.simple_scene()
+    s1 = w.extract(with_bvh=False)
+    assert w.extract(with_bvh=False) is s1
+    w.set_translation(1, (0.0, 2.0, 0.0))
+    s2 = w.extract(with_bvh=False)
+    assert s2 is not s1 and float(s2.spheres.cy[1]) == 2.0
+    with pytest.raises(NotImplementedError, match="§A item 8"):
+        w.extract()
+
+
+def test_scene_from_numpy_round_trips():
+    jw = jrtiow.final_scene(seed=3, grid=2)
+    jw.spawn_mesh(jcomp.Transform.from_xyz(0.0, 1.0, 2.0), jcomp.cube_mesh(0.5),
+                  jcomp.StandardMaterial(base_color=(0.3, 0.6, 0.9)))
+    js, jc = jw.extract(with_bvh=False), jw.camera_state(aspect=1.5)
+    ps, pc = scene_from_numpy(_np(js), _np(jc))
+    _assert_tree_equal(ps, js)
+    _assert_tree_equal(pc, jc)
+    back, back_cam = scene_from_numpy(
+        jax.tree.map(lambda t: t.numpy(), ps),
+        jax.tree.map(lambda t: t.numpy(), pc))
+    _assert_tree_equal(back, js)
+    _assert_tree_equal(back_cam, jc)
+    with pytest.raises(NotImplementedError, match="§A item 8"):
+        scene_from_numpy(_np(jw.extract()), _np(jc))
+
+
+def _random_world(seed, n):
+    """A JAX-package world of ``n`` random spheres (overlaps, tiny radii)."""
+    r = np.random.RandomState(seed)
+    w = JWorld()
+    for _ in range(n):
+        w.spawn_sphere(jcomp.Transform.from_xyz(*(r.rand(3) * 20 - 10)),
+                       jcomp.RaytracedSphere(radius=float(r.rand() * 0.8
+                                                          + 1e-3)),
+                       jcomp.StandardMaterial(base_color=tuple(r.rand(3)),
+                                              metallic=float(r.rand() < 0.3)))
+    return w
+
+
+def _decoded_attr(attr):
+    """The JAX kernel's bf16 attribute table as float32 rows: center hi+lo
+    (rows 0-5) then materials hi+lo (rows 6-25)."""
+    a = np.asarray(jnp.asarray(attr, jnp.float32))
+    return np.concatenate([a[0:3] + a[3:6], a[6:16] + a[16:26]])
+
+
+@pytest.mark.parametrize("case", ["final", "random1100", "mesh"])
+def test_prepare_kernel_scene_matches(case):
+    if case == "final":
+        jw = jrtiow.final_scene(seed=42)
+    elif case == "random1100":   # 1152 padded spheres: 36 groups, supergroups
+        jw = _random_world(2, 1100)
+    else:
+        jw = jrtiow.material_test_scene()
+        jw.spawn_mesh(jcomp.Transform.from_xyz(0.0, 0.3, 1.0),
+                      jcomp.cube_mesh(0.4),
+                      jcomp.StandardMaterial(base_color=(0.9, 0.1, 0.1)))
+    js = jw.extract(with_bvh=False)
+    want = jmk.jitted_prepare(0, "kd")(js)
+    ps, _ = scene_from_numpy(_np(js), _np(jw.camera_state()))
+    got = mk.prepare_kernel_scene(ps)
+    np.testing.assert_array_equal(got.sph.numpy(), np.asarray(want.sph))
+    n_cols = got.gaabb.shape[1]
+    n_groups = got.sph.shape[1] // mk.GROUP
+    assert n_cols == (n_groups + -(-n_groups // mk.SUPER)
+                      if n_groups >= 4 * mk.SUPER else n_groups)
+    np.testing.assert_array_equal(got.gaabb.numpy(),
+                                  np.asarray(want.gaabb)[:, :n_cols])
+    np.testing.assert_array_equal(got.tri.numpy(), np.asarray(want.tri))
+    assert got.attr.shape == (mk.N_ATTR, want.attr.shape[1])
+    np.testing.assert_allclose(got.attr.numpy(), _decoded_attr(want.attr),
+                               rtol=1e-4)
+
+
+def test_orders_match():
+    jw = _random_world(4, 300)
+    js = jw.extract(with_bvh=False)
+    sp = _np(js.spheres)
+    for gc in (16, 32):
+        np.testing.assert_array_equal(
+            grouping.kd_order(sp.cx, sp.cy, sp.cz, sp.radius, sp.valid, gc),
+            jgrouping.kd_order(sp.cx, sp.cy, sp.cz, sp.radius, sp.valid, gc))
+    ps, _ = scene_from_numpy(_np(js), _np(jw.camera_state()))
+    want = jnp.argsort(jmk._morton_key(*(js.spheres[i] for i in (0, 1, 2, 3, 5))))
+    np.testing.assert_array_equal(mk.morton_order(ps.spheres).numpy(),
+                                  np.asarray(want))
+    assert grouping.cached_order(ps) is grouping.cached_order(ps)
+    assert mk.auto_cand_size(512) == jmk._auto_cand_size(512)
+    assert mk.auto_cand_size(5120) == jmk._auto_cand_size(5120)
+
+
+@pytest.mark.parametrize("size", [(64, 64), (40, 24), (200, 130)])
+def test_camera_row_and_block_shuffles_match(size):
+    w, h = size
+    jw = jrtiow.final_scene(seed=1, grid=1)
+    jcam = jw.camera_state(aspect=w / h)
+    jcfg = JRenderConfig(width=w, height=h)
+    _, pcam = scene_from_numpy(_np(jw.extract(with_bvh=False)), _np(jcam))
+    cfg = bt.RenderConfig(width=w, height=h)
+    want_cam = np.asarray(jax.jit(lambda c: jmk._pack_camera(c, jcfg))(jcam))
+    np.testing.assert_array_equal(mk.pack_camera(pcam, cfg).numpy(),
+                                  want_cam[0])
+    assert mk.block_grid(cfg) == jmk.block_grid(jcfg)
+    img = np.random.RandomState(0).rand(h * w).astype(np.float32)
+    blocks = mk.shuffle_blocks(torch.as_tensor(img), cfg, fill=-1.0)
+    np.testing.assert_array_equal(
+        blocks.numpy(), np.asarray(jmk.shuffle_blocks(img, jcfg, fill=-1.0)))
+    np.testing.assert_array_equal(
+        mk.unshuffle_blocks(blocks.reshape(-1), cfg).numpy(), img)
