@@ -171,6 +171,19 @@ class RenderConfig:
         return self.width * self.height
 
 
+def resolve_device(device=None) -> torch.device:
+    """``device``, or the CUDA card when it is None. The port's entry points
+    run on the card unless the caller asks for the CPU: without a card, None
+    raises instead of falling back."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card by default; pass "
+            "device=\"cpu\" to run its plain PyTorch versions on the CPU")
+    return torch.device("cuda")
+
+
 def pad_to(n: int, multiple: int = LANE) -> int:
     return int(-(-n // multiple) * multiple)
 
@@ -241,7 +254,8 @@ def make_materials_np(table: np.ndarray, capacity: Optional[int] = None,
 def scene_from_numpy(scene, cam, device=None):
     """The JAX package's ``SceneBuffers`` and ``CameraState``, given with numpy
     leaves (``np.asarray`` of each), as the port's ``(SceneBuffers,
-    CameraState)`` on ``device``.
+    CameraState)`` on ``device`` (None: the CUDA card, see
+    :func:`resolve_device`).
 
     Field names and layouts are the same in both packages, so each leaf is
     carried over as it is. A scene with a BVH raises: the BVH is not ported yet
@@ -251,6 +265,7 @@ def scene_from_numpy(scene, cam, device=None):
         raise NotImplementedError(
             "BVH tables are not ported yet (ROADMAP §A item 8); extract the "
             "scene with with_bvh=False")
+    device = resolve_device(device)
 
     def t(v):
         return torch.as_tensor(np.array(v), device=device)

@@ -8,19 +8,16 @@
 #include <c10/cuda/CUDAGuard.h>
 #include <c10/cuda/CUDAStream.h>
 
-void launch_render_tiles(const float* cam, const float* sph, int n_spheres,
-                         const float* attr, int attr_stride, float* out_r,
-                         float* out_g, float* out_b, float* out_depth,
-                         long long* segments, int n_lanes, int nbx, int width,
-                         int height, int spp, int bounces, unsigned int seed,
-                         float inv_spp, int level, int defocus, int cosine,
-                         cudaStream_t stream);
+#include "megakernel.h"
 
 namespace {
 
 constexpr int64_t kNCam = 24;
 constexpr int64_t kNAttr = 13;
 constexpr int64_t kTile = 64 * 64;
+constexpr int64_t kSlRows = 5;
+constexpr int64_t kSlChunk = 8;
+constexpr int64_t kSlMax = 512;
 
 void check_f32(const torch::Tensor& t, const torch::Tensor& like, const char* name) {
   TORCH_CHECK(t.is_cuda() && t.device() == like.device(), name,
@@ -29,24 +26,31 @@ void check_f32(const torch::Tensor& t, const torch::Tensor& like, const char* na
   TORCH_CHECK(t.is_contiguous(), name, " must be contiguous");
 }
 
+// `sl`/`slmeta` are read only when `split`; `gaabb`'s candidate columns only
+// when `candidates`.
 void render_tiles(const torch::Tensor& cam, const torch::Tensor& sph,
-                  const torch::Tensor& attr, torch::Tensor out_r,
-                  torch::Tensor out_g, torch::Tensor out_b,
+                  const torch::Tensor& attr, const torch::Tensor& gaabb,
+                  const torch::Tensor& sl, const torch::Tensor& slmeta,
+                  torch::Tensor out_r, torch::Tensor out_g, torch::Tensor out_b,
                   torch::Tensor out_depth, torch::Tensor segments, int64_t nbx,
                   int64_t width, int64_t height, int64_t spp, int64_t bounces,
                   int64_t seed, double inv_spp, int64_t level, bool defocus,
-                  bool cosine) {
+                  bool cosine, bool split, bool candidates, int64_t gc,
+                  int64_t n_cand, int64_t cand_off) {
   check_f32(sph, sph, "sph");
   check_f32(cam, sph, "cam");
   check_f32(attr, sph, "attr");
+  check_f32(gaabb, sph, "gaabb");
   TORCH_CHECK(cam.numel() == kNCam, "cam must hold ", kNCam, " floats");
   TORCH_CHECK(sph.dim() == 2 && sph.size(0) == 4 && sph.size(1) > 0,
               "sph must be (4, S)");
   TORCH_CHECK(attr.dim() == 2 && attr.size(0) == kNAttr && attr.size(1) >= sph.size(1),
               "attr must be (13, >= S)");
+  TORCH_CHECK(gaabb.dim() == 2 && gaabb.size(0) == 6, "gaabb must be (6, columns)");
   const int64_t n_lanes = out_r.numel();
+  const int64_t n_tiles = n_lanes / kTile;
   TORCH_CHECK(n_lanes > 0 && n_lanes % kTile == 0, "outputs must cover whole 64x64 blocks");
-  TORCH_CHECK(n_lanes / kTile == nbx * ((height + 63) / 64) && nbx == (width + 63) / 64,
+  TORCH_CHECK(n_tiles == nbx * ((height + 63) / 64) && nbx == (width + 63) / 64,
               "outputs must cover the frame's block grid");
   for (const auto* out : {&out_r, &out_g, &out_b, &out_depth}) {
     check_f32(*out, sph, "outputs");
@@ -56,21 +60,58 @@ void render_tiles(const torch::Tensor& cam, const torch::Tensor& sph,
                   segments.scalar_type() == torch::kInt64 && segments.numel() == 1,
               "segments must be one int64 on the scene's device");
   TORCH_CHECK(spp >= 1 && bounces >= 0, "spp must be >= 1 and bounces >= 0");
+  TORCH_CHECK(!candidates || (gc > 0 && n_cand > 0 && cand_off >= 0 &&
+                              cand_off + n_cand <= gaabb.size(1) &&
+                              n_cand * gc >= sph.size(1)),
+              "candidate groups must cover the table and have gaabb columns");
+  int64_t sl_cap = 0;
+  if (split) {
+    check_f32(sl, sph, "sl");
+    check_f32(slmeta, sph, "slmeta");
+    sl_cap = sl.dim() == 3 ? sl.size(2) : 0;
+    TORCH_CHECK(sl_cap >= kSlChunk && sl_cap <= kSlMax && sl_cap % kSlChunk == 0 &&
+                    sl.size(0) == n_tiles && sl.size(1) == kSlRows,
+                "sl must be (n_tiles, 5, K) with K a multiple of 8 up to 512");
+    TORCH_CHECK(slmeta.dim() == 2 && slmeta.size(0) == n_tiles &&
+                    slmeta.size(1) == 1 + sl_cap / kSlChunk,
+                "slmeta must be (n_tiles, 1 + K/8)");
+  }
+
+  RenderArgs args{};
+  args.cam = cam.data_ptr<float>();
+  args.sph = sph.data_ptr<float>();
+  args.attr = attr.data_ptr<float>();
+  args.gaabb = gaabb.data_ptr<float>();
+  args.sl = split ? sl.data_ptr<float>() : nullptr;
+  args.slmeta = split ? slmeta.data_ptr<float>() : nullptr;
+  args.out_r = out_r.data_ptr<float>();
+  args.out_g = out_g.data_ptr<float>();
+  args.out_b = out_b.data_ptr<float>();
+  args.out_depth = out_depth.data_ptr<float>();
+  args.segments = reinterpret_cast<long long*>(segments.data_ptr<int64_t>());
+  args.n_spheres = static_cast<int>(sph.size(1));
+  args.attr_stride = static_cast<int>(attr.size(1));
+  args.gaabb_stride = static_cast<int>(gaabb.size(1));
+  args.n_lanes = static_cast<int>(n_lanes);
+  args.nbx = static_cast<int>(nbx);
+  args.width = static_cast<int>(width);
+  args.height = static_cast<int>(height);
+  args.spp = static_cast<int>(spp);
+  args.bounces = static_cast<int>(bounces);
+  args.seed = static_cast<unsigned int>(seed & 0xFFFFFFFF);
+  args.inv_spp = static_cast<float>(inv_spp);
+  args.level = static_cast<int>(level);
+  args.defocus = defocus ? 1 : 0;
+  args.cosine = cosine ? 1 : 0;
+  args.split = split ? 1 : 0;
+  args.candidates = candidates ? 1 : 0;
+  args.sl_cap = static_cast<int>(sl_cap);
+  args.gc = static_cast<int>(gc);
+  args.n_cand = static_cast<int>(n_cand);
+  args.cand_off = static_cast<int>(cand_off);
 
   const c10::cuda::CUDAGuard guard(sph.device());
-  launch_render_tiles(cam.data_ptr<float>(), sph.data_ptr<float>(),
-                      static_cast<int>(sph.size(1)), attr.data_ptr<float>(),
-                      static_cast<int>(attr.size(1)), out_r.data_ptr<float>(),
-                      out_g.data_ptr<float>(), out_b.data_ptr<float>(),
-                      out_depth.data_ptr<float>(),
-                      reinterpret_cast<long long*>(segments.data_ptr<int64_t>()),
-                      static_cast<int>(n_lanes), static_cast<int>(nbx),
-                      static_cast<int>(width), static_cast<int>(height),
-                      static_cast<int>(spp), static_cast<int>(bounces),
-                      static_cast<unsigned int>(seed & 0xFFFFFFFF),
-                      static_cast<float>(inv_spp), static_cast<int>(level),
-                      defocus ? 1 : 0, cosine ? 1 : 0,
-                      c10::cuda::getCurrentCUDAStream().stream());
+  launch_render_tiles(args, c10::cuda::getCurrentCUDAStream().stream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 

@@ -1,0 +1,44 @@
+// The launch interface of the fused path-tracing kernel (megakernel.cu),
+// shared with its Python binding (binding.cpp). Plain C types only, so the
+// .cu file needs none of PyTorch's headers.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+struct RenderArgs {
+  const float* cam;     // (24,) packed camera row
+  const float* sph;     // (4, n_spheres): cx, cy, cz, r²
+  const float* attr;    // (13, attr_stride): center xyz, 10 material floats
+  const float* gaabb;   // (6, gaabb_stride): min xyz, max xyz of each box
+  const float* sl;      // (n_tiles, 5, sl_cap) shortlists, or null
+  const float* slmeta;  // (n_tiles, 1 + sl_cap / 8): [full flag, chunk t_lo...]
+  float* out_r;
+  float* out_g;
+  float* out_b;
+  float* out_depth;
+  long long* segments;  // one int64, added to
+  int n_spheres;
+  int attr_stride;
+  int gaabb_stride;
+  int n_lanes;          // n_tiles * 4096
+  int nbx;
+  int width;
+  int height;
+  int spp;
+  int bounces;
+  unsigned int seed;
+  float inv_spp;
+  int level;
+  int defocus;
+  int cosine;
+  int split;            // bounce 0 walks the block's shortlist
+  int candidates;       // the full walk visits candidate groups only
+  int sl_cap;           // shortlist capacity K (a multiple of 8, <= 512)
+  int gc;               // spheres per candidate group
+  int n_cand;           // candidate groups
+  int cand_off;         // gaabb column of candidate group 0
+};
+
+// Launches on `stream`; allocates nothing. The caller checks the launch.
+void launch_render_tiles(const RenderArgs& args, cudaStream_t stream);

@@ -4,21 +4,30 @@ and its plain PyTorch version.
 Counterpart of ``bevyray_tpu/kernels/pallas/megakernel.py``. The TPU kernel
 (``render_tiles`` -> ``_render_kernel``) traces the whole frame in one
 ``pallas_call``; here ``render_tiles`` launches ``csrc/megakernel.cu``, one
-thread per pixel looping over samples, bounces and spheres. It computes the
-JAX kernel's plain branch: the persistent sample loop over the full sphere
-table with the exact PCG streams (``pallas_primary="off"``,
-``pallas_intersect="grouped"``, ``exact_rng=True``, no triangles). The JAX
-package pins every other branch of its kernel as value-identical to that one.
+thread per pixel looping over samples, bounces and spheres, with the exact
+PCG streams (``exact_rng=True``) and no triangles. It runs the JAX kernel's
+four sphere-walk modes, (primary, intersect):
+
+- primary ``"off"``: every bounce takes the full walk; ``"split"`` (``sl``
+  and ``slmeta`` given): bounce 0 walks the pixel block's host-built
+  shortlist (:mod:`.primary`) front to back, and blocks whose shortlist
+  overflowed take the full walk;
+- intersect ``"grouped"``: the full walk tests every sphere of the table;
+  ``"candidates"``: it tests only the spheres of the candidate groups whose
+  AABB the ray enters ahead of its best hit.
+
+All four give the same values (the lowest index wins every tie);
+:func:`use_candidate_walk` resolves ``"auto"`` as the JAX kernel does.
 
 The contract carried over from the TPU kernel:
 
 - outputs are block-ordered flat r/g/b/depth (64x64 pixel blocks, row-major
   over the padded block grid; :func:`unshuffle_blocks` restores scanlines),
   per-spp means or, with ``normalize=False``, sums, plus the segment count;
-- sphere tests run in q = a·t space: accept ``q > a·T_MIN`` and strict
-  ``q < best_q`` in ascending table order, so the lowest index wins ties and
-  the sphere-0 padding duplicates lose every tie; a negative discriminant
-  gives a NaN that fails both compares;
+- sphere tests run in q = a·t space: accept ``q > a·T_MIN`` and keep the
+  lexicographic minimum of (q, table index), so the lowest index wins ties
+  and the sphere-0 padding duplicates lose every tie; a negative
+  discriminant gives a NaN that fails every compare;
 - draws are keyed by (row-major pixel id, sample, slot) (:mod:`...engine.slots`);
 - gamma is applied per sample, and the depth sum uses ``far + 10`` (level 1)
   or ``far - 1`` (other levels) where a sample's first segment missed.
@@ -49,7 +58,9 @@ TILE = BLOCK_W * BLOCK_H   # lanes per pixel block
 GROUP = 32             # spheres per culling group (group AABB columns)
 SUPER = 8              # groups per supergroup (appended when >= 4*SUPER groups)
 CAND_UNIT = 16         # the auto candidate-group size quantum
-MAX_CAND_GROUPS = 62   # candidate groups the two-word per-lane mask holds
+MAX_CAND_GROUPS = 62   # candidate groups the auto size aims at (two mask words)
+MAX_CAND_WORDS = 6     # 31-group mask words the JAX kernel allows at most
+MAX_SPLIT_SPP = 32     # the JAX kernel's phase-split spp limit (its VMEM park)
 
 # Attribute table rows: sphere center (triangle unit normal), then materials.
 N_MAT = 10             # base rgb, metallic, roughness, ior, transmission, emissive rgb
@@ -67,20 +78,27 @@ _INF32 = float(np.float32(INF))
 # Lanes per step of the plain version's dense [lanes x spheres] test, so its
 # temporaries stay near 16 MB whatever the frame size.
 _DENSE_ELEMS = 1 << 22
+_NO_INDEX = torch.iinfo(torch.int64).max   # above every sphere index
 
 
 class KernelScene(NamedTuple):
-    """Kernel-ready scene tables, all float32 on the scene's device.
+    """Kernel-ready scene tables, all float32 on the scene's device, and the
+    candidate-group geometry.
 
     The sphere order is a permutation (kd clusters by default) whose group
     AABBs are consecutive runs; padding lanes duplicate sphere 0 (or, in an
     empty scene, sit at the origin with r² = -1e30, so every test misses).
+    Candidate group g holds spheres g·gc .. g·gc + gc - 1 (those below S);
+    its AABB is ``gaabb`` column ``cand_off + g``.
     """
 
     sph: torch.Tensor    # (4, S): cx, cy, cz, radius²
     attr: torch.Tensor   # (N_ATTR, S+T): center|normal xyz, 10 material floats
-    gaabb: torch.Tensor  # (6, n_groups [+ n_super]): min xyz, max xyz
+    gaabb: torch.Tensor  # (6, n_groups [+ n_super] [+ n_cand]): min, max xyz
     tri: torch.Tensor    # (10, T): ax..cz, valid — T = 0 without meshes
+    gc: int              # spheres per candidate group
+    n_cand: int          # candidate groups, ceil(S / gc)
+    cand_off: int        # gaabb column of candidate group 0
 
 
 def auto_cand_size(s: int) -> int:
@@ -146,14 +164,28 @@ def _invert_empty(gmin, gmax):
 def prepare_kernel_scene(scene: SceneBuffers, cand_size: int = 0,
                          order=None) -> KernelScene:
     """Permute the sphere table, resolve the material indirection to per-sphere
-    rows, and build the group (and, from 4*SUPER groups on, supergroup) AABBs.
+    rows, and build the group (and, from 4*SUPER groups on, supergroup) AABBs
+    and, unless the candidate groups are the GROUP-sphere groups themselves,
+    the candidate-group AABBs after them.
 
-    ``order``: sphere permutation (a tensor of table indices); None takes the
-    kd cluster order for group size ``cand_size`` (0 = :func:`auto_cand_size`),
-    the JAX package's shipped default. Hit results do not depend on it.
+    ``cand_size``: spheres per candidate group, a multiple of 8 (0 =
+    :func:`auto_cand_size`); at most 31 * MAX_CAND_WORDS groups. ``order``:
+    sphere permutation (a tensor of table indices); None takes the kd cluster
+    order for that group size, the JAX package's shipped default. Hit results
+    do not depend on it.
     """
     from .grouping import cached_order
 
+    s = scene.spheres.cx.shape[0]
+    gc = cand_size or auto_cand_size(s)
+    if gc % 8:
+        raise ValueError(f"pallas_cand_size={gc} must be a multiple of 8")
+    n_cand = -(-s // gc)
+    if n_cand > 31 * MAX_CAND_WORDS:
+        raise ValueError(
+            f"pallas_cand_size={gc} needs {n_cand} candidate groups for "
+            f"{s} padded spheres — the per-lane mask holds at most "
+            f"{31 * MAX_CAND_WORDS} ({MAX_CAND_WORDS} words)")
     if order is None:
         order = cached_order(scene, cand_size)
     sp = type(scene.spheres)(*(leaf[order] for leaf in scene.spheres))
@@ -196,7 +228,6 @@ def prepare_kernel_scene(scene: SceneBuffers, cand_size: int = 0,
                        torch.where(valid, r2, pad_r2)])
 
     # Conservative group AABBs over the permuted order: center ± |radius|.
-    s = sph.shape[1]
     live = radius > 0.0
     mins = torch.stack([torch.where(live, c - radius, float("inf"))
                         for c in (sp.cx, sp.cy, sp.cz)])
@@ -215,9 +246,22 @@ def prepare_kernel_scene(scene: SceneBuffers, cand_size: int = 0,
         smin, smax = _invert_empty(smin, smax)
         gmin_f = torch.cat([gmin_f, smin], dim=1)
         gmax_f = torch.cat([gmax_f, smax], dim=1)
+    cand_off = 0
+    if gc != GROUP:
+        # Candidate-group columns after [groups | supergroups], over the
+        # sphere-level bounds (padded to n_cand * gc) so empty groups invert.
+        cand_off = gmin_f.shape[1]
+        fill = torch.full((3, n_cand * gc - s), float("inf"),
+                          device=sph.device)
+        cmin, cmax = _invert_empty(*_group_boxes(
+            torch.cat([mins, fill], dim=1), torch.cat([maxs, -fill], dim=1),
+            gc))
+        gmin_f = torch.cat([gmin_f, cmin], dim=1)
+        gmax_f = torch.cat([gmax_f, cmax], dim=1)
     gaabb = torch.cat([gmin_f, gmax_f])
     return KernelScene(sph=sph.contiguous(), attr=attr.contiguous(),
-                       gaabb=gaabb.contiguous(), tri=tri)
+                       gaabb=gaabb.contiguous(), tri=tri, gc=gc,
+                       n_cand=n_cand, cand_off=cand_off)
 
 
 def pack_camera(cam: CameraState, config: RenderConfig) -> torch.Tensor:
@@ -270,11 +314,31 @@ def shuffle_blocks(flat: torch.Tensor, config: RenderConfig,
     return img.reshape(nbx * nby, TILE // 128, 128)
 
 
+def use_candidate_walk(config: RenderConfig, n_spheres_padded: int,
+                       phase_split: bool = False) -> bool:
+    """The full walk's mode, as the JAX kernel resolves it
+    (``_use_candidate_walk``): ``"auto"`` takes the candidate walk from 512
+    padded spheres with the phase split and from 1025 without."""
+    if config.pallas_intersect == "candidates":
+        return True
+    if config.pallas_intersect == "auto":
+        return n_spheres_padded >= (512 if phase_split else 1025)
+    return False
+
+
+def kernel_mode(pscene: KernelScene, config: RenderConfig, sl) -> tuple:
+    """(primary, intersect) that :func:`render_tiles` runs for these inputs:
+    ("split" | "off", "candidates" | "grouped")."""
+    split = sl is not None
+    candidates = use_candidate_walk(config, pscene.sph.shape[1], split)
+    return ("split" if split else "off",
+            "candidates" if candidates else "grouped")
+
+
 def _check_slice(pscene: KernelScene, exact_rng, block_offset, sample_offset,
-                 n_blocks_local, sl, spp_map):
+                 n_blocks_local, spp_map):
     """Raise for the inputs whose kernel branch is not ported yet."""
     missing = [
-        (sl is not None, "phase-split shortlists (sl)", "B3"),
         (spp_map is not None, "adaptive sampling (spp_map)", "B2"),
         (bool(block_offset) or bool(sample_offset)
          or n_blocks_local is not None,
@@ -288,42 +352,81 @@ def _check_slice(pscene: KernelScene, exact_rng, block_offset, sample_offset,
                 f"{what} is not ported to the CUDA kernel yet (ROADMAP {item})")
 
 
+def _check_shortlists(pscene: KernelScene, config: RenderConfig, sl, slmeta):
+    """Shapes, type and device of the phase-split inputs (:mod:`.primary`)."""
+    from .primary import N_SL_ROWS, SL_CHUNK, SL_MAX
+
+    if (sl is None) != (slmeta is None):
+        raise ValueError("sl and slmeta come together")
+    if sl is None:
+        return
+    if config.samples_per_pixel > MAX_SPLIT_SPP:
+        raise ValueError(f"the phase split takes at most {MAX_SPLIT_SPP} "
+                         "samples per pixel")
+    nbx, nby = block_grid(config)
+    k = sl.shape[-1]
+    if (sl.shape != (nbx * nby, N_SL_ROWS, k) or k % SL_CHUNK
+            or not SL_CHUNK <= k <= SL_MAX
+            or slmeta.shape != (nbx * nby, 1 + k // SL_CHUNK)):
+        raise ValueError(
+            f"shortlists {tuple(sl.shape)} / {tuple(slmeta.shape)} must be "
+            f"({nbx * nby}, {N_SL_ROWS}, K) / ({nbx * nby}, 1 + K/{SL_CHUNK}) "
+            f"with K a multiple of {SL_CHUNK} up to {SL_MAX}")
+    for t in (sl, slmeta):
+        if t.dtype != torch.float32 or t.device != pscene.sph.device:
+            raise ValueError("sl and slmeta must be float32 tensors on the "
+                             "scene's device")
+
+
 def render_tiles(pscene: KernelScene, cam: CameraState, config: RenderConfig,
                  frame_seed, exact_rng: bool = True, block_offset=0,
                  sample_offset=0, n_blocks_local=None, normalize: bool = True,
-                 sl=None, spp_map=None):
+                 sl=None, slmeta=None, spp_map=None):
     """Trace the frame. Returns (r, g, b, depth) as flat block-ordered float32
     tensors of nbx*nby*TILE lanes (pass through :func:`unshuffle_blocks`) and
     the traced-segment count as a 0-d int64 tensor; ``normalize=False`` gives
     sample sums instead of per-spp means.
+
+    ``sl``/``slmeta``: per-block primary shortlists
+    (:func:`.primary.device_shortlists_for`); given, bounce 0 runs the phase
+    split. The full walk's mode comes from ``config`` and the table size
+    (:func:`kernel_mode`).
 
     On CPU tensors this runs :func:`render_tiles_reference`. On CUDA tensors
     it launches the CUDA kernel (built on first use) or raises; it never
     falls back. ``render_tiles.launches`` counts the kernel's launches.
     """
     _check_slice(pscene, exact_rng, block_offset, sample_offset,
-                 n_blocks_local, sl, spp_map)
+                 n_blocks_local, spp_map)
+    _check_shortlists(pscene, config, sl, slmeta)
     dev = pscene.sph.device
     if dev.type == "cpu":
         return render_tiles_reference(pscene, cam, config, frame_seed,
-                                      normalize=normalize)
+                                      normalize=normalize, sl=sl,
+                                      slmeta=slmeta)
     if dev.type != "cuda":
         raise ValueError(f"render_tiles takes CPU or CUDA tensors, not {dev}")
     from .build import extension
 
     ext = extension()
+    mode = kernel_mode(pscene, config, sl)
     nbx, nby = block_grid(config)
     n_lanes = nbx * nby * TILE
     cam_row = pack_camera(cam, config).to(dev)
     outs = [torch.empty(n_lanes, dtype=torch.float32, device=dev)
             for _ in range(4)]
     segs = torch.zeros(1, dtype=torch.int64, device=dev)
-    ext.render_tiles(cam_row, pscene.sph, pscene.attr, *outs, segs,
+    if sl is None:
+        sl = slmeta = torch.empty(0, dtype=torch.float32, device=dev)
+    ext.render_tiles(cam_row, pscene.sph, pscene.attr, pscene.gaabb,
+                     sl.contiguous(), slmeta.contiguous(), *outs, segs,
                      nbx, config.width, config.height,
                      config.samples_per_pixel, config.bounces,
                      int(frame_seed) & _M32, _inv_spp(config, normalize),
                      config.level, config.defocus,
-                     config.diffuse_sampling == "cosine")
+                     config.diffuse_sampling == "cosine", mode[0] == "split",
+                     mode[1] == "candidates", pscene.gc, pscene.n_cand,
+                     pscene.cand_off)
     render_tiles.launches += 1
     return (*outs, segs[0])
 
@@ -336,39 +439,150 @@ def _inv_spp(config: RenderConfig, normalize: bool) -> float:
             else 1.0)
 
 
-def _intersect_dense(o: Vec3, d: Vec3, sph: torch.Tensor):
-    """Nearest sphere hit per lane as (t, index), INF / -1 on a miss.
+def _quadratic_q(o: Vec3, d: Vec3, a, cx, cy, cz, r2):
+    """q = a·t of the near root for lanes [m] against spheres [m, k] (or
+    [k]), in the kernel's order of operations; NaN where the discriminant is
+    negative."""
+    ocx = cx - o.x[:, None]
+    ocy = cy - o.y[:, None]
+    ocz = cz - o.z[:, None]
+    h = d.x[:, None] * ocx + d.y[:, None] * ocy + d.z[:, None] * ocz
+    cc = ocx * ocx + ocy * ocy + ocz * ocz - r2
+    disc = h * h - a[:, None] * cc
+    return h - torch.sqrt(disc)
 
-    A dense [lanes x S] q = a·t matrix: entries that fail ``q > a·T_MIN`` or
-    ``q < INF`` (a NaN from a negative discriminant fails both) become +inf,
-    and ``argmin`` takes the first minimum — the strict-< ascending walk of
-    the kernel. Steps over lanes to bound the temporaries.
-    """
+
+def _accepted(q, q_min):
+    """+inf where a test fails ``q > a·T_MIN`` or ``q < INF`` (NaN fails
+    both), else q."""
+    return torch.where((q > q_min[:, None]) & (q < _INF32), q, float("inf"))
+
+
+def _candidate_groups(o: Vec3, d: Vec3, a, pscene: KernelScene):
+    """([m, n_cand] bool, [m, n_cand] a·t_near): the ray enters candidate
+    group g's AABB ahead of a miss (``_CandidateWalk.build`` with best_q =
+    INF): t_far >= t_near, t_far > 0 and a·t_near < INF.
+    ``torch.minimum``/``maximum`` keep NaN (0 · inf on a face plane) as
+    ``jnp.minimum``/``maximum`` do, so such a group is not entered."""
+    box = pscene.gaabb[:, pscene.cand_off:pscene.cand_off + pscene.n_cand]
+    t = [(box[k] - c[:, None]) * (1.0 / dc)[:, None]
+         for c, dc, k in ((o.x, d.x, 0), (o.x, d.x, 3), (o.y, d.y, 1),
+                          (o.y, d.y, 4), (o.z, d.z, 2), (o.z, d.z, 5))]
+    mn, mx = torch.minimum, torch.maximum
+    t_near = mx(mx(mn(t[0], t[1]), mn(t[2], t[3])), mn(t[4], t[5]))
+    t_far = mn(mn(mx(t[0], t[1]), mx(t[2], t[3])), mx(t[4], t[5]))
+    near_q = a[:, None] * t_near
+    return (t_far >= t_near) & (t_far > 0.0) & (near_q < _INF32), near_q
+
+
+def _hit(best_q, best_i, inv_a):
+    """(t, index) from the carried (q, index); INF / -1 on a miss."""
+    hit = best_q < _INF32
+    return (torch.where(hit, best_q * inv_a, _INF32),
+            torch.where(hit, best_i, -1))
+
+
+def _intersect_full(o: Vec3, d: Vec3, pscene: KernelScene, candidates: bool,
+                    work: dict):
+    """The full walk for every lane as (t, index): a dense [lanes x S] q
+    matrix whose first minimum (``argmin``) is the lexicographic minimum of
+    (q, index). In candidates mode a sphere counts only where the ray enters
+    its candidate group (:func:`_candidate_groups`); the kernel's pruning of
+    groups entered behind the best hit drops nothing that could win. Steps
+    over lanes to bound the temporaries, and adds to ``work`` the slab tests
+    (every lane against every candidate group) and the sphere tests that the
+    hits need: every sphere in the full walk; in the candidate walk those of
+    the groups entered no farther than the lane's best hit, which the
+    kernel, pruning against its best hit so far, tests at least."""
+    sph = pscene.sph
     a = d.dot(d)
-    inv_a = 1.0 / a
     q_min = a * T_MIN
     n, s = a.shape[0], sph.shape[1]
     best_q = torch.empty_like(a)
     best_i = torch.empty(n, dtype=torch.int64, device=a.device)
+    group = torch.arange(s, device=a.device) // pscene.gc
+    sizes = torch.bincount(group, minlength=pscene.n_cand).to(a.dtype)
     step = max(1, _DENSE_ELEMS // s)
     for lo in range(0, n, step):
-        sl = slice(lo, lo + step)
-        dx, dy, dz = d.x[sl, None], d.y[sl, None], d.z[sl, None]
-        ocx = sph[0] - o.x[sl, None]
-        ocy = sph[1] - o.y[sl, None]
-        ocz = sph[2] - o.z[sl, None]
-        h = dx * ocx + dy * ocy + dz * ocz
-        cc = ocx * ocx + ocy * ocy + ocz * ocz - sph[3]
-        disc = h * h - a[sl, None] * cc
-        q = h - torch.sqrt(disc)
-        ok = (q > q_min[sl, None]) & (q < _INF32)
-        q = torch.where(ok, q, float("inf"))
+        span = slice(lo, lo + step)
+        ol, dl = Vec3(*(c[span] for c in o)), Vec3(*(c[span] for c in d))
+        q = _accepted(_quadratic_q(ol, dl, a[span], *sph), q_min[span])
+        if candidates:
+            entered, near_q = _candidate_groups(ol, dl, a[span], pscene)
+            q = torch.where(entered[:, group], q, float("inf"))
         idx = torch.argmin(q, dim=1)
-        best_i[sl] = idx
-        best_q[sl] = torch.gather(q, 1, idx[:, None])[:, 0]
-    hit = best_q < _INF32
-    t = torch.where(hit, best_q * inv_a, _INF32)
-    return t, torch.where(hit, best_i, -1)
+        bq = torch.gather(q, 1, idx[:, None])[:, 0]
+        best_i[span], best_q[span] = idx, bq
+        if candidates:
+            needed = entered & (near_q <= bq[:, None])
+            work["sphere_tests"] += int((needed.to(a.dtype) @ sizes).sum())
+            work["slab_tests"] += entered.numel()
+        else:
+            work["sphere_tests"] += q.numel()
+    return _hit(best_q, best_i, 1.0 / a)
+
+
+def _intersect_shortlist(o: Vec3, d: Vec3, sl: torch.Tensor, slmeta, blk,
+                         work: dict):
+    """Bounce 0 against each lane's block shortlist as (t, global index):
+    the lexicographic minimum of (q, global index) over the block's rows
+    (``_intersect_shortlist``, whose index tie-break is explicit because the
+    rows run front to back). Padding rows (r² = -1e30) never hit. The
+    kernel's chunk early-out stops only where no later row can beat the
+    best hit, so this dense version tests every row; it adds to ``work``
+    the live rows of the leading chunks whose a·t_lo is below the lane's
+    best hit, which the kernel, stopping against its best hit so far, tests
+    at least."""
+    from .primary import SL_CHUNK
+
+    a = d.dot(d)
+    q_min = a * T_MIN
+    n, k = a.shape[0], sl.shape[2]
+    best_q = torch.empty_like(a)
+    best_i = torch.empty(n, dtype=torch.int64, device=a.device)
+    live = (sl[:, 3, :] > -1e29).sum(dim=1)
+    step = max(1, _DENSE_ELEMS // k)
+    for lo in range(0, n, step):
+        span = slice(lo, lo + step)
+        rows = sl[blk[span]]                                  # [m, 5, k]
+        ol, dl = Vec3(*(c[span] for c in o)), Vec3(*(c[span] for c in d))
+        q = _accepted(_quadratic_q(ol, dl, a[span], rows[:, 0], rows[:, 1],
+                                   rows[:, 2], rows[:, 3]), q_min[span])
+        bq = q.amin(dim=1)
+        gi = torch.where(q == bq[:, None], rows[:, 4].long(), _NO_INDEX)
+        best_q[span] = bq
+        best_i[span] = gi.amin(dim=1)
+        ahead = a[span, None] * slmeta[blk[span], 1:] < bq[:, None]
+        chunks = ahead.long().cumprod(dim=1).sum(dim=1)
+        work["sphere_tests"] += int(torch.minimum(live[blk[span]],
+                                                  SL_CHUNK * chunks).sum())
+    return _hit(best_q, best_i, 1.0 / a)
+
+
+def _intersect(o: Vec3, d: Vec3, active, pscene: KernelScene,
+               candidates: bool, work: dict, sl=None, slmeta=None, blk=None):
+    """(t, index) of the active lanes' walks; inactive lanes read as a miss
+    (their results are never used). With ``sl`` the walk is bounce 0 of the
+    phase split: each lane's block shortlist, or the full walk in blocks
+    whose shortlist overflowed (``slmeta[:, 0] > 0``)."""
+    t = torch.full_like(o.x, _INF32)
+    idx = torch.full(t.shape, -1, dtype=torch.int64, device=t.device)
+    lanes = active.nonzero()[:, 0]
+
+    def at(v: Vec3, ln) -> Vec3:
+        return Vec3(v.x[ln], v.y[ln], v.z[ln])
+
+    if sl is not None:
+        full = slmeta[blk[lanes], 0] > 0.0
+        short = lanes[~full]
+        if short.numel():
+            t[short], idx[short] = _intersect_shortlist(
+                at(o, short), at(d, short), sl, slmeta, blk[short], work)
+        lanes = lanes[full]
+    if lanes.numel():
+        t[lanes], idx[lanes] = _intersect_full(at(o, lanes), at(d, lanes),
+                                               pscene, candidates, work)
+    return t, idx
 
 
 def _raygen(cam: torch.Tensor, config: RenderConfig, stream, u, v):
@@ -408,16 +622,26 @@ def _ball(stream, first: int) -> Vec3:
 
 def render_tiles_reference(pscene: KernelScene, cam: CameraState,
                            config: RenderConfig, frame_seed,
-                           normalize: bool = True):
+                           normalize: bool = True, sl=None, slmeta=None,
+                           work: dict | None = None):
     """The plain PyTorch version of the kernel, on any device.
 
     Tensors over all lanes of the padded block grid, like the JAX kernel, and
-    a Python loop over samples and bounces. Per lane this adds the same values
-    in the same order as the kernel's persistent loop. Returns what
-    :func:`render_tiles` returns.
+    a Python loop over samples and bounces; each bounce intersects only the
+    lanes still active. Per lane this adds the same values in the same order
+    as the kernel's per-pixel sample loop. Takes and returns what
+    :func:`render_tiles` does. ``work``, when given, gets the counts of sphere
+    tests and of candidate-group slab tests that the walks need on this
+    frame's rays (``"sphere_tests"``, ``"slab_tests"``): the tests that the
+    rays' best hits leave after the kernel's candidate prune and shortlist
+    early-out (:func:`_intersect_full`, :func:`_intersect_shortlist`).
     """
     render_tiles_reference.calls += 1
+    work = {} if work is None else work
+    for key in ("sphere_tests", "slab_tests"):
+        work.setdefault(key, 0)
     dev = pscene.sph.device
+    candidates = kernel_mode(pscene, config, sl)[1] == "candidates"
     cam_row = pack_camera(cam, config).to(dev)
     nbx, nby = block_grid(config)
     lane = torch.arange(nbx * nby * TILE, device=dev)
@@ -431,7 +655,7 @@ def render_tiles_reference(pscene: KernelScene, cam: CameraState,
     far = cam_row[C_FAR]
     fallback_far = far + 10.0 if config.level == 1 else far - 1.0
     seed = int(frame_seed) & _M32
-    sph, attr = pscene.sph, pscene.attr
+    attr = pscene.attr
 
     zero = torch.zeros_like(u)
     cr, cg, cb, dsum = zero, zero, zero, zero
@@ -445,7 +669,11 @@ def render_tiles_reference(pscene: KernelScene, cam: CameraState,
         active = in_image
         for b in range(config.bounces + 1):
             segs = segs + active.sum()
-            t, idx = _intersect_dense(o, d, sph)
+            if b == 0 and sl is not None:
+                t, idx = _intersect(o, d, active, pscene, candidates, work,
+                                    sl=sl, slmeta=slmeta, blk=blk)
+            else:
+                t, idx = _intersect(o, d, active, pscene, candidates, work)
             miss = t >= _INF32
             if b == 0:
                 first_depth = torch.where(active, t, first_depth)

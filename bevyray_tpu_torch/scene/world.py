@@ -14,7 +14,8 @@ import numpy as np
 import torch
 
 from ..core.types import (CameraState, SceneBuffers, make_materials_np,
-                          make_spheres_np, make_triangles_np, pad_to)
+                          make_spheres_np, make_triangles_np, pad_to,
+                          resolve_device)
 from ..core.vec import Vec3
 from .components import (PerspectiveProjection, RaytracedCamera, RaytracedMesh,
                          RaytracedSphere, StandardMaterial, Transform,
@@ -179,7 +180,8 @@ class World:
 
     def extract(self, capacity: Optional[int] = None, with_bvh: bool = True,
                 bvh_leaf_size: int = 1, device=None) -> SceneBuffers:
-        """Build (or fetch cached) scene tables on ``device``.
+        """Build (or fetch cached) scene tables on ``device`` (None: the CUDA
+        card; without one it raises, see :func:`resolve_device`).
 
         ``with_bvh=True`` raises until the BVH is ported (ROADMAP §A item 8);
         the fused renderer needs none.
@@ -188,7 +190,7 @@ class World:
             raise NotImplementedError(
                 "the BVH is not ported yet (ROADMAP §A item 8); call "
                 "extract(with_bvh=False)")
-        device = torch.device(device or "cpu")
+        device = resolve_device(device)
         key = (self._revision, capacity, bvh_leaf_size, device)
         cached = self._extract_cache.get("scene")
         if cached is not None and cached[0] == key:
@@ -214,7 +216,9 @@ class World:
 
     def camera_state(self, aspect: Optional[float] = None,
                      device=None) -> CameraState:
-        """Per-frame camera uniforms (extract.rs:118-157) as 0-d f32 tensors."""
+        """Per-frame camera uniforms (extract.rs:118-157) as 0-d f32 tensors
+        on ``device`` (None: the CUDA card, as in :meth:`extract`)."""
+        device = resolve_device(device)
         t = self.camera_transform
         p = self.projection
         fwd = np.asarray(t.forward, np.float64)

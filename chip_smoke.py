@@ -5,13 +5,15 @@
 
 Run from the repository root (or anywhere: it imports the package beside
 it). It builds the port's CUDA kernel from the sources in the checkout, holds
-it against its plain PyTorch version on the card, drives the fused-renderer
-main path once at the headline settings (RTiOW final scene, 1920x1080,
-16 spp, 4 bounces) and checks that every frame went through the kernel. Each
-phase prints one line; the line before the last is the kernel table as JSON,
-and the last line is ``{"ok": true, "device": {...}}``. Any failed phase
-raises and the script exits nonzero without that line. It exits nonzero at
-once when there is no CUDA card or no port beside it.
+each of its sphere-walk modes against the plain PyTorch version on the card,
+drives the fused-renderer main path at the headline settings (RTiOW final
+scene, 1920x1080, 16 spp, 4 bounces) with the default configuration, which
+takes the phase split with the candidate walk, then each other mode the same
+way, and checks that every frame went through the kernel. Each phase prints
+its lines; the line before the last is the kernel table as JSON, and the
+last line is ``{"ok": true, "device": {...}}``. Any failed phase raises and
+the script exits nonzero without that line. It exits nonzero at once when
+there is no CUDA card or no port beside it.
 """
 
 from __future__ import annotations
@@ -25,10 +27,19 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 KERNEL_SOURCE = "bevyray_tpu_torch/kernels/cuda/csrc/megakernel.cu"
-TPU_KERNEL = "bevyray_tpu/kernels/pallas/megakernel.py:1492"
+TPU_KERNEL = "bevyray_tpu/kernels/pallas/megakernel.py"
+# The branch of the TPU kernel that each (primary, intersect) mode replaces.
+REPLACES = {
+    ("off", "grouped"): f"{TPU_KERNEL}:596",          # _intersect_grouped
+    ("split", "grouped"): f"{TPU_KERNEL}:720",        # _intersect_shortlist
+    ("off", "candidates"): f"{TPU_KERNEL}:1199",      # _intersect_candidates
+    ("split", "candidates"): f"{TPU_KERNEL}:2147",    # body_once_flat
+}
+MODES = list(REPLACES)
 
 WIDTH, HEIGHT, SPP, BOUNCES = 1920, 1080, 16, 4
-TIMED_FRAMES = 5
+TIMED_FRAMES = 5      # the default-config headline
+OTHER_FRAMES = 3      # each other mode at the headline
 # Kernel against plain version on the card: both round in IEEE float32 with no
 # contraction, but the card's libm (log/sin/cos/exp) and torch's rsqrt differ
 # from the kernel's by ulps, which flips a path now and then; such a pixel
@@ -38,6 +49,14 @@ TIMED_FRAMES = 5
 # relative to the plain version's mean depth).
 PIXEL_TOL, PIXEL_FRAC, MEAN_TOL, DEPTH_MEAN_RTOL, SEG_RTOL = (
     1e-3, 0.999, 5e-5, 1e-4, 1e-3)
+# The bound: fp32 operations of the walks over the H100 SXM's fp32 peak
+# outside the tensor cores, or the bytes over its memory rate, whichever is
+# longer. A sphere test (megakernel.cu test_sphere) is 18 arithmetic
+# operations, one sqrt and 2 compares; a candidate slab test (walk_candidates)
+# 6 subtractions, 7 multiplies, 10 min/max and 4 compares. Shading, draws and
+# the tests' loop overhead are left out, so the bound is a floor.
+SPHERE_TEST_OPS, SLAB_TEST_OPS = 21, 27
+PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
 
 
 def card_line() -> str:
@@ -100,6 +119,26 @@ def check_agreement(name: str, stats: dict) -> None:
                          f"the mean depth, segments within {SEG_RTOL:.1%})")
 
 
+def forced(config, mode):
+    return dataclasses.replace(config, pallas_primary=mode[0],
+                               pallas_intersect=mode[1])
+
+
+def bound_ms(kscene, cam_row, sl, slmeta, n_lanes, work) -> tuple:
+    """(ms, "operations" | "bytes"): the least time the card could take for
+    the walks this frame's rays need (``work``, counted by the plain
+    version) and for reading each input and writing each output once."""
+    inputs = [cam_row, kscene.sph, kscene.attr, kscene.gaabb]
+    inputs += [t for t in (sl, slmeta) if t is not None]
+    n_bytes = (sum(t.numel() * t.element_size() for t in inputs)
+               + 4 * n_lanes * 4 + 8)
+    ops = (SPHERE_TEST_OPS * work["sphere_tests"]
+           + SLAB_TEST_OPS * work["slab_tests"])
+    by_ops, by_bytes = ops / PEAK_FP32 * 1e3, n_bytes / PEAK_BYTES * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes,
+                                                              "bytes")
+
+
 def main() -> int:
     if not (ROOT / "bevyray_tpu_torch").is_dir():
         print("chip_smoke: the bevyray_tpu_torch package is not beside this "
@@ -114,10 +153,13 @@ def main() -> int:
         return 2
 
     from bevyray_tpu_torch import (FusedRenderer, RaytracedCamera,
-                                   RenderConfig, rtiow)
+                                   RaytracedSphere, RenderConfig,
+                                   StandardMaterial, Transform, rtiow)
     from bevyray_tpu_torch.kernels.cuda import build
     from bevyray_tpu_torch.kernels.cuda.megakernel import (
-        prepare_kernel_scene, render_tiles, render_tiles_reference)
+        TILE, block_grid, kernel_mode, pack_camera, prepare_kernel_scene,
+        render_tiles, render_tiles_reference)
+    from bevyray_tpu_torch.kernels.cuda.primary import device_shortlists_for
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -128,99 +170,176 @@ def main() -> int:
     print(f"phase 1 card: {card} | kernel build {time.perf_counter() - t0:.1f} s",
           flush=True)
 
-    # Phase 2: kernel against plain version on the same CUDA tensors. Level 1
-    # differs from the others in the kernel only by its fallback depth; the
-    # night scene carries the emissive term, the last case the thin lens and
-    # cosine-weighted diffuse bounces.
+    # Phase 2: kernel against plain version on the same CUDA tensors, every
+    # mode. Level 1 differs from the others in the kernel only by its
+    # fallback depth; the night scene carries the emissive term, the lens
+    # case the thin lens and cosine-weighted diffuse bounces. The split cases
+    # take the port's shortlists; one flags every other block's shortlist
+    # full, so those blocks take the full walk at bounce 0 too; one has
+    # 512 padded spheres in 64 candidate groups of 8; the last holds two
+    # spheres twice (only the lower index may win a tie) in groups of 24,
+    # the last of them partly empty.
     small = RenderConfig(128, 128, 4, 4, level=3, pallas_primary="off",
                          pallas_intersect="grouped")
     lens = RaytracedCamera(aperture=0.2, focus_distance=4.0)
+    grid4 = lambda: rtiow.final_scene(seed=42, grid=4)   # noqa: E731
+
+    def duplicates():
+        world = grid4()
+        for pos in ((0.0, 1.0, 0.0), (4.0, 1.0, 0.0)):
+            world.spawn_sphere(Transform.from_xyz(*pos),
+                               RaytracedSphere(radius=1.0),
+                               StandardMaterial(base_color=(1.0, 0.0, 0.0)))
+        return world
+
     cases = [("material_test_scene", rtiow.material_test_scene, {}),
              ("material_test_scene", rtiow.material_test_scene, {"level": 1}),
-             ("final_scene(grid=4)",
-              lambda: rtiow.final_scene(seed=42, grid=4), {}),
-             ("final_scene(grid=4)",
-              lambda: rtiow.final_scene(seed=42, grid=4), {"level": 1}),
+             ("final_scene(grid=4)", grid4, {}),
+             ("final_scene(grid=4)", grid4, {"level": 1}),
              ("night_scene", rtiow.night_scene, {}),
              ("material_test_scene(aperture=0.2)",
               lambda: rtiow.material_test_scene(lens),
-              {"defocus": True, "diffuse_sampling": "cosine"})]
+              {"defocus": True, "diffuse_sampling": "cosine"}),
+             ("final_scene(grid=4)", grid4,
+              {"pallas_primary": "split", "pallas_intersect": "candidates",
+               "pallas_cand_size": 8}),
+             ("final_scene(grid=4)", grid4,
+              {"pallas_primary": "split", "pallas_intersect": "grouped"}),
+             ("final_scene(grid=4)", grid4,
+              {"pallas_primary": "off", "pallas_intersect": "candidates"}),
+             ("final_scene(grid=4) overflow", grid4,
+              {"pallas_primary": "split", "pallas_intersect": "candidates"}),
+             ("final_scene", lambda: rtiow.final_scene(seed=42),
+              {"pallas_primary": "split", "pallas_intersect": "auto",
+               "pallas_cand_size": 8}),
+             ("final_scene(grid=4) duplicates", duplicates,
+              {"pallas_primary": "split", "pallas_intersect": "candidates",
+               "pallas_cand_size": 24})]
     small_times = {}
     for name, scene_fn, options in cases:
         cfg = dataclasses.replace(small, **options)
         world = scene_fn()
-        kscene = prepare_kernel_scene(world.extract(with_bvh=False, device=dev))
+        kscene = prepare_kernel_scene(world.extract(with_bvh=False, device=dev),
+                                      cfg.pallas_cand_size)
         cam = world.camera_state(aspect=1.0, device=dev)
-        got = render_tiles(kscene, cam, cfg, 7)
-        want = render_tiles_reference(kscene, cam, cfg, 7)
-        label = " ".join([name] + [f"{k}={v}" for k, v in options.items()])
+        sl, slmeta = device_shortlists_for(kscene, cam, cfg,
+                                           cfg.samples_per_pixel)
+        if "overflow" in name:
+            slmeta = slmeta.clone()
+            slmeta[::2, 0] = 1.0
+        mode = kernel_mode(kscene, cfg, sl)
+        if options.get("pallas_primary") == "split" and mode[0] != "split":
+            raise SystemExit(f"phase 2 {name}: the split did not run")
+        got = render_tiles(kscene, cam, cfg, 7, sl=sl, slmeta=slmeta)
+        want = render_tiles_reference(kscene, cam, cfg, 7, sl=sl,
+                                      slmeta=slmeta)
+        label = " ".join([name, "/".join(mode)]
+                         + [f"{k}={v}" for k, v in options.items()
+                            if not k.startswith("pallas_p")
+                            and not k.startswith("pallas_i")])
         check_agreement(f"phase 2 {label} 128x128 4spp",
                         compare(cfg, got, want))
         if cfg.level == 3:
             small_times[label] = (
-                cuda_ms(lambda: render_tiles(kscene, cam, cfg, 7), 10),
-                cuda_ms(lambda: render_tiles_reference(kscene, cam, cfg, 7), 3))
+                cuda_ms(lambda: render_tiles(kscene, cam, cfg, 7, sl=sl,
+                                             slmeta=slmeta), 10),
+                cuda_ms(lambda: render_tiles_reference(
+                    kscene, cam, cfg, 7, sl=sl, slmeta=slmeta), 3))
     print("phase 2 times at 128x128 4spp 4 bounces (kernel ms, plain ms): "
           + json.dumps(small_times) + f" | {card}", flush=True)
 
-    # Phase 3: the main path at full size, through the public entry points.
+    # Phase 3: the main path at full size, through the public entry points:
+    # the default configuration first, then each other mode forced. The
+    # launch counts are zeroed just before each run and read just after.
     world = rtiow.final_scene(seed=42)
-    scene = world.extract(with_bvh=False, device=dev)
-    cam = world.camera_state(aspect=WIDTH / HEIGHT, device=dev)
-    config = RenderConfig(WIDTH, HEIGHT, SPP, BOUNCES, level=3,
-                          pallas_primary="off", pallas_intersect="grouped")
-    renderer = FusedRenderer(config)
-    warm = renderer.render(scene, cam, seed=0)
-    torch.cuda.synchronize()
-    render_tiles.launches = 0
-    render_tiles_reference.calls = 0
-    times, rays = [], []
-    for i in range(TIMED_FRAMES):
-        t0 = time.perf_counter()
-        frame = renderer.render(scene, cam, seed=i + 1)
+    scene = world.extract(with_bvh=False)
+    cam = world.camera_state(aspect=WIDTH / HEIGHT)
+    if scene.spheres.cx.device.type != "cuda" or cam.fov.device.type != "cuda":
+        raise SystemExit("phase 3: the entry points did not default to the card")
+    headline = RenderConfig(WIDTH, HEIGHT, SPP, BOUNCES, level=3)
+    runs = {}
+    for mode in [("split", "candidates")] + [m for m in MODES
+                                             if m != ("split", "candidates")]:
+        default = mode == ("split", "candidates")
+        config = headline if default else forced(headline, mode)
+        n_frames = TIMED_FRAMES if default else OTHER_FRAMES
+        renderer = FusedRenderer(config)
+        renderer.render(scene, cam, seed=0)
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        rays.append(int(frame.rays_traced))
-    launches, plain_calls = render_tiles.launches, render_tiles_reference.calls
-    if launches != TIMED_FRAMES or plain_calls:
-        raise SystemExit(f"phase 3: {launches} kernel launches and "
-                         f"{plain_calls} plain calls in {TIMED_FRAMES} frames")
-    image = frame.image
-    if (tuple(image.shape) != (HEIGHT, WIDTH, 3)
-            or not bool(torch.isfinite(image).all())
-            or not bool(torch.isfinite(frame.rt_depth).all())
-            or min(rays) <= 0 or not 0.0 < float(image.mean()) < 2.0):
-        raise SystemExit("phase 3: frame is not a finite image with traced "
-                         "segments")
-    times.sort()
-    p50_ms = times[len(times) // 2] * 1e3
-    rays_per_frame = sum(rays) / len(rays)
-    print(f"phase 3 main path {WIDTH}x{HEIGHT} {SPP}spp {BOUNCES} bounces, "
-          f"{world.n_spheres} spheres: p50 {p50_ms:.3f} ms, "
-          f"{rays_per_frame / (p50_ms * 1e-3) / 1e6:.2f} Mrays/s, "
-          f"{rays_per_frame:.0f} segments/frame, frame ms "
-          f"{[round(t * 1e3, 3) for t in times]} | {card}", flush=True)
+        render_tiles.launches = 0
+        render_tiles_reference.calls = 0
+        times, rays = [], []
+        for i in range(n_frames):
+            t0 = time.perf_counter()
+            frame = renderer.render(scene, cam, seed=i + 1)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            rays.append(int(frame.rays_traced))
+        launches, plain_calls = render_tiles.launches, render_tiles_reference.calls
+        if (launches != n_frames or plain_calls
+                or renderer.last_mode != mode):
+            raise SystemExit(f"phase 3 {mode}: {launches} kernel launches, "
+                             f"{plain_calls} plain calls and mode "
+                             f"{renderer.last_mode} in {n_frames} frames")
+        image = frame.image
+        if (tuple(image.shape) != (HEIGHT, WIDTH, 3)
+                or not bool(torch.isfinite(image).all())
+                or not bool(torch.isfinite(frame.rt_depth).all())
+                or min(rays) <= 0 or not 0.0 < float(image.mean()) < 2.0):
+            raise SystemExit(f"phase 3 {mode}: frame is not a finite image "
+                             "with traced segments")
+        times.sort()
+        p50_ms = times[len(times) // 2] * 1e3
+        rays_per_frame = sum(rays) / len(rays)
+        runs[mode] = {"renderer": renderer, "launches": launches,
+                      "p50_ms": p50_ms, "segments": rays_per_frame}
+        print(f"phase 3 {'default config' if default else 'forced'} "
+              f"{'/'.join(mode)} {WIDTH}x{HEIGHT} {SPP}spp {BOUNCES} bounces, "
+              f"{world.n_spheres} spheres: p50 {p50_ms:.3f} ms, "
+              f"{rays_per_frame / (p50_ms * 1e-3) / 1e6:.2f} Mrays/s, "
+              f"{rays_per_frame:.0f} segments/frame, frame ms "
+              f"{[round(t * 1e3, 3) for t in times]} | {card}", flush=True)
 
-    # Phase 4: the plain version once at the main path's shapes, held against
-    # the kernel's frame of the same seed.
-    kscene = renderer.prepare(scene)
-    got = render_tiles(kscene, cam, config, 1)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    want = render_tiles_reference(kscene, cam, config, 1)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    full = compare(config, got, want)
-    kernel_ms = cuda_ms(lambda: render_tiles(kscene, cam, config, 1), 3)
-    check_agreement(f"phase 4 main-path shapes, kernel {kernel_ms:.3f} ms, "
-                    f"plain {plain_ms:.1f} ms | {card}", full)
-    del warm
+    # Phase 4: each mode's plain version once at the main path's shapes, held
+    # against the kernel's frame of the same seed on the same inputs; the
+    # plain version also counts the sphere and slab tests that the bound
+    # reads.
+    nbx, nby = block_grid(headline)
+    n_lanes = nbx * nby * TILE
+    entries = []
+    for mode in MODES:
+        renderer = runs[mode]["renderer"]
+        config = renderer.config
+        kscene = renderer.prepare(scene)
+        sl, slmeta = renderer.shortlists(kscene, cam)
+        got = render_tiles(kscene, cam, config, 1, sl=sl, slmeta=slmeta)
+        torch.cuda.synchronize()
+        work = {}
+        t0 = time.perf_counter()
+        want = render_tiles_reference(kscene, cam, config, 1, sl=sl,
+                                      slmeta=slmeta, work=work)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        full = compare(config, got, want)
+        kernel_ms = cuda_ms(lambda: render_tiles(kscene, cam, config, 1, sl=sl,
+                                                 slmeta=slmeta), 3)
+        b_ms, b_by = bound_ms(kscene, pack_camera(cam, config), sl, slmeta,
+                              n_lanes, work)
+        check_agreement(
+            f"phase 4 {'/'.join(mode)} main-path shapes, kernel "
+            f"{kernel_ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+            f"{b_ms:.3f} ms ({b_by}), sphere tests {work['sphere_tests']}, "
+            f"slab tests {work['slab_tests']} | {card}", full)
+        entries.append({
+            "name": f"render_tiles[{mode[0]},{mode[1]}]", "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": REPLACES[mode],
+            "launches": runs[mode]["launches"], "max_abs_err": full["max_abs"],
+            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by,
+            # No single PyTorch call computes a path-traced frame.
+            "library_ms": None})
 
-    print(json.dumps({"kernels": [{
-        "name": "render_tiles", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": TPU_KERNEL, "launches": launches,
-        "max_abs_err": full["max_abs"], "ms": kernel_ms,
-        "plain_ms": plain_ms}]}))
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

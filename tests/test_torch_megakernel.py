@@ -1,7 +1,8 @@
 """The port's ``render_tiles`` (its plain version, on the CPU) against the JAX
-package's ``render_tiles`` under the slice's configuration
-(``pallas_primary="off"``, ``pallas_intersect="grouped"``, ``exact_rng=True``),
-run in Pallas interpret mode as tests/test_pallas.py runs it.
+package's ``render_tiles`` in all four sphere-walk modes, (primary,
+intersect) in ("off", "split") x ("grouped", "candidates"), with
+``exact_rng=True``, the JAX kernel run in Pallas interpret mode as
+tests/test_pallas.py runs it. The split takes the same shortlists in both.
 
 Bars (tests/test_pallas.py:24-28, bf16 hi/lo attributes against float32):
 r/g/b atol 5e-5, depth atol 1e-3, segment counts equal."""
@@ -21,6 +22,7 @@ from bevyray_tpu.kernels.pallas import megakernel as jmk
 from bevyray_tpu_torch.core.types import scene_from_numpy
 from bevyray_tpu_torch.kernels.cuda import build
 from bevyray_tpu_torch.kernels.cuda import megakernel as mk
+from bevyray_tpu_torch.kernels.cuda import primary
 
 torch.set_num_threads(2)
 
@@ -28,22 +30,46 @@ SLICE = dict(samples_per_pixel=2, bounces=4, level=3, pallas_primary="off",
              pallas_intersect="grouped")
 
 
-def _inputs(jworld, w, h):
+def _inputs(jworld, w, h, cand_size=0):
     js = jworld.extract(with_bvh=False)
     jcam = jworld.camera_state(aspect=w / h)
     ps, pcam = scene_from_numpy(jax.tree.map(np.asarray, js),
-                                jax.tree.map(np.asarray, jcam))
-    return js, jcam, mk.prepare_kernel_scene(ps), pcam
+                                jax.tree.map(np.asarray, jcam), device="cpu")
+    return js, jcam, mk.prepare_kernel_scene(ps, cand_size), pcam
 
 
-def _check_against_jax(jworld, w, h, seed, **options):
-    js, jcam, kscene, pcam = _inputs(jworld, w, h)
+def _shortlists(kscene, cam, config, overflow=()):
+    """The split's inputs for both packages, from the port's builder on the
+    port's sphere table (both pinned equal to the JAX package's); the blocks
+    in ``overflow`` are flagged full, so they take the full walk."""
+    sl, meta = primary.build_block_shortlists(kscene.sph.numpy(), cam, config)
+    meta[list(overflow), 0] = 1.0
+    return sl, meta
+
+
+def _check_against_jax(jworld, w, h, seed, split=False, overflow=(),
+                       cand_size=0, mode=None, **options):
+    js, jcam, kscene, pcam = _inputs(jworld, w, h, cand_size)
     cfg = {**SLICE, **options}
-    want = jmk.render_tiles(jmk.jitted_prepare(0, "kd")(js), jcam,
+    config = bt.RenderConfig(width=w, height=h, **cfg)
+    sl = meta = None
+    if split:
+        sl, meta = _shortlists(kscene, pcam, config, overflow)
+    want = jmk.render_tiles(jmk.jitted_prepare(cand_size, "kd")(js), jcam,
                             JRenderConfig(width=w, height=h, **cfg),
-                            np.uint32(seed), exact_rng=True)
-    got = mk.render_tiles(kscene, pcam,
-                          bt.RenderConfig(width=w, height=h, **cfg), seed)
+                            np.uint32(seed), exact_rng=True, sl=sl,
+                            slmeta=meta)
+    got = mk.render_tiles(kscene, pcam, config, seed,
+                          sl=None if sl is None else torch.as_tensor(sl),
+                          slmeta=None if meta is None else torch.as_tensor(meta))
+    if mode is not None:
+        # Every mode walks the same spheres to the same winner, so the port's
+        # plain version gives the same bits as in its off/grouped mode.
+        assert mk.kernel_mode(kscene, config, sl) == mode
+        base = mk.render_tiles(kscene, pcam, dataclasses.replace(
+            config, pallas_primary="off", pallas_intersect="grouped"), seed)
+        for g, b in zip(got, base):
+            assert torch.equal(g, b)
     for g, wnt in zip(got[:3], want[:3]):
         np.testing.assert_allclose(g.numpy(), np.asarray(wnt), atol=5e-5)
     np.testing.assert_allclose(got[3].numpy(), np.asarray(want[3]), atol=1e-3)
@@ -77,6 +103,222 @@ def test_render_tiles_branches_match_jax(scene_fn, options):
         assert float(got[3].max()) == pytest.approx(1010.0)
 
 
+def _grid4():
+    return jrtiow.final_scene(seed=42, grid=4)
+
+
+def _with_duplicates(world, pkg):
+    """``world`` with two of its spheres spawned again in another material:
+    both copies give the same q, and only the lower index may win."""
+    for pos in ((0.0, 1.0, 0.0), (4.0, 1.0, 0.0)):
+        world.spawn_sphere(pkg.Transform.from_xyz(*pos),
+                           pkg.RaytracedSphere(radius=1.0),
+                           pkg.StandardMaterial(base_color=(1.0, 0.0, 0.0)))
+    return world
+
+
+def _grid4_duplicates():
+    from bevyray_tpu.scene import components as jcomp
+    return _with_duplicates(_grid4(), jcomp)
+
+
+SPLIT = dict(split=True, pallas_primary="split")
+
+
+@pytest.mark.parametrize("scene_fn,size,options,mode", [
+    (_grid4, (96, 64), dict(SPLIT, pallas_intersect="grouped"),
+     ("split", "grouped")),
+    (_grid4, (96, 64), dict(SPLIT, pallas_intersect="candidates"),
+     ("split", "candidates")),
+    (_grid4, (64, 64), dict(pallas_intersect="candidates"),
+     ("off", "candidates")),
+    # Block 0's shortlist flagged full: its bounce 0 takes the full walk.
+    (_grid4, (96, 64), dict(SPLIT, overflow=(0,),
+                            pallas_intersect="candidates"),
+     ("split", "candidates")),
+    (_grid4, (96, 64), dict(SPLIT, overflow=(1,), pallas_intersect="grouped",
+                            defocus=True), ("split", "grouped")),
+    # 512 padded spheres in groups of 8: 64 candidate groups, three of the
+    # JAX kernel's 31-bit mask words; "auto" picks the candidate walk.
+    (lambda: jrtiow.final_scene(seed=42), (32, 32),
+     dict(SPLIT, cand_size=8, pallas_intersect="auto", samples_per_pixel=1,
+          bounces=2), ("split", "candidates")),
+    # Duplicate geometry: the shortlist's explicit index tie arm.
+    (_grid4_duplicates, (64, 64), dict(SPLIT, pallas_intersect="grouped"),
+     ("split", "grouped")),
+    # Groups of 24 spheres: the last candidate group is partly empty.
+    (_grid4, (64, 64), dict(cand_size=24, pallas_intersect="candidates"),
+     ("off", "candidates")),
+], ids=["split_grouped", "split_candidates", "off_candidates",
+        "overflow_candidates", "overflow_grouped_defocus", "multiword_auto",
+        "duplicates_split", "tail_group_gc24"])
+def test_render_tiles_modes_match_jax(scene_fn, size, options, mode):
+    _check_against_jax(scene_fn(), *size, 11, mode=mode, **options)
+
+
+@pytest.mark.parametrize("s", [128, 512, 1024, 1152])
+def test_mode_resolution_matches_jax(s):
+    """``"auto"`` picks the same full walk as the JAX kernel: the candidate
+    walk from 512 padded spheres with the split, above 1024 without."""
+    scene = mk.KernelScene(sph=torch.zeros(4, s), attr=torch.zeros(13, s),
+                           gaabb=torch.zeros(6, 1), tri=torch.zeros(10, 0),
+                           gc=16, n_cand=s // 16, cand_off=0)
+    for intersect in ("auto", "grouped", "candidates"):
+        cfg = bt.RenderConfig(width=8, height=8, pallas_intersect=intersect)
+        jcfg = JRenderConfig(width=8, height=8, pallas_intersect=intersect)
+        for split in (False, True):
+            want = jmk._use_candidate_walk(jcfg, s, phase_split=split)
+            assert mk.use_candidate_walk(cfg, s, split) == want
+            assert mk.kernel_mode(scene, cfg, 1 if split else None) == (
+                "split" if split else "off",
+                "candidates" if want else "grouped")
+
+
+def test_candidate_walk_matches_jax_on_face_plane_rays():
+    """The candidate walk alone, JAX's ``_intersect_candidates`` against the
+    plain version's, on 4096 rays: random ones, and rays with a direction
+    component exactly 0 whose origin lies on a face plane of a candidate
+    box. There the slab is 0 * inf = NaN; both packages' min/max keep it,
+    so that group is not entered."""
+    jw = jrtiow.final_scene(seed=42, grid=4)
+    js, _, kscene, _ = _inputs(jw, 64, 64, cand_size=16)
+    jscene = jmk.jitted_prepare(16, "kd")(js)
+    rng = np.random.default_rng(5)
+    n = 4096
+    o = rng.uniform(-4.0, 4.0, (3, n)).astype(np.float32)
+    o[1] = np.abs(o[1]) + 0.2
+    d = rng.normal(size=(3, n)).astype(np.float32)
+    box = kscene.gaabb[:, kscene.cand_off:kscene.cand_off + kscene.n_cand]
+    box = box.numpy()
+    face = np.arange(0, n, 4)            # every 4th ray: on a face plane
+    g = face % kscene.n_cand
+    axis = (face // 4) % 3
+    side = (face // 12) % 2              # min face or max face
+    o[axis, face] = box[axis + 3 * side, g]
+    d[axis, face] = 0.0
+    got_t, got_i = mk._intersect_full(
+        bt.Vec3(*map(torch.as_tensor, o)), bt.Vec3(*map(torch.as_tensor, d)),
+        kscene, True, {"sphere_tests": 0, "slab_tests": 0})
+    entered, _ = mk._candidate_groups(
+        bt.Vec3(*map(torch.as_tensor, o)), bt.Vec3(*map(torch.as_tensor, d)),
+        torch.as_tensor((d * d).sum(0)), kscene)
+    assert not bool(entered[torch.as_tensor(face), torch.as_tensor(g)].any())
+
+    def jax_walk(o, d):
+        from bevyray_tpu.core.vec import Vec3 as JVec3
+        shape = (32, 128)
+        ov = JVec3(*(x.reshape(shape) for x in o))
+        dv = JVec3(*(x.reshape(shape) for x in d))
+        return jmk._intersect_candidates(
+            ov, dv, jscene.sph, jscene.grp, jscene.gaabb,
+            jax.numpy.ones(shape, bool), jscene.sph.shape[1])
+
+    want_t, want_i = jax.jit(jax_walk)(o, d)
+    want_t = np.asarray(want_t).reshape(-1)
+    want_i = np.where(want_t < np.float32(3.4e38),
+                      np.asarray(want_i).reshape(-1), -1)
+    np.testing.assert_array_equal(got_i.numpy(), want_i)
+    assert (want_i >= 0).sum() > n // 8   # the rays do hit spheres
+    # XLA on the CPU fuses h*h - a*cc into one multiply-add; the cancellation
+    # in q = h - sqrt(disc) magnifies that one rounding (2.2e-4 relative at
+    # most on these rays, where |d| != 1).
+    np.testing.assert_allclose(got_t.numpy(), want_t, rtol=1e-3)
+    # The full walk over every sphere finds the same hits, to the bit.
+    all_t, all_i = mk._intersect_full(
+        bt.Vec3(*map(torch.as_tensor, o)), bt.Vec3(*map(torch.as_tensor, d)),
+        kscene, False, {"sphere_tests": 0, "slab_tests": 0})
+    assert torch.equal(all_t, got_t) and torch.equal(all_i, got_i)
+
+
+def test_duplicate_geometry_keeps_the_lower_index():
+    """Rays at two spheres that the table holds twice: every walk of the
+    plain version returns the lower index. (The JAX kernel's candidate walk
+    does not always: its in-chunk tree reduce breaks exact ties by position,
+    ROADMAP §C; its grouped and shortlist walks agree with the port, as the
+    duplicates_split case above shows.)"""
+    _, _, kscene, _ = _inputs(_grid4_duplicates(), 64, 64, cand_size=24)
+    sph = kscene.sph.numpy()
+    live = primary.live_mask(sph)
+    pairs = [(i, j) for i in range(sph.shape[1]) for j in range(i + 1,
+                                                                sph.shape[1])
+             if live[i] and live[j] and (sph[:, i] == sph[:, j]).all()]
+    assert len(pairs) == 2
+    lo = torch.tensor([i for i, _ in pairs])
+    cam = torch.tensor([0.0, 0.0, 5.0])
+    o = bt.Vec3(*(cam[k].expand(2).clone() for k in range(3)))
+    d = bt.Vec3(*(kscene.sph[k, lo] - cam[k] for k in range(3)))
+    for candidates in (False, True):
+        _, idx = mk._intersect_full(o, d, kscene, candidates,
+                                    {"sphere_tests": 0, "slab_tests": 0})
+        assert torch.equal(idx, lo)
+    # A shortlist holding the higher index first.
+    rows = [j for i, j in pairs] + [i for i, j in pairs]
+    sl = torch.zeros(1, 5, 8)
+    sl[0, 3] = -1e30
+    sl[0, :4, :4] = kscene.sph[:, rows]
+    sl[0, 4, :4] = torch.tensor(rows, dtype=torch.float32)
+    meta = torch.tensor([[0.0, 0.0]])
+    _, idx = mk._intersect_shortlist(o, d, sl, meta,
+                                     torch.zeros(2, dtype=torch.long),
+                                     {"sphere_tests": 0})
+    assert torch.equal(idx, lo)
+
+
+def test_work_counts_the_tests_the_best_hit_leaves():
+    """The plain version counts the sphere tests that the rays' best hits
+    leave (what chip_smoke.py's bound reads): a candidate group entered
+    behind the best hit and a shortlist chunk whose t_lo lies behind it add
+    none; a miss walks everything its ray enters."""
+    # Nine unit spheres down the -z axis, 3 apart from z = 0; the rest of
+    # the 16-sphere table is padding. Candidate groups of 8.
+    z = torch.zeros(16)
+    z[:9] = -3.0 * torch.arange(9.0)
+    r2 = torch.full((16,), -1e30)
+    r2[:9] = 1.0
+    sph = torch.stack([torch.zeros(16), torch.zeros(16), z, r2])
+    gaabb = torch.tensor([[-1.0, -1.0], [-1.0, -1.0], [-22.0, -25.0],
+                          [1.0, 1.0], [1.0, 1.0], [1.0, -23.0]])
+    kscene = mk.KernelScene(sph=sph, attr=torch.zeros(13, 16), gaabb=gaabb,
+                            tri=torch.zeros(10, 0), gc=8, n_cand=2,
+                            cand_off=0)
+    # From z = 5: one ray down the axis (hits sphere 0 at t = 4), one up.
+    o = bt.Vec3(torch.zeros(2), torch.zeros(2), torch.full((2,), 5.0))
+    d = bt.Vec3(torch.zeros(2), torch.tensor([0.0, 1.0]),
+                torch.tensor([-1.0, 0.0]))
+    for candidates, tests in ((False, 2 * 16), (True, 8)):
+        work = {"sphere_tests": 0, "slab_tests": 0}
+        t, idx = mk._intersect_full(o, d, kscene, candidates, work)
+        assert idx.tolist() == [0, -1] and float(t[0]) == 4.0
+        assert work == {"sphere_tests": tests,
+                        "slab_tests": 2 * 2 if candidates else 0}
+    # The same spheres as one block's shortlist: two chunks, t_lo 4 and 28;
+    # the axis ray stops after the first, the miss walks both (9 live rows).
+    sl = torch.zeros(1, 5, 16)
+    sl[0, :4] = sph
+    sl[0, 4] = torch.arange(16.0)
+    meta = torch.tensor([[0.0, 4.0 - 1e-3, 28.0 - 1e-3]])
+    work = {"sphere_tests": 0}
+    t, idx = mk._intersect_shortlist(o, d, sl, meta,
+                                     torch.zeros(2, dtype=torch.long), work)
+    assert idx.tolist() == [0, -1] and float(t[0]) == 4.0
+    assert work == {"sphere_tests": 8 + 9}
+
+
+def test_shortlist_input_checks():
+    _, _, kscene, pcam = _inputs(jrtiow.simple_scene(), 16, 16)
+    cfg = bt.RenderConfig(width=16, height=16, **SLICE)
+    sl, meta = (torch.as_tensor(x) for x in _shortlists(kscene, pcam, cfg))
+    for kwargs in (dict(sl=sl), dict(slmeta=meta),
+                   dict(sl=sl[:, :4], slmeta=meta),
+                   dict(sl=sl.double(), slmeta=meta),
+                   dict(sl=sl, slmeta=meta[:, :1])):
+        with pytest.raises(ValueError):
+            mk.render_tiles(kscene, pcam, cfg, 1, **kwargs)
+    with pytest.raises(ValueError, match="at most 32"):
+        mk.render_tiles(kscene, pcam, dataclasses.replace(
+            cfg, samples_per_pixel=33), 1, sl=sl, slmeta=meta)
+
+
 def test_normalize_false_gives_sample_sums():
     _, _, kscene, pcam = _inputs(jrtiow.material_test_scene(), 32, 32)
     cfg = bt.RenderConfig(width=32, height=32, **SLICE)
@@ -105,7 +347,6 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(sl=np.zeros((1, 4, 8), np.float32)), "B3"),
     (dict(spp_map=np.ones((1, 32, 128), np.int32)), "B2"),
     (dict(block_offset=1), "A10"),
     (dict(sample_offset=4), "A10"),
@@ -138,21 +379,40 @@ def test_triangles_raise():
     (bt.rtiow.night_scene, {}),
     (lambda: bt.rtiow.material_test_scene(bt.RaytracedCamera(**LENS)),
      dict(defocus=True, diffuse_sampling="cosine")),
-], ids=["final", "final_level1", "night", "defocus_cosine"])
+    (lambda: bt.rtiow.final_scene(seed=42, grid=4),
+     dict(pallas_primary="split", pallas_intersect="candidates",
+          pallas_cand_size=8)),
+    (lambda: bt.rtiow.final_scene(seed=42, grid=4),
+     dict(pallas_primary="split", pallas_intersect="grouped")),
+    (lambda: bt.rtiow.final_scene(seed=42, grid=4),
+     dict(pallas_intersect="candidates")),
+    (lambda: bt.rtiow.final_scene(seed=42),
+     dict(pallas_primary="split", pallas_intersect="auto",
+          pallas_cand_size=8)),
+    (lambda: _with_duplicates(bt.rtiow.final_scene(seed=42, grid=4), bt),
+     dict(pallas_primary="split", pallas_intersect="candidates",
+          pallas_cand_size=24)),
+], ids=["final", "final_level1", "night", "defocus_cosine", "split_candidates",
+        "split_grouped", "off_candidates", "multiword_auto",
+        "duplicates_gc24"])
 def test_cuda_kernel_matches_plain_version_on_card(scene_fn, options):
     """On the card: the kernel against its plain version on the same CUDA
-    tensors, color and depth (the bars of chip_smoke.py phase 2)."""
+    tensors, color and depth, in every mode (the bars of chip_smoke.py
+    phase 2)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs this check there")
     world = scene_fn()
     dev = torch.device("cuda", 0)
-    kscene = mk.prepare_kernel_scene(world.extract(with_bvh=False, device=dev))
-    cam = world.camera_state(aspect=1.0, device=dev)
     cfg = dataclasses.replace(bt.RenderConfig(width=128, height=128, **SLICE),
                               samples_per_pixel=4, **options)
+    kscene = mk.prepare_kernel_scene(world.extract(with_bvh=False, device=dev),
+                                     cfg.pallas_cand_size)
+    cam = world.camera_state(aspect=1.0, device=dev)
+    sl, slmeta = primary.device_shortlists_for(kscene, cam, cfg, 4)
+    assert (sl is not None) == (cfg.pallas_primary == "split")
     launches = mk.render_tiles.launches
-    got = mk.render_tiles(kscene, cam, cfg, 7)
-    want = mk.render_tiles_reference(kscene, cam, cfg, 7)
+    got = mk.render_tiles(kscene, cam, cfg, 7, sl=sl, slmeta=slmeta)
+    want = mk.render_tiles_reference(kscene, cam, cfg, 7, sl=sl, slmeta=slmeta)
     assert mk.render_tiles.launches == launches + 1
     diff = torch.stack([(g - w).abs() for g, w in zip(got[:3], want[:3])])
     assert float((diff.amax(0) <= 1e-3).float().mean()) >= 0.999

@@ -1,10 +1,11 @@
 """The port's scene extraction and kernel-table preparation against the JAX
 package's, on the CPU.
 
-Bars: extracted tables, camera uniforms, sphere rows, group and supergroup
-AABBs, orders and the packed camera row are equal element for element. The
-port stores hit attributes in float32 where the JAX kernel keeps bf16 hi+lo
-pairs (~16 mantissa bits), so attributes agree to rtol 1e-4."""
+Bars: extracted tables, camera uniforms, sphere rows, group, supergroup and
+candidate-group AABBs, orders and the packed camera row are equal element
+for element. The port stores hit attributes in float32 where the JAX kernel
+keeps bf16 hi+lo pairs (~16 mantissa bits), so attributes agree to rtol
+1e-4."""
 
 import jax
 import jax.numpy as jnp
@@ -45,19 +46,19 @@ def _assert_tree_equal(got, want):
 @pytest.mark.parametrize("name", SCENES)
 def test_extract_and_camera_equal(name):
     pw, jw = getattr(bt.rtiow, name)(), getattr(jrtiow, name)()
-    _assert_tree_equal(pw.extract(with_bvh=False), jw.extract(with_bvh=False))
+    _assert_tree_equal(pw.extract(with_bvh=False, device="cpu"), jw.extract(with_bvh=False))
     for aspect in (None, 16 / 9):
-        _assert_tree_equal(pw.camera_state(aspect=aspect),
+        _assert_tree_equal(pw.camera_state(aspect=aspect, device="cpu"),
                            jw.camera_state(aspect=aspect))
     assert pw.n_spheres == jw.n_spheres and pw.n_raster == jw.n_raster
 
 
 def test_extract_cache_and_bvh_guard():
     w = bt.rtiow.simple_scene()
-    s1 = w.extract(with_bvh=False)
-    assert w.extract(with_bvh=False) is s1
+    s1 = w.extract(with_bvh=False, device="cpu")
+    assert w.extract(with_bvh=False, device="cpu") is s1
     w.set_translation(1, (0.0, 2.0, 0.0))
-    s2 = w.extract(with_bvh=False)
+    s2 = w.extract(with_bvh=False, device="cpu")
     assert s2 is not s1 and float(s2.spheres.cy[1]) == 2.0
     with pytest.raises(NotImplementedError, match="§A item 8"):
         w.extract()
@@ -68,12 +69,12 @@ def test_scene_from_numpy_round_trips():
     jw.spawn_mesh(jcomp.Transform.from_xyz(0.0, 1.0, 2.0), jcomp.cube_mesh(0.5),
                   jcomp.StandardMaterial(base_color=(0.3, 0.6, 0.9)))
     js, jc = jw.extract(with_bvh=False), jw.camera_state(aspect=1.5)
-    ps, pc = scene_from_numpy(_np(js), _np(jc))
+    ps, pc = scene_from_numpy(_np(js), _np(jc), device="cpu")
     _assert_tree_equal(ps, js)
     _assert_tree_equal(pc, jc)
     back, back_cam = scene_from_numpy(
         jax.tree.map(lambda t: t.numpy(), ps),
-        jax.tree.map(lambda t: t.numpy(), pc))
+        jax.tree.map(lambda t: t.numpy(), pc), device="cpu")
     _assert_tree_equal(back, js)
     _assert_tree_equal(back_cam, jc)
     with pytest.raises(NotImplementedError, match="§A item 8"):
@@ -113,19 +114,73 @@ def test_prepare_kernel_scene_matches(case):
                       jcomp.StandardMaterial(base_color=(0.9, 0.1, 0.1)))
     js = jw.extract(with_bvh=False)
     want = jmk.jitted_prepare(0, "kd")(js)
-    ps, _ = scene_from_numpy(_np(js), _np(jw.camera_state()))
+    ps, _ = scene_from_numpy(_np(js), _np(jw.camera_state()),
+                             device="cpu")
     got = mk.prepare_kernel_scene(ps)
     np.testing.assert_array_equal(got.sph.numpy(), np.asarray(want.sph))
-    n_cols = got.gaabb.shape[1]
+    # [groups | supergroups | candidate groups]; the JAX kernel reads the
+    # candidate geometry off its gather table (4 * gc rows).
     n_groups = got.sph.shape[1] // mk.GROUP
-    assert n_cols == (n_groups + -(-n_groups // mk.SUPER)
-                      if n_groups >= 4 * mk.SUPER else n_groups)
-    np.testing.assert_array_equal(got.gaabb.numpy(),
-                                  np.asarray(want.gaabb)[:, :n_cols])
+    n_super = -(-n_groups // mk.SUPER) if n_groups >= 4 * mk.SUPER else 0
+    assert got.gc == want.grp.shape[0] // 4
+    assert got.n_cand == -(-got.sph.shape[1] // got.gc)
+    assert got.cand_off == (0 if got.gc == mk.GROUP else n_groups + n_super)
+    np.testing.assert_array_equal(got.gaabb.numpy(), np.asarray(want.gaabb))
     np.testing.assert_array_equal(got.tri.numpy(), np.asarray(want.tri))
     assert got.attr.shape == (mk.N_ATTR, want.attr.shape[1])
     np.testing.assert_allclose(got.attr.numpy(), _decoded_attr(want.attr),
                                rtol=1e-4)
+
+
+@pytest.mark.parametrize("case,gc", [
+    ("final", 8), ("final", 16), ("final", 32), ("random1100", 8),
+    ("random1100", 24)])
+def test_candidate_tables_match(case, gc):
+    """The candidate-group AABB columns (after [groups | supergroups], or the
+    group columns themselves at gc == GROUP) and their geometry."""
+    jw = (jrtiow.final_scene(seed=42) if case == "final"
+          else _random_world(2, 1100))
+    js = jw.extract(with_bvh=False)
+    want = jmk.jitted_prepare(gc, "kd")(js)
+    ps, _ = scene_from_numpy(_np(js), _np(jw.camera_state()), device="cpu")
+    got = mk.prepare_kernel_scene(ps, gc)
+    s = got.sph.shape[1]
+    n_groups = s // mk.GROUP
+    n_super = -(-n_groups // mk.SUPER) if n_groups >= 4 * mk.SUPER else 0
+    assert (got.gc, got.n_cand) == (gc, -(-s // gc))
+    assert got.cand_off == (0 if gc == mk.GROUP else n_groups + n_super)
+    assert got.gaabb.shape[1] == (n_groups + n_super
+                                  + (0 if gc == mk.GROUP else got.n_cand))
+    np.testing.assert_array_equal(got.gaabb.numpy(), np.asarray(want.gaabb))
+    np.testing.assert_array_equal(got.sph.numpy(), np.asarray(want.sph))
+
+
+def test_candidate_size_errors():
+    jw = _random_world(5, 1500)    # 1536 padded spheres
+    ps, _ = scene_from_numpy(_np(jw.extract(with_bvh=False)),
+                             _np(jw.camera_state()), device="cpu")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        mk.prepare_kernel_scene(ps, 12)
+    with pytest.raises(ValueError, match="at most 186"):
+        mk.prepare_kernel_scene(ps, 8)      # 192 groups
+    assert mk.prepare_kernel_scene(ps, 16).n_cand == 96
+
+
+def test_entry_points_default_to_the_card():
+    """With no device, World.extract, World.camera_state and
+    scene_from_numpy take the CUDA card; without one they raise and tell the
+    caller to ask for the CPU, never falling back to it."""
+    w, jw = bt.rtiow.simple_scene(), jrtiow.simple_scene()
+    calls = [lambda: w.extract(with_bvh=False), w.camera_state,
+             lambda: scene_from_numpy(_np(jw.extract(with_bvh=False)),
+                                      _np(jw.camera_state()))]
+    for call in calls:
+        if torch.cuda.is_available():
+            leaves = jax.tree.leaves(call())
+            assert leaves and all(t.device.type == "cuda" for t in leaves)
+        else:
+            with pytest.raises(RuntimeError, match='device="cpu"'):
+                call()
 
 
 def test_orders_match():
@@ -136,7 +191,8 @@ def test_orders_match():
         np.testing.assert_array_equal(
             grouping.kd_order(sp.cx, sp.cy, sp.cz, sp.radius, sp.valid, gc),
             jgrouping.kd_order(sp.cx, sp.cy, sp.cz, sp.radius, sp.valid, gc))
-    ps, _ = scene_from_numpy(_np(js), _np(jw.camera_state()))
+    ps, _ = scene_from_numpy(_np(js), _np(jw.camera_state()),
+                             device="cpu")
     want = jnp.argsort(jmk._morton_key(*(js.spheres[i] for i in (0, 1, 2, 3, 5))))
     np.testing.assert_array_equal(mk.morton_order(ps.spheres).numpy(),
                                   np.asarray(want))
@@ -151,7 +207,8 @@ def test_camera_row_and_block_shuffles_match(size):
     jw = jrtiow.final_scene(seed=1, grid=1)
     jcam = jw.camera_state(aspect=w / h)
     jcfg = JRenderConfig(width=w, height=h)
-    _, pcam = scene_from_numpy(_np(jw.extract(with_bvh=False)), _np(jcam))
+    _, pcam = scene_from_numpy(_np(jw.extract(with_bvh=False)), _np(jcam),
+                               device="cpu")
     cfg = bt.RenderConfig(width=w, height=h)
     want_cam = np.asarray(jax.jit(lambda c: jmk._pack_camera(c, jcfg))(jcam))
     np.testing.assert_array_equal(mk.pack_camera(pcam, cfg).numpy(),
