@@ -3,12 +3,15 @@
 The JAX package ``bevyray_tpu`` stays the reference; this package imports
 torch and never jax. Public surface so far:
 
-    from bevyray_tpu_torch import (FusedRenderer, RenderConfig, World, rtiow,
-                                   Transform, StandardMaterial, ...)
+    from bevyray_tpu_torch import (FusedRenderer, ProgressiveRenderer,
+                                   AdaptiveRenderer, RenderConfig, World,
+                                   rtiow, Transform, StandardMaterial, ...)
 """
 
 from .core.types import CameraState, RenderConfig, SceneBuffers
 from .core.vec import Vec3
+from .engine.adaptive import AdaptiveRenderer
+from .engine.film import ProgressiveRenderer
 from .engine.fused_renderer import FusedRenderer
 from .engine.renderer import FrameResult
 from .scene.components import (PerspectiveProjection, RaytracedCamera,
@@ -18,10 +21,11 @@ from .scene.world import World
 from .scene import rtiow
 
 __all__ = [
-    "CameraState", "FrameResult", "FusedRenderer", "PerspectiveProjection",
-    "RaytracedCamera", "RaytracedMesh", "RaytracedSphere", "Raytracing",
-    "RenderConfig", "SceneBuffers", "StandardMaterial", "Transform", "Vec3",
-    "World", "cube_mesh", "rtiow",
+    "AdaptiveRenderer", "CameraState", "FrameResult", "FusedRenderer",
+    "PerspectiveProjection", "ProgressiveRenderer", "RaytracedCamera",
+    "RaytracedMesh", "RaytracedSphere", "Raytracing", "RenderConfig",
+    "SceneBuffers", "StandardMaterial", "Transform", "Vec3", "World",
+    "cube_mesh", "rtiow",
 ]
 
 __version__ = "0.1.0"

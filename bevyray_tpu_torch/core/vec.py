@@ -69,8 +69,11 @@ class Vec3(NamedTuple):
         return torch.sqrt(self.length_squared())
 
     def normalize(self) -> "Vec3":
-        # v * rsqrt(|v|^2), the reference's form (zero vectors give inf/nan).
-        return self.scale(torch.rsqrt(self.length_squared()))
+        # v * (1 / sqrt(|v|^2)), the CUDA kernel's form (zero vectors give
+        # inf/nan). torch.rsqrt is not that on either device: on the card it
+        # is the approximate rsqrtf, on the CPU its vector path rounds
+        # otherwise in a few elements in a thousand.
+        return self.scale(1.0 / torch.sqrt(self.length_squared()))
 
     @staticmethod
     def where(mask: torch.Tensor, a: "Vec3", b: "Vec3") -> "Vec3":

@@ -43,6 +43,7 @@ class FusedRenderer:
         self.last_mode = None
         self._kscene_cache = None
         self._sl_cache = None
+        self._cam_memo = None
 
     def prepare(self, scene: SceneBuffers) -> KernelScene:
         """The kernel tables of ``scene``, cached on the identities of the
@@ -57,29 +58,33 @@ class FusedRenderer:
         self._kscene_cache = (key, leaves, kscene)
         return kscene
 
-    def shortlists(self, kscene: KernelScene, cam: CameraState):
+    def shortlists(self, kscene: KernelScene, cam: CameraState,
+                   values=None):
         """``(sl, slmeta)`` for the phase split, or ``(None, None)`` where the
-        gate declines; cached on the prepared scene and the camera's 13
-        values. The same camera tensors hit the cache with no transfer; new
-        ones come to the host in one copy."""
-        leaves = (*cam.position, *cam.direction, *cam.up, cam.fov,
-                  cam.aspect, cam.aperture, cam.focus_distance)
-        ids = tuple(id(v) for v in leaves)
-        scene_key = self._kscene_cache[0]
-        hit = self._sl_cache
-        if hit is not None and hit[0] == scene_key and hit[1] == ids:
-            return hit[4]
-        values = tuple(torch.stack([torch.as_tensor(v, dtype=torch.float32)
-                                    for v in leaves]).cpu().tolist())
-        if hit is not None and hit[0] == scene_key and hit[3] == values:
-            out = hit[4]
-        else:
-            out = device_shortlists_for(kscene, cam, self.config,
-                                        self.config.samples_per_pixel)
-        # ``leaves`` rides along: id() values are unique only among live
-        # objects.
-        self._sl_cache = (scene_key, ids, leaves, values, out)
+        gate declines; cached on the prepared scene and the camera's
+        ``values`` (its :func:`camera_key`; taken by :meth:`camera_values`
+        when not given)."""
+        if values is None:
+            values = self.camera_values(cam)
+        key = (self._kscene_cache[0], values)
+        if self._sl_cache is not None and self._sl_cache[0] == key:
+            return self._sl_cache[1]
+        out = device_shortlists_for(kscene, cam, self.config,
+                                    self.config.samples_per_pixel)
+        self._sl_cache = (key, out)
         return out
+
+    def camera_values(self, cam: CameraState) -> tuple:
+        """:func:`camera_key` of ``cam``, remembered for the same camera
+        tensors, so that a frame loop over one camera makes no transfer; new
+        tensors come to the host in one copy."""
+        leaves = _camera_leaves(cam)
+        ids = tuple(id(v) for v in leaves)
+        if self._cam_memo is None or self._cam_memo[0] != ids:
+            # ``leaves`` rides along: id() values are unique only among live
+            # objects.
+            self._cam_memo = (ids, leaves, camera_key(cam))
+        return self._cam_memo[2]
 
     def render(self, scene: SceneBuffers, cam: CameraState, seed: int,
                raster_color: Optional[Vec3] = None,
@@ -87,18 +92,15 @@ class FusedRenderer:
         config = self.config
         dev = scene.spheres.cx.device
         h, w = config.height, config.width
-        n = h * w
-        if raster_color is None:
-            raster_color = Vec3.splat(1.0, device=dev)
-        if raster_depth is None:
-            raster_depth = torch.zeros((), dtype=torch.float32, device=dev)
         # As PallasRenderer: the tables and the split gate come first, so a
         # forced split at level 0 raises there too.
         kscene = self.prepare(scene)
         sl, slmeta = self.shortlists(kscene, cam)
         if config.level == 0:   # Skip: raster passthrough, no tracing (wgsl:97-99)
+            if raster_color is None:
+                raster_color = Vec3.splat(1.0, device=dev)
             return FrameResult(
-                image=_pixels(raster_color, n).reshape(h, w, 3),
+                image=_pixels(raster_color, h * w).reshape(h, w, 3),
                 rt_depth=torch.zeros((h, w), dtype=torch.float32, device=dev),
                 rays_traced=torch.zeros((), dtype=torch.int64, device=dev))
         r, g, b, depth, segs = render_tiles(kscene, cam, config,
@@ -107,11 +109,40 @@ class FusedRenderer:
                                             slmeta=slmeta)
         self.last_mode = kernel_mode(kscene, config, sl)
         r, g, b, depth = (unshuffle_blocks(x, config) for x in (r, g, b, depth))
-        near, far = cam.near.to(dev), cam.far.to(dev)
-        out = composite(config.level, Vec3(r, g, b), depth, near, far,
-                        raster_color, raster_depth)
-        return FrameResult(image=_pixels(out, n).reshape(h, w, 3),
-                           rt_depth=depth.reshape(h, w), rays_traced=segs)
+        return frame_result(config, cam, Vec3(r, g, b), depth, segs,
+                            raster_color, raster_depth)
+
+
+def frame_result(config: RenderConfig, cam: CameraState, rt_color: Vec3,
+                 rt_depth: torch.Tensor, rays_traced: torch.Tensor,
+                 raster_color: Optional[Vec3] = None,
+                 raster_depth=None) -> FrameResult:
+    """The traced layer (row-major ``[N]`` color and depth) composited over
+    the raster layer at ``config.level``; the raster layer defaults to white
+    at reverse-Z depth 0."""
+    dev = rt_depth.device
+    h, w = config.height, config.width
+    if raster_color is None:
+        raster_color = Vec3.splat(1.0, device=dev)
+    if raster_depth is None:
+        raster_depth = torch.zeros((), dtype=torch.float32, device=dev)
+    out = composite(config.level, rt_color, rt_depth, cam.near.to(dev),
+                    cam.far.to(dev), raster_color, raster_depth)
+    return FrameResult(image=_pixels(out, h * w).reshape(h, w, 3),
+                       rt_depth=rt_depth.reshape(h, w), rays_traced=rays_traced)
+
+
+def _camera_leaves(cam: CameraState) -> tuple:
+    """The camera's 0-d tensors in ``jax.tree.leaves`` order."""
+    return (*cam.position, *cam.direction, *cam.up, *cam[3:])
+
+
+def camera_key(cam: CameraState) -> tuple:
+    """Every value of the camera as Python floats, in the JAX package's
+    ``jax.tree.leaves(cam)`` order (the accumulating renderers' reset key,
+    also saved in an adaptive checkpoint), from one host copy."""
+    return tuple(torch.stack([torch.as_tensor(v, dtype=torch.float32)
+                              for v in _camera_leaves(cam)]).cpu().tolist())
 
 
 def _pixels(color: Vec3, n: int) -> torch.Tensor:

@@ -27,14 +27,17 @@ void check_f32(const torch::Tensor& t, const torch::Tensor& like, const char* na
 }
 
 // `sl`/`slmeta` are read only when `split`; `gaabb`'s candidate columns only
-// when `candidates`.
+// when `candidates`; `spp_map` (int32, one target per lane) only when it is
+// not empty.
 void render_tiles(const torch::Tensor& cam, const torch::Tensor& sph,
                   const torch::Tensor& attr, const torch::Tensor& gaabb,
                   const torch::Tensor& sl, const torch::Tensor& slmeta,
+                  const torch::Tensor& spp_map,
                   torch::Tensor out_r, torch::Tensor out_g, torch::Tensor out_b,
                   torch::Tensor out_depth, torch::Tensor segments, int64_t nbx,
                   int64_t width, int64_t height, int64_t spp, int64_t bounces,
-                  int64_t seed, double inv_spp, int64_t level, bool defocus,
+                  int64_t seed, int64_t sample_offset, double inv_spp,
+                  int64_t level, bool defocus,
                   bool cosine, bool split, bool candidates, int64_t gc,
                   int64_t n_cand, int64_t cand_off) {
   check_f32(sph, sph, "sph");
@@ -76,6 +79,16 @@ void render_tiles(const torch::Tensor& cam, const torch::Tensor& sph,
                     slmeta.size(1) == 1 + sl_cap / kSlChunk,
                 "slmeta must be (n_tiles, 1 + K/8)");
   }
+  const bool has_map = spp_map.numel() > 0;
+  if (has_map) {
+    TORCH_CHECK(spp_map.is_cuda() && spp_map.device() == sph.device(),
+                "spp_map must be a CUDA tensor on the scene's device");
+    TORCH_CHECK(spp_map.scalar_type() == torch::kInt32 && spp_map.is_contiguous() &&
+                    spp_map.numel() == n_lanes,
+                "spp_map must be contiguous int32 with one target per lane");
+  }
+  TORCH_CHECK(sample_offset >= 0 && sample_offset <= 0xFFFFFFFFLL,
+              "sample_offset must lie in [0, 2^32)");
 
   RenderArgs args{};
   args.cam = cam.data_ptr<float>();
@@ -84,6 +97,7 @@ void render_tiles(const torch::Tensor& cam, const torch::Tensor& sph,
   args.gaabb = gaabb.data_ptr<float>();
   args.sl = split ? sl.data_ptr<float>() : nullptr;
   args.slmeta = split ? slmeta.data_ptr<float>() : nullptr;
+  args.spp_map = has_map ? spp_map.data_ptr<int32_t>() : nullptr;
   args.out_r = out_r.data_ptr<float>();
   args.out_g = out_g.data_ptr<float>();
   args.out_b = out_b.data_ptr<float>();
@@ -99,6 +113,7 @@ void render_tiles(const torch::Tensor& cam, const torch::Tensor& sph,
   args.spp = static_cast<int>(spp);
   args.bounces = static_cast<int>(bounces);
   args.seed = static_cast<unsigned int>(seed & 0xFFFFFFFF);
+  args.sample_offset = static_cast<unsigned int>(sample_offset);
   args.inv_spp = static_cast<float>(inv_spp);
   args.level = static_cast<int>(level);
   args.defocus = defocus ? 1 : 0;

@@ -13,6 +13,7 @@ struct RenderArgs {
   const float* gaabb;   // (6, gaabb_stride): min xyz, max xyz of each box
   const float* sl;      // (n_tiles, 5, sl_cap) shortlists, or null
   const float* slmeta;  // (n_tiles, 1 + sl_cap / 8): [full flag, chunk t_lo...]
+  const int* spp_map;   // (n_lanes,) per-lane sample targets, block-ordered, or null
   float* out_r;
   float* out_g;
   float* out_b;
@@ -28,6 +29,7 @@ struct RenderArgs {
   int spp;
   int bounces;
   unsigned int seed;
+  unsigned int sample_offset;  // added to every sample index (mod 2^32)
   float inv_spp;
   int level;
   int defocus;

@@ -5,8 +5,10 @@ Counterpart of ``bevyray_tpu/kernels/pallas/megakernel.py``. The TPU kernel
 (``render_tiles`` -> ``_render_kernel``) traces the whole frame in one
 ``pallas_call``; here ``render_tiles`` launches ``csrc/megakernel.cu``, one
 thread per pixel looping over samples, bounces and spheres, with the exact
-PCG streams (``exact_rng=True``) and no triangles. It runs the JAX kernel's
-four sphere-walk modes, (primary, intersect):
+PCG streams (``exact_rng=True``) and no triangles. Accumulating passes
+(:mod:`...engine.film`, :mod:`...engine.adaptive`) give it a sample offset
+and per-lane sample targets. It runs the JAX kernel's four sphere-walk
+modes, (primary, intersect):
 
 - primary ``"off"``: every bounce takes the full walk; ``"split"`` (``sl``
   and ``slmeta`` given): bounce 0 walks the pixel block's host-built
@@ -38,6 +40,7 @@ hi/lo table (~16 mantissa bits); the port stores and loads them in float32.
 
 from __future__ import annotations
 
+import numbers
 from typing import NamedTuple
 
 import numpy as np
@@ -335,14 +338,12 @@ def kernel_mode(pscene: KernelScene, config: RenderConfig, sl) -> tuple:
             "candidates" if candidates else "grouped")
 
 
-def _check_slice(pscene: KernelScene, exact_rng, block_offset, sample_offset,
-                 n_blocks_local, spp_map):
+def _check_slice(pscene: KernelScene, exact_rng, block_offset,
+                 n_blocks_local):
     """Raise for the inputs whose kernel branch is not ported yet."""
     missing = [
-        (spp_map is not None, "adaptive sampling (spp_map)", "B2"),
-        (bool(block_offset) or bool(sample_offset)
-         or n_blocks_local is not None,
-         "shard offsets (block_offset/sample_offset/n_blocks_local)", "A10"),
+        (bool(block_offset) or n_blocks_local is not None,
+         "shard offsets (block_offset/n_blocks_local)", "A10"),
         (pscene.tri.shape[1] > 0, "triangles", "B9"),
         (not exact_rng, "the fast RNG (exact_rng=False)", "B8"),
     ]
@@ -350,6 +351,26 @@ def _check_slice(pscene: KernelScene, exact_rng, block_offset, sample_offset,
         if bad:
             raise NotImplementedError(
                 f"{what} is not ported to the CUDA kernel yet (ROADMAP {item})")
+
+
+def _check_accumulation(pscene: KernelScene, config: RenderConfig,
+                        sample_offset, spp_map):
+    """Type, range, shape and device of an accumulating pass's inputs."""
+    if (not isinstance(sample_offset, numbers.Integral)
+            or isinstance(sample_offset, bool)
+            or not 0 <= sample_offset <= _M32):
+        raise ValueError(f"sample_offset={sample_offset!r} must be an int in "
+                         "[0, 2^32)")
+    if spp_map is None:
+        return
+    nbx, nby = block_grid(config)
+    shape = (nbx * nby, TILE // 128, 128)
+    if (not isinstance(spp_map, torch.Tensor) or spp_map.dtype != torch.int32
+            or spp_map.device != pscene.sph.device
+            or tuple(spp_map.shape) != shape):
+        raise ValueError(
+            f"spp_map must be an int32 tensor on the scene's device of shape "
+            f"{shape} (shuffle_blocks' block order)")
 
 
 def _check_shortlists(pscene: KernelScene, config: RenderConfig, sl, slmeta):
@@ -392,18 +413,27 @@ def render_tiles(pscene: KernelScene, cam: CameraState, config: RenderConfig,
     split. The full walk's mode comes from ``config`` and the table size
     (:func:`kernel_mode`).
 
+    ``sample_offset``: an int in [0, 2^32) added (mod 2^32) to every sample
+    index that keys the PCG streams, so a later pass of an accumulating film
+    draws fresh samples. ``spp_map``: per-lane sample targets, int32 in the
+    kernel's block order, ``(nbx*nby, TILE // 128, 128)`` as
+    :func:`shuffle_blocks` gives them; each pixel traces min(map, spp)
+    samples, so pass ``normalize=False`` and divide by the counts outside.
+
     On CPU tensors this runs :func:`render_tiles_reference`. On CUDA tensors
     it launches the CUDA kernel (built on first use) or raises; it never
     falls back. ``render_tiles.launches`` counts the kernel's launches.
     """
-    _check_slice(pscene, exact_rng, block_offset, sample_offset,
-                 n_blocks_local, spp_map)
+    _check_slice(pscene, exact_rng, block_offset, n_blocks_local)
     _check_shortlists(pscene, config, sl, slmeta)
+    _check_accumulation(pscene, config, sample_offset, spp_map)
     dev = pscene.sph.device
     if dev.type == "cpu":
         return render_tiles_reference(pscene, cam, config, frame_seed,
                                       normalize=normalize, sl=sl,
-                                      slmeta=slmeta)
+                                      slmeta=slmeta,
+                                      sample_offset=sample_offset,
+                                      spp_map=spp_map)
     if dev.type != "cuda":
         raise ValueError(f"render_tiles takes CPU or CUDA tensors, not {dev}")
     from .build import extension
@@ -418,11 +448,15 @@ def render_tiles(pscene: KernelScene, cam: CameraState, config: RenderConfig,
     segs = torch.zeros(1, dtype=torch.int64, device=dev)
     if sl is None:
         sl = slmeta = torch.empty(0, dtype=torch.float32, device=dev)
+    if spp_map is None:
+        spp_map = torch.empty(0, dtype=torch.int32, device=dev)
     ext.render_tiles(cam_row, pscene.sph, pscene.attr, pscene.gaabb,
-                     sl.contiguous(), slmeta.contiguous(), *outs, segs,
+                     sl.contiguous(), slmeta.contiguous(),
+                     spp_map.contiguous(), *outs, segs,
                      nbx, config.width, config.height,
                      config.samples_per_pixel, config.bounces,
-                     int(frame_seed) & _M32, _inv_spp(config, normalize),
+                     int(frame_seed) & _M32, int(sample_offset),
+                     _inv_spp(config, normalize),
                      config.level, config.defocus,
                      config.diffuse_sampling == "cosine", mode[0] == "split",
                      mode[1] == "candidates", pscene.gc, pscene.n_cand,
@@ -623,8 +657,11 @@ def _ball(stream, first: int) -> Vec3:
 def render_tiles_reference(pscene: KernelScene, cam: CameraState,
                            config: RenderConfig, frame_seed,
                            normalize: bool = True, sl=None, slmeta=None,
-                           work: dict | None = None):
-    """The plain PyTorch version of the kernel, on any device.
+                           work: dict | None = None, sample_offset: int = 0,
+                           spp_map=None):
+    """The plain PyTorch version of the kernel, on any device, in the
+    dtype of the scene tables (float32 as prepared; a float64 copy replays
+    the frame on the same inputs in float64).
 
     Tensors over all lanes of the padded block grid, like the JAX kernel, and
     a Python loop over samples and bounces; each bounce intersects only the
@@ -635,6 +672,9 @@ def render_tiles_reference(pscene: KernelScene, cam: CameraState,
     frame's rays (``"sphere_tests"``, ``"slab_tests"``): the tests that the
     rays' best hits leave after the kernel's candidate prune and shortlist
     early-out (:func:`_intersect_full`, :func:`_intersect_shortlist`).
+    Under ``spp_map`` every sample runs over all lanes, masked to the lanes
+    whose target it is below, so ``work`` and the segments count only the
+    samples traced.
     """
     render_tiles_reference.calls += 1
     work = {} if work is None else work
@@ -642,7 +682,7 @@ def render_tiles_reference(pscene: KernelScene, cam: CameraState,
         work.setdefault(key, 0)
     dev = pscene.sph.device
     candidates = kernel_mode(pscene, config, sl)[1] == "candidates"
-    cam_row = pack_camera(cam, config).to(dev)
+    cam_row = pack_camera(cam, config).to(dev, pscene.sph.dtype)
     nbx, nby = block_grid(config)
     lane = torch.arange(nbx * nby * TILE, device=dev)
     blk, r = lane // TILE, lane % TILE
@@ -650,23 +690,26 @@ def render_tiles_reference(pscene: KernelScene, cam: CameraState,
     py = (blk // nbx) * BLOCK_H + r // BLOCK_W
     in_image = (px < config.width) & (py < config.height)
     pixel = py * config.width + px        # row-major id keys the streams
-    u = (px.float() + 0.5) / cam_row[C_WIDTH]
-    v = (py.float() + 0.5) / cam_row[C_HEIGHT]
+    u = (px.to(cam_row.dtype) + 0.5) / cam_row[C_WIDTH]
+    v = (py.to(cam_row.dtype) + 0.5) / cam_row[C_HEIGHT]
     far = cam_row[C_FAR]
     fallback_far = far + 10.0 if config.level == 1 else far - 1.0
     seed = int(frame_seed) & _M32
     attr = pscene.attr
+    spp = config.samples_per_pixel
+    target = (spp if spp_map is None
+              else torch.clamp(spp_map.reshape(-1).long(), max=spp))
 
     zero = torch.zeros_like(u)
     cr, cg, cb, dsum = zero, zero, zero, zero
     segs = torch.zeros((), dtype=torch.int64, device=dev)
-    for s in range(config.samples_per_pixel):
-        stream = rng.stream_init(pixel, s, seed)
+    for s in range(spp):
+        stream = rng.stream_init(pixel, (s + sample_offset) & _M32, seed)
         o, d = _raygen(cam_row, config, stream, u, v)
         ray_color = Vec3(zero + 1.0, zero + 1.0, zero + 1.0)
         radiance = Vec3(zero, zero, zero)
         first_depth = torch.full_like(u, _INF32)
-        active = in_image
+        active = in_image & (s < target)
         for b in range(config.bounces + 1):
             segs = segs + active.sum()
             if b == 0 and sl is not None:

@@ -9,11 +9,22 @@ each of its sphere-walk modes against the plain PyTorch version on the card,
 drives the fused-renderer main path at the headline settings (RTiOW final
 scene, 1920x1080, 16 spp, 4 bounces) with the default configuration, which
 takes the phase split with the candidate walk, then each other mode the same
-way, and checks that every frame went through the kernel. Each phase prints
-its lines; the line before the last is the kernel table as JSON, and the
-last line is ``{"ok": true, "device": {...}}``. Any failed phase raises and
-the script exits nonzero without that line. It exits nonzero at once when
-there is no CUDA card or no port beside it.
+way, and checks that every frame went through the kernel.
+
+Phase 5 drives the accumulating path at the same settings:
+``ProgressiveRenderer(backend="pallas")`` (2 passes of 8 spp against one
+16 spp frame: equal segments, image within 1e-5; then 8 timed passes of
+16 spp) and ``AdaptiveRenderer`` (tolerance 0.02, a re-probe every 4
+passes: 8 timed passes with the share of pixels each samples; tolerance 0
+against the uniform film), each pass one kernel launch and no plain run;
+then the kernel under the sample map of adaptive pass 3, at sample offset
+32, against its plain version: within the bars on the lanes the map
+samples, and exact zero sums from both on every lane whose target is 0.
+
+Each phase prints its lines; the line before the last is the kernel table
+as JSON, and the last line is ``{"ok": true, "device": {...}}``. Any failed
+phase raises and the script exits nonzero without that line. It exits
+nonzero at once when there is no CUDA card or no port beside it.
 """
 
 from __future__ import annotations
@@ -40,13 +51,20 @@ MODES = list(REPLACES)
 WIDTH, HEIGHT, SPP, BOUNCES = 1920, 1080, 16, 4
 TIMED_FRAMES = 5      # the default-config headline
 OTHER_FRAMES = 3      # each other mode at the headline
+PASSES = 8            # accumulating passes (the CLI's accumulate default)
+TOLERANCE, REPROBE_EVERY = 0.02, 4   # AdaptiveRenderer's defaults
+MAP_PASS, MAP_OFFSET = 3, 32   # the adaptive pass whose map phase 5 checks
+# The 2 x 8 spp film against the 16 spp frame: the same samples, summed in
+# another order.
+IDENTITY_TOL = 1e-5
 # Kernel against plain version on the card: both round in IEEE float32 with no
-# contraction, but the card's libm (log/sin/cos/exp) and torch's rsqrt differ
-# from the kernel's by ulps, which flips a path now and then; such a pixel
-# differs by up to the whole color of a sample, and its depth by up to
-# (far - 1) / spp where a first hit flips to a miss. The bars hold color and
-# depth alike: the share of pixels within PIXEL_TOL, and the mean |d| (depth's
-# relative to the plain version's mean depth).
+# contraction and normalize as v * (1 / sqrt(v.v)); on the H100 they agree to
+# the bit (PERF.md). An ulp of another card's or toolkit's libm
+# (log/sin/cos/exp) would flip a path now and then; such a pixel differs by
+# up to the whole color of a sample, and its depth by up to (far - 1) / spp
+# where a first hit flips to a miss. The bars hold color and depth alike: the
+# share of pixels within PIXEL_TOL, and the mean |d| (depth's relative to the
+# plain version's mean depth).
 PIXEL_TOL, PIXEL_FRAC, MEAN_TOL, DEPTH_MEAN_RTOL, SEG_RTOL = (
     1e-3, 0.999, 5e-5, 1e-4, 1e-3)
 # The bound: fp32 operations of the walks over the H100 SXM's fp32 peak
@@ -80,17 +98,20 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare(config, got, want) -> dict:
-    """Pixel agreement of two render_tiles results (block-ordered)."""
+def compare(config, got, want, mask=None) -> dict:
+    """Pixel agreement of two render_tiles results (block-ordered), over the
+    pixels where the block-ordered ``mask`` holds (all without one)."""
     import torch
 
     from bevyray_tpu_torch.kernels.cuda.megakernel import unshuffle_blocks
 
-    rgb = [torch.stack([unshuffle_blocks(c, config) for c in out[:3]], -1)
-           for out in (got, want)]
+    keep = (slice(None) if mask is None
+            else unshuffle_blocks(mask.reshape(-1), config))
+    rgb = [torch.stack([unshuffle_blocks(c, config) for c in out[:3]],
+                       -1)[keep] for out in (got, want)]
     diff = (rgb[0] - rgb[1]).abs()
-    want_depth = unshuffle_blocks(want[3], config)
-    depth = (unshuffle_blocks(got[3], config) - want_depth).abs()
+    want_depth = unshuffle_blocks(want[3], config)[keep]
+    depth = (unshuffle_blocks(got[3], config)[keep] - want_depth).abs()
     segs = (int(got[4]), int(want[4]))
     return {
         "frac_within": float((diff.amax(-1) <= PIXEL_TOL).float().mean()),
@@ -124,12 +145,13 @@ def forced(config, mode):
                                pallas_intersect=mode[1])
 
 
-def bound_ms(kscene, cam_row, sl, slmeta, n_lanes, work) -> tuple:
+def bound_ms(kscene, cam_row, sl, slmeta, n_lanes, work,
+             spp_map=None) -> tuple:
     """(ms, "operations" | "bytes"): the least time the card could take for
     the walks this frame's rays need (``work``, counted by the plain
     version) and for reading each input and writing each output once."""
     inputs = [cam_row, kscene.sph, kscene.attr, kscene.gaabb]
-    inputs += [t for t in (sl, slmeta) if t is not None]
+    inputs += [t for t in (sl, slmeta, spp_map) if t is not None]
     n_bytes = (sum(t.numel() * t.element_size() for t in inputs)
                + 4 * n_lanes * 4 + 8)
     ops = (SPHERE_TEST_OPS * work["sphere_tests"]
@@ -339,11 +361,209 @@ def main() -> int:
             # No single PyTorch call computes a path-traced frame.
             "library_ms": None})
 
+    entries.append(accumulation_phase(world, scene, cam, headline, card))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def timed_passes(renderer, scene, cam, seeds) -> list:
+    """Run ``renderer.step`` once per seed; per pass the host ms
+    (synchronised), the segments and the per-pixel mask of the pixels the
+    pass sampled."""
+    import torch
+
+    out = []
+    for seed in seeds:
+        before = renderer.film
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        renderer.step(scene, cam, seed=seed)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = renderer.film
+        out.append((ms, int(after.rays_traced) - int(before.rays_traced),
+                    after.n_samples > before.n_samples))
+    return out
+
+
+def accumulation_phase(world, scene, cam, headline, card) -> dict:
+    """Phase 5: the accumulating path at the headline through
+    ``ProgressiveRenderer(backend="pallas")`` and ``AdaptiveRenderer``, and
+    the kernel under a real adaptive sample map against its plain version.
+    Returns the kernels-line entry of the map branch."""
+    import torch
+
+    from bevyray_tpu_torch import (AdaptiveRenderer, FusedRenderer,
+                                   ProgressiveRenderer)
+    from bevyray_tpu_torch.engine.film import resolve_impl
+    from bevyray_tpu_torch.kernels.cuda.megakernel import (
+        TILE, block_grid, kernel_mode, pack_camera, render_tiles,
+        render_tiles_reference, shuffle_blocks)
+
+    def counts_zeroed():
+        render_tiles.launches = 0
+        render_tiles_reference.calls = 0
+
+    def check_counts(what, launches):
+        if (render_tiles.launches, render_tiles_reference.calls) != (
+                launches, 0):
+            raise SystemExit(
+                f"phase 5 {what}: {render_tiles.launches} kernel launches "
+                f"and {render_tiles_reference.calls} plain calls, expected "
+                f"{launches} and 0")
+
+    def check_frame(what, frame):
+        image = frame.image
+        if (tuple(image.shape) != (HEIGHT, WIDTH, 3)
+                or not bool(torch.isfinite(image).all())
+                or not bool(torch.isfinite(frame.rt_depth).all())
+                or int(frame.rays_traced) <= 0
+                or not 0.0 < float(image.mean()) < 2.0):
+            raise SystemExit(f"phase 5 {what}: not a finite image with "
+                             "traced segments")
+
+    def check_same(what, got, want):
+        segs = (int(got.rays_traced), int(want.rays_traced))
+        max_abs = float((got.image - want.image).abs().max())
+        print(f"phase 5 {what}: segments {segs[0]} / {segs[1]}, image max "
+              f"|d| {max_abs:.3g}", flush=True)
+        if segs[0] != segs[1] or not max_abs <= IDENTITY_TOL:
+            raise SystemExit(f"phase 5 {what}: segments must be equal and "
+                             f"the image within {IDENTITY_TOL}")
+
+    def mrays(segments, ms):
+        return segments / (ms * 1e-3) / 1e6
+
+    # 2 passes x 8 spp against one 16 spp frame of the same seed.
+    half = dataclasses.replace(headline, samples_per_pixel=SPP // 2)
+    prog = ProgressiveRenderer(half, backend="pallas")
+    fused = FusedRenderer(headline)
+    counts_zeroed()
+    prog.step(scene, cam, seed=9)
+    film_frame = prog.step(scene, cam, seed=9)
+    torch.cuda.synchronize()
+    check_counts("2 x 8 spp film", 2)
+    kscene = prog._renderer.prepare(scene)
+    half_mode = kernel_mode(kscene, half,
+                            prog._renderer.shortlists(kscene, cam)[0])
+    frame = fused.render(scene, cam, seed=9)
+    check_frame("2 x 8 spp film", film_frame)
+    check_same(f"2 x {SPP // 2} spp film ({'/'.join(half_mode)}) vs 1 x "
+               f"{SPP} spp frame ({'/'.join(fused.last_mode)})", film_frame,
+               frame)
+
+    # Uniform progressive passes at the headline, after one warm-up pass
+    # that pays the set-up (kernel tables, shortlists).
+    prog = ProgressiveRenderer(headline, backend="pallas")
+    prog.step(scene, cam, seed=0)
+    prog.reset()
+    counts_zeroed()
+    uniform = timed_passes(prog, scene, cam, range(1, PASSES + 1))
+    check_counts("progressive passes", PASSES)
+    uniform_frame = resolve_impl(prog.film, cam, headline)
+    check_frame("progressive film", uniform_frame)
+    pass_ms = sorted(ms for ms, _, _ in uniform)
+    p50 = pass_ms[len(pass_ms) // 2]
+    segs = sum(n for _, n, _ in uniform) / len(uniform)
+    print(f"phase 5 progressive {WIDTH}x{HEIGHT} {SPP} spp/pass, {PASSES} "
+          f"passes: p50 {p50:.3f} ms/pass, {mrays(segs, p50):.2f} Mrays/s, "
+          f"{segs:.0f} segments/pass, pass ms "
+          f"{[round(ms, 3) for ms, _, _ in uniform]} | {card}", flush=True)
+
+    # Adaptive passes after a warm-up pass: per pass the share of pixels
+    # sampled; the map of pass MAP_PASS serves the kernel check below.
+    adap = AdaptiveRenderer(headline, tolerance=TOLERANCE,
+                            reprobe_every=REPROBE_EVERY)
+    adap.step(scene, cam, seed=0)
+    adap.reset()
+    kscene = adap._renderer.prepare(scene)
+    sl, slmeta = adap._renderer.shortlists(kscene, cam)
+    adap_mode = kernel_mode(kscene, headline, sl)
+    if adap_mode != ("split", "candidates"):
+        raise SystemExit(f"phase 5: the adaptive pass runs {adap_mode}, not "
+                         "the default split/candidates")
+    counts_zeroed()
+    passes = timed_passes(adap, scene, cam, range(1, PASSES + 1))
+    check_counts("adaptive passes", PASSES)
+    adaptive_launches = render_tiles.launches
+    check_frame("adaptive film", adap.resolve(cam))
+    counts = adap.samples_map()
+    for k, (ms, n, sampled) in enumerate(passes):
+        print(f"phase 5 adaptive pass {k}: {ms:.3f} ms, "
+              f"{float(sampled.float().mean()):.4f} of pixels sampled, {n} "
+              f"segments, {mrays(n, ms):.2f} Mrays/s", flush=True)
+    print(f"phase 5 adaptive tolerance {TOLERANCE}, re-probe every "
+          f"{REPROBE_EVERY}, {PASSES} passes: converged "
+          f"{adap.converged_fraction():.4f}, samples/pixel min "
+          f"{counts.min():.0f} mean {counts.mean():.2f} max "
+          f"{counts.max():.0f}, total "
+          f"{sum(ms for ms, _, _ in passes):.3f} ms vs uniform "
+          f"{sum(ms for ms, _, _ in uniform):.3f} ms | {card}", flush=True)
+
+    # tolerance 0 never stops a pixel: the uniform film of the same seeds.
+    flat = AdaptiveRenderer(headline, tolerance=0.0,
+                            reprobe_every=REPROBE_EVERY)
+    for seed in range(1, PASSES + 1):
+        flat.step(scene, cam, seed=seed)
+    check_same(f"adaptive tolerance 0 vs progressive, {PASSES} passes",
+               flat.resolve(cam), uniform_frame)
+
+    # The kernel against its plain version under the map of pass MAP_PASS
+    # at sample offset MAP_OFFSET. Sums over a pass are compared at the
+    # scale of the per-spp bars (times 1/spp), on the pixels the map samples;
+    # every lane whose target is 0 (unsampled pixels, block padding) must
+    # trace nothing and leave exact zero sums.
+    spp_map = shuffle_blocks(
+        torch.where(passes[MAP_PASS][2], SPP, 0).to(torch.int32), headline,
+        fill=0)
+    share = float((spp_map > 0).float().sum()) / (WIDTH * HEIGHT)
+
+    def kernel():
+        return render_tiles(kscene, cam, headline, 1, sl=sl, slmeta=slmeta,
+                            normalize=False, spp_map=spp_map,
+                            sample_offset=MAP_OFFSET)
+
+    got = kernel()
+    torch.cuda.synchronize()
+    work = {}
+    t0 = time.perf_counter()
+    want = render_tiles_reference(kscene, cam, headline, 1, sl=sl,
+                                  slmeta=slmeta, normalize=False,
+                                  spp_map=spp_map, sample_offset=MAP_OFFSET,
+                                  work=work)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    scale = 1.0 / SPP
+    stats = compare(headline, [x * scale for x in got[:4]] + [got[4]],
+                    [x * scale for x in want[:4]] + [want[4]],
+                    mask=spp_map > 0)
+    idle = spp_map.reshape(-1) == 0
+    idle_max = [max(float(torch.where(idle, x, 0.0).abs().max())
+                    for x in out[:4]) for out in (got, want)]
+    print(f"phase 5 spp_map: {int(idle.sum())} lanes of target 0, max |sum| "
+          f"there kernel {idle_max[0]:.3g}, plain {idle_max[1]:.3g}",
+          flush=True)
+    if idle_max != [0.0, 0.0]:
+        raise SystemExit("phase 5 spp_map: a lane whose target is 0 must "
+                         "leave exact zero sums (r, g, b, depth)")
+    kernel_ms = cuda_ms(kernel, 3)
+    nbx, nby = block_grid(headline)
+    b_ms, b_by = bound_ms(kscene, pack_camera(cam, headline), sl, slmeta,
+                          nbx * nby * TILE, work, spp_map)
+    check_agreement(
+        f"phase 5 split/candidates + spp_map (pass {MAP_PASS}, {share:.4f} "
+        f"of pixels), sample_offset {MAP_OFFSET}, kernel {kernel_ms:.3f} ms, "
+        f"plain {plain_ms:.1f} ms, bound {b_ms:.3f} ms ({b_by}), sphere tests "
+        f"{work['sphere_tests']}, slab tests {work['slab_tests']} | {card}",
+        stats)
+    return {"name": "render_tiles[split,candidates,spp_map]", "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": f"{TPU_KERNEL}:1571",
+            "launches": adaptive_launches, "max_abs_err": stats["max_abs"],
+            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
 
 
 if __name__ == "__main__":

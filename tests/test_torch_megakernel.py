@@ -48,8 +48,13 @@ def _shortlists(kscene, cam, config, overflow=()):
 
 
 def _check_against_jax(jworld, w, h, seed, split=False, overflow=(),
-                       cand_size=0, mode=None, **options):
+                       cand_size=0, mode=None, spp_map=None, sample_offset=0,
+                       **options):
+    """``spp_map`` (block-ordered int32 numpy targets) and ``sample_offset``
+    go to both packages; with a map both return sample sums."""
     js, jcam, kscene, pcam = _inputs(jworld, w, h, cand_size)
+    accumulate = dict(sample_offset=sample_offset,
+                      normalize=spp_map is None)
     cfg = {**SLICE, **options}
     config = bt.RenderConfig(width=w, height=h, **cfg)
     sl = meta = None
@@ -58,16 +63,20 @@ def _check_against_jax(jworld, w, h, seed, split=False, overflow=(),
     want = jmk.render_tiles(jmk.jitted_prepare(cand_size, "kd")(js), jcam,
                             JRenderConfig(width=w, height=h, **cfg),
                             np.uint32(seed), exact_rng=True, sl=sl,
-                            slmeta=meta)
+                            slmeta=meta, spp_map=spp_map, **accumulate)
+    if spp_map is not None:
+        accumulate["spp_map"] = torch.as_tensor(spp_map)
     got = mk.render_tiles(kscene, pcam, config, seed,
                           sl=None if sl is None else torch.as_tensor(sl),
-                          slmeta=None if meta is None else torch.as_tensor(meta))
+                          slmeta=None if meta is None else torch.as_tensor(meta),
+                          **accumulate)
     if mode is not None:
         # Every mode walks the same spheres to the same winner, so the port's
         # plain version gives the same bits as in its off/grouped mode.
         assert mk.kernel_mode(kscene, config, sl) == mode
         base = mk.render_tiles(kscene, pcam, dataclasses.replace(
-            config, pallas_primary="off", pallas_intersect="grouped"), seed)
+            config, pallas_primary="off", pallas_intersect="grouped"), seed,
+            **accumulate)
         for g, b in zip(got, base):
             assert torch.equal(g, b)
     for g, wnt in zip(got[:3], want[:3]):
@@ -347,9 +356,7 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(spp_map=np.ones((1, 32, 128), np.int32)), "B2"),
     (dict(block_offset=1), "A10"),
-    (dict(sample_offset=4), "A10"),
     (dict(n_blocks_local=1), "A10"),
     (dict(exact_rng=False), "B8"),
 ])
