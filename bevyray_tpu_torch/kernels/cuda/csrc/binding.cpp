@@ -14,6 +14,7 @@ namespace {
 
 constexpr int64_t kNCam = 24;
 constexpr int64_t kNAttr = 13;
+constexpr int64_t kNTri = 10;
 constexpr int64_t kTile = 64 * 64;
 constexpr int64_t kSlRows = 5;
 constexpr int64_t kSlChunk = 8;
@@ -28,9 +29,10 @@ void check_f32(const torch::Tensor& t, const torch::Tensor& like, const char* na
 
 // `sl`/`slmeta` are read only when `split`; `gaabb`'s candidate columns only
 // when `candidates`; `spp_map` (int32, one target per lane) only when it is
-// not empty.
+// not empty; the first `n_tris` rows of `tri` only when it is not 0.
 void render_tiles(const torch::Tensor& cam, const torch::Tensor& sph,
                   const torch::Tensor& attr, const torch::Tensor& gaabb,
+                  const torch::Tensor& tri, int64_t n_tris,
                   const torch::Tensor& sl, const torch::Tensor& slmeta,
                   const torch::Tensor& spp_map,
                   torch::Tensor out_r, torch::Tensor out_g, torch::Tensor out_b,
@@ -44,12 +46,17 @@ void render_tiles(const torch::Tensor& cam, const torch::Tensor& sph,
   check_f32(cam, sph, "cam");
   check_f32(attr, sph, "attr");
   check_f32(gaabb, sph, "gaabb");
+  check_f32(tri, sph, "tri");
   TORCH_CHECK(cam.numel() == kNCam, "cam must hold ", kNCam, " floats");
   TORCH_CHECK(sph.dim() == 2 && sph.size(0) == 4 && sph.size(1) > 0,
               "sph must be (4, S)");
   TORCH_CHECK(attr.dim() == 2 && attr.size(0) == kNAttr && attr.size(1) >= sph.size(1),
               "attr must be (13, >= S)");
   TORCH_CHECK(gaabb.dim() == 2 && gaabb.size(0) == 6, "gaabb must be (6, columns)");
+  TORCH_CHECK(tri.dim() == 2 && tri.size(0) == kNTri, "tri must be (10, T)");
+  TORCH_CHECK(n_tris >= 0 && n_tris <= tri.size(1) &&
+                  attr.size(1) >= sph.size(1) + n_tris,
+              "n_tris must lie in [0, T] and attr must hold a column per live triangle");
   const int64_t n_lanes = out_r.numel();
   const int64_t n_tiles = n_lanes / kTile;
   TORCH_CHECK(n_lanes > 0 && n_lanes % kTile == 0, "outputs must cover whole 64x64 blocks");
@@ -95,6 +102,7 @@ void render_tiles(const torch::Tensor& cam, const torch::Tensor& sph,
   args.sph = sph.data_ptr<float>();
   args.attr = attr.data_ptr<float>();
   args.gaabb = gaabb.data_ptr<float>();
+  args.tri = n_tris > 0 ? tri.data_ptr<float>() : nullptr;
   args.sl = split ? sl.data_ptr<float>() : nullptr;
   args.slmeta = split ? slmeta.data_ptr<float>() : nullptr;
   args.spp_map = has_map ? spp_map.data_ptr<int32_t>() : nullptr;
@@ -106,6 +114,8 @@ void render_tiles(const torch::Tensor& cam, const torch::Tensor& sph,
   args.n_spheres = static_cast<int>(sph.size(1));
   args.attr_stride = static_cast<int>(attr.size(1));
   args.gaabb_stride = static_cast<int>(gaabb.size(1));
+  args.tri_stride = static_cast<int>(tri.size(1));
+  args.n_tris_live = static_cast<int>(n_tris);
   args.n_lanes = static_cast<int>(n_lanes);
   args.nbx = static_cast<int>(nbx);
   args.width = static_cast<int>(width);

@@ -9,8 +9,9 @@
 struct RenderArgs {
   const float* cam;     // (24,) packed camera row
   const float* sph;     // (4, n_spheres): cx, cy, cz, r²
-  const float* attr;    // (13, attr_stride): center xyz, 10 material floats
+  const float* attr;    // (13, attr_stride): center (triangle normal) xyz, 10 material floats
   const float* gaabb;   // (6, gaabb_stride): min xyz, max xyz of each box
+  const float* tri;     // (10, tri_stride): ax, ay, az, bx, ..., cz, valid
   const float* sl;      // (n_tiles, 5, sl_cap) shortlists, or null
   const float* slmeta;  // (n_tiles, 1 + sl_cap / 8): [full flag, chunk t_lo...]
   const int* spp_map;   // (n_lanes,) per-lane sample targets, block-ordered, or null
@@ -22,6 +23,8 @@ struct RenderArgs {
   int n_spheres;
   int attr_stride;
   int gaabb_stride;
+  int tri_stride;       // triangle rows of the table (padded)
+  int n_tris_live;      // rows the walks test: the last valid one + 1 (0: none)
   int n_lanes;          // n_tiles * 4096
   int nbx;
   int width;

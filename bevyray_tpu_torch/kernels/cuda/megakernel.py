@@ -5,7 +5,11 @@ Counterpart of ``bevyray_tpu/kernels/pallas/megakernel.py``. The TPU kernel
 (``render_tiles`` -> ``_render_kernel``) traces the whole frame in one
 ``pallas_call``; here ``render_tiles`` launches ``csrc/megakernel.cu``, one
 thread per pixel looping over samples, bounces and spheres, with the exact
-PCG streams (``exact_rng=True``) and no triangles. Accumulating passes
+PCG streams (``exact_rng=True``). A scene with triangle meshes merges a
+Möller–Trumbore test of its live triangle rows after the sphere walk of every
+segment, in every mode (the TPU kernel's ``_intersect_triangles_scalar``):
+a triangle wins only with a strictly smaller t, so a sphere wins an exact
+tie and the lowest triangle index wins among triangles. Accumulating passes
 (:mod:`...engine.film`, :mod:`...engine.adaptive`) give it a sample offset
 and per-lane sample targets. It runs the JAX kernel's four sphere-walk
 modes, (primary, intersect):
@@ -48,11 +52,12 @@ import torch
 
 from ...core import rng
 from ...core.constants import INF, T_MIN
-from ...core.types import CameraState, RenderConfig, SceneBuffers
+from ...core.types import CameraState, RenderConfig, SceneBuffers, Triangles
 from ...core.vec import Vec3
 from ...engine import slots
 from ..composite import background_gradient, linear_to_gamma
-from ..intersect import HitInfo, MaterialLanes
+from ..intersect import (DENSE_ELEMS, HitInfo, MaterialLanes,
+                         intersect_triangles)
 from ..shade import scatter
 
 BLOCK_W = 64           # pixel-block width
@@ -78,9 +83,6 @@ N_CAM = 24
 _M32 = 0xFFFFFFFF
 # f32 max, the miss sentinel (constants.INF) as a float32 value.
 _INF32 = float(np.float32(INF))
-# Lanes per step of the plain version's dense [lanes x spheres] test, so its
-# temporaries stay near 16 MB whatever the frame size.
-_DENSE_ELEMS = 1 << 22
 _NO_INDEX = torch.iinfo(torch.int64).max   # above every sphere index
 
 
@@ -102,6 +104,9 @@ class KernelScene(NamedTuple):
     gc: int              # spheres per candidate group
     n_cand: int          # candidate groups, ceil(S / gc)
     cand_off: int        # gaabb column of candidate group 0
+    # Triangle rows the walks test: the last valid row + 1. Padding rows
+    # (valid = 0) never hit, so stopping there changes no value.
+    n_tris: int = 0
 
 
 def auto_cand_size(s: int) -> int:
@@ -222,8 +227,11 @@ def prepare_kernel_scene(scene: SceneBuffers, cand_size: int = 0,
                                            mat_rows(tmid)])], dim=1)
         tri = torch.stack([tr.ax, tr.ay, tr.az, tr.bx, tr.by, tr.bz,
                            tr.cx, tr.cy, tr.cz, tr.valid.float()])
+        live = tr.valid.nonzero()
+        n_tris = int(live.max()) + 1 if live.numel() else 0
     else:
         tri = torch.zeros((10, 0), dtype=torch.float32, device=attr.device)
+        n_tris = 0
 
     r2 = radius * radius
     pad_r2 = torch.where(valid[0], r2[0], -1e30)
@@ -263,8 +271,8 @@ def prepare_kernel_scene(scene: SceneBuffers, cand_size: int = 0,
         gmax_f = torch.cat([gmax_f, cmax], dim=1)
     gaabb = torch.cat([gmin_f, gmax_f])
     return KernelScene(sph=sph.contiguous(), attr=attr.contiguous(),
-                       gaabb=gaabb.contiguous(), tri=tri, gc=gc,
-                       n_cand=n_cand, cand_off=cand_off)
+                       gaabb=gaabb.contiguous(), tri=tri.contiguous(),
+                       gc=gc, n_cand=n_cand, cand_off=cand_off, n_tris=n_tris)
 
 
 def pack_camera(cam: CameraState, config: RenderConfig) -> torch.Tensor:
@@ -344,7 +352,6 @@ def _check_slice(pscene: KernelScene, exact_rng, block_offset,
     missing = [
         (bool(block_offset) or n_blocks_local is not None,
          "shard offsets (block_offset/n_blocks_local)", "A10"),
-        (pscene.tri.shape[1] > 0, "triangles", "B9"),
         (not exact_rng, "the fast RNG (exact_rng=False)", "B8"),
     ]
     for bad, what, item in missing:
@@ -451,7 +458,8 @@ def render_tiles(pscene: KernelScene, cam: CameraState, config: RenderConfig,
     if spp_map is None:
         spp_map = torch.empty(0, dtype=torch.int32, device=dev)
     ext.render_tiles(cam_row, pscene.sph, pscene.attr, pscene.gaabb,
-                     sl.contiguous(), slmeta.contiguous(),
+                     pscene.tri, pscene.n_tris, sl.contiguous(),
+                     slmeta.contiguous(),
                      spp_map.contiguous(), *outs, segs,
                      nbx, config.width, config.height,
                      config.samples_per_pixel, config.bounces,
@@ -536,7 +544,7 @@ def _intersect_full(o: Vec3, d: Vec3, pscene: KernelScene, candidates: bool,
     best_i = torch.empty(n, dtype=torch.int64, device=a.device)
     group = torch.arange(s, device=a.device) // pscene.gc
     sizes = torch.bincount(group, minlength=pscene.n_cand).to(a.dtype)
-    step = max(1, _DENSE_ELEMS // s)
+    step = max(1, DENSE_ELEMS // s)
     for lo in range(0, n, step):
         span = slice(lo, lo + step)
         ol, dl = Vec3(*(c[span] for c in o)), Vec3(*(c[span] for c in d))
@@ -575,7 +583,7 @@ def _intersect_shortlist(o: Vec3, d: Vec3, sl: torch.Tensor, slmeta, blk,
     best_q = torch.empty_like(a)
     best_i = torch.empty(n, dtype=torch.int64, device=a.device)
     live = (sl[:, 3, :] > -1e29).sum(dim=1)
-    step = max(1, _DENSE_ELEMS // k)
+    step = max(1, DENSE_ELEMS // k)
     for lo in range(0, n, step):
         span = slice(lo, lo + step)
         rows = sl[blk[span]]                                  # [m, 5, k]
@@ -593,12 +601,30 @@ def _intersect_shortlist(o: Vec3, d: Vec3, sl: torch.Tensor, slmeta, blk,
     return _hit(best_q, best_i, 1.0 / a)
 
 
+def _merge_triangles(o: Vec3, d: Vec3, t, idx, pscene: KernelScene,
+                     work: dict):
+    """Merge the test of the live triangle rows into the sphere walk's
+    (t, index) (``_intersect_triangles_scalar``): a triangle replaces the
+    hit only with a strictly smaller t, and its index is its row plus the
+    padded sphere count (its ``attr`` column). Adds the tests to ``work``:
+    every live row for every lane."""
+    n = pscene.n_tris
+    rows = pscene.tri[:, :n]
+    tt, ti = intersect_triangles(o, d, Triangles(*rows[:9], material_id=None,
+                                                 valid=rows[9] > 0.0))
+    better = tt < t
+    work["triangle_tests"] += t.shape[0] * n
+    return (torch.where(better, tt, t),
+            torch.where(better, ti + pscene.sph.shape[1], idx))
+
+
 def _intersect(o: Vec3, d: Vec3, active, pscene: KernelScene,
                candidates: bool, work: dict, sl=None, slmeta=None, blk=None):
-    """(t, index) of the active lanes' walks; inactive lanes read as a miss
-    (their results are never used). With ``sl`` the walk is bounce 0 of the
-    phase split: each lane's block shortlist, or the full walk in blocks
-    whose shortlist overflowed (``slmeta[:, 0] > 0``)."""
+    """(t, index) of the active lanes' walks, with the triangles merged
+    after the sphere walk; inactive lanes read as a miss (their results are
+    never used). With ``sl`` the walk is bounce 0 of the phase split: each
+    lane's block shortlist, or the full walk in blocks whose shortlist
+    overflowed (``slmeta[:, 0] > 0``)."""
     t = torch.full_like(o.x, _INF32)
     idx = torch.full(t.shape, -1, dtype=torch.int64, device=t.device)
     lanes = active.nonzero()[:, 0]
@@ -606,16 +632,21 @@ def _intersect(o: Vec3, d: Vec3, active, pscene: KernelScene,
     def at(v: Vec3, ln) -> Vec3:
         return Vec3(v.x[ln], v.y[ln], v.z[ln])
 
+    full = lanes
     if sl is not None:
-        full = slmeta[blk[lanes], 0] > 0.0
-        short = lanes[~full]
+        overflow = slmeta[blk[lanes], 0] > 0.0
+        short = lanes[~overflow]
         if short.numel():
             t[short], idx[short] = _intersect_shortlist(
                 at(o, short), at(d, short), sl, slmeta, blk[short], work)
-        lanes = lanes[full]
-    if lanes.numel():
-        t[lanes], idx[lanes] = _intersect_full(at(o, lanes), at(d, lanes),
-                                               pscene, candidates, work)
+        full = lanes[overflow]
+    if full.numel():
+        t[full], idx[full] = _intersect_full(at(o, full), at(d, full),
+                                             pscene, candidates, work)
+    if pscene.n_tris and lanes.numel():
+        t[lanes], idx[lanes] = _merge_triangles(at(o, lanes), at(d, lanes),
+                                                t[lanes], idx[lanes], pscene,
+                                                work)
     return t, idx
 
 
@@ -668,17 +699,22 @@ def render_tiles_reference(pscene: KernelScene, cam: CameraState,
     lanes still active. Per lane this adds the same values in the same order
     as the kernel's per-pixel sample loop. Takes and returns what
     :func:`render_tiles` does. ``work``, when given, gets the counts of sphere
-    tests and of candidate-group slab tests that the walks need on this
-    frame's rays (``"sphere_tests"``, ``"slab_tests"``): the tests that the
-    rays' best hits leave after the kernel's candidate prune and shortlist
-    early-out (:func:`_intersect_full`, :func:`_intersect_shortlist`).
+    tests, of candidate-group slab tests and of triangle tests that the walks
+    need on this frame's rays (``"sphere_tests"``, ``"slab_tests"``,
+    ``"triangle_tests"``): the sphere and slab tests that the rays' best hits
+    leave after the kernel's candidate prune and shortlist early-out
+    (:func:`_intersect_full`, :func:`_intersect_shortlist`), and every live
+    triangle row per segment (:func:`_merge_triangles`); and
+    ``"triangle_hits"`` and ``"triangle_first_hits"``, the segments that hit
+    a triangle, at any bounce and at bounce 0.
     Under ``spp_map`` every sample runs over all lanes, masked to the lanes
     whose target it is below, so ``work`` and the segments count only the
     samples traced.
     """
     render_tiles_reference.calls += 1
     work = {} if work is None else work
-    for key in ("sphere_tests", "slab_tests"):
+    for key in ("sphere_tests", "slab_tests", "triangle_tests",
+                "triangle_hits", "triangle_first_hits"):
         work.setdefault(key, 0)
     dev = pscene.sph.device
     candidates = kernel_mode(pscene, config, sl)[1] == "candidates"
@@ -720,6 +756,11 @@ def render_tiles_reference(pscene: KernelScene, cam: CameraState,
             miss = t >= _INF32
             if b == 0:
                 first_depth = torch.where(active, t, first_depth)
+            if pscene.n_tris:
+                hits = int((active & (idx >= pscene.sph.shape[1])).sum())
+                work["triangle_hits"] += hits
+                if b == 0:
+                    work["triangle_first_hits"] += hits
             radiance = Vec3.where(active & miss,
                                   radiance + ray_color * background_gradient(d),
                                   radiance)
@@ -728,7 +769,11 @@ def render_tiles_reference(pscene: KernelScene, cam: CameraState,
             center = Vec3(rows[0], rows[1], rows[2])
             position = o + d.scale(torch.where(miss, 0.0, t))
             up = Vec3(zero, zero + 1.0, zero)
-            normal = Vec3.where(miss, up, (position - center).normalize())
+            # attr rows 0-2 hold a sphere's center or a triangle's unit
+            # normal (not flipped toward the ray).
+            normal = Vec3.where(idx >= pscene.sph.shape[1], center,
+                                (position - center).normalize())
+            normal = Vec3.where(miss, up, normal)
             hit = HitInfo(t=t, miss=miss, position=position, normal=normal,
                           material_id=idx, front_face=d.dot(normal) < 0.0)
             mat = MaterialLanes(base_color=Vec3(rows[3], rows[4], rows[5]),

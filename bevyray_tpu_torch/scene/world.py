@@ -178,6 +178,26 @@ class World:
         return (np.concatenate(a), np.concatenate(b), np.concatenate(c),
                 np.concatenate(mids), np.stack(mats, 0))
 
+    def extract_raster_host(self):
+        """Live raster-only entities as world-space corner arrays plus
+        per-triangle [linear base color, metallic, perceptual_roughness,
+        reflectance] rows (what the raster layer's ambient shading reads),
+        or None when there are none."""
+        a, b, c, colors = [], [], [], []
+        for t, mesh, mat, alive in self._raster:
+            if not alive:
+                continue
+            v = t.apply_points(np.asarray(mesh.vertices, np.float32))
+            f = np.asarray(mesh.indices, np.int32)
+            a.append(v[f[:, 0]])
+            b.append(v[f[:, 1]])
+            c.append(v[f[:, 2]])
+            colors.append(np.tile(mat.to_record()[:6], (f.shape[0], 1)))
+        if not a:
+            return None
+        return (np.concatenate(a), np.concatenate(b), np.concatenate(c),
+                np.concatenate(colors))
+
     def extract(self, capacity: Optional[int] = None, with_bvh: bool = True,
                 bvh_leaf_size: int = 1, device=None) -> SceneBuffers:
         """Build (or fetch cached) scene tables on ``device`` (None: the CUDA

@@ -21,6 +21,14 @@ then the kernel under the sample map of adaptive pass 3, at sample offset
 32, against its plain version: within the bars on the lanes the map
 samples, and exact zero sums from both on every lane whose target is 0.
 
+Phase 6 drives BASELINE config 5 (scripts/bench_matrix.py:101-114) at full
+size: the final scene with a metallic cube mesh, the raster layer on the
+card, 1280x720, 16 spp, 4 bounces, level 2, through the default-config
+``FusedRenderer`` (one kernel launch per frame, no plain run), then the
+kernel against its plain version at those shapes with the triangle tests in
+the bound. Phase 2 holds the kernel's triangle branch against its plain
+version in every mode on a small mesh scene and on duplicate meshes.
+
 Each phase prints its lines; the line before the last is the kernel table
 as JSON, and the last line is ``{"ok": true, "device": {...}}``. Any failed
 phase raises and the script exits nonzero without that line. It exits
@@ -54,6 +62,8 @@ OTHER_FRAMES = 3      # each other mode at the headline
 PASSES = 8            # accumulating passes (the CLI's accumulate default)
 TOLERANCE, REPROBE_EVERY = 0.02, 4   # AdaptiveRenderer's defaults
 MAP_PASS, MAP_OFFSET = 3, 32   # the adaptive pass whose map phase 5 checks
+HYBRID_SIZE = (1280, 720)      # BASELINE config 5 (scripts/bench_matrix.py)
+RASTER_REPS = 5                # timed raster-layer calls after a first one
 # The 2 x 8 spp film against the 16 spp frame: the same samples, summed in
 # another order.
 IDENTITY_TOL = 1e-5
@@ -71,9 +81,12 @@ PIXEL_TOL, PIXEL_FRAC, MEAN_TOL, DEPTH_MEAN_RTOL, SEG_RTOL = (
 # outside the tensor cores, or the bytes over its memory rate, whichever is
 # longer. A sphere test (megakernel.cu test_sphere) is 18 arithmetic
 # operations, one sqrt and 2 compares; a candidate slab test (walk_candidates)
-# 6 subtractions, 7 multiplies, 10 min/max and 4 compares. Shading, draws and
-# the tests' loop overhead are left out, so the bound is a floor.
-SPHERE_TEST_OPS, SLAB_TEST_OPS = 21, 27
+# 6 subtractions, 7 multiplies, 10 min/max and 4 compares; a triangle test
+# (test_triangles) 6 edge subtractions, 9 operations for p = d x e2, 5 for
+# det, one division, 3 for o - a, 6 each for u, v and t, 9 for q and 9 for
+# |det| and the compares. Shading, draws and the tests' loop overhead are
+# left out, so the bound is a floor.
+SPHERE_TEST_OPS, SLAB_TEST_OPS, TRIANGLE_TEST_OPS = 21, 27, 60
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
 
 
@@ -150,12 +163,13 @@ def bound_ms(kscene, cam_row, sl, slmeta, n_lanes, work,
     """(ms, "operations" | "bytes"): the least time the card could take for
     the walks this frame's rays need (``work``, counted by the plain
     version) and for reading each input and writing each output once."""
-    inputs = [cam_row, kscene.sph, kscene.attr, kscene.gaabb]
+    inputs = [cam_row, kscene.sph, kscene.attr, kscene.gaabb, kscene.tri]
     inputs += [t for t in (sl, slmeta, spp_map) if t is not None]
     n_bytes = (sum(t.numel() * t.element_size() for t in inputs)
                + 4 * n_lanes * 4 + 8)
     ops = (SPHERE_TEST_OPS * work["sphere_tests"]
-           + SLAB_TEST_OPS * work["slab_tests"])
+           + SLAB_TEST_OPS * work["slab_tests"]
+           + TRIANGLE_TEST_OPS * work["triangle_tests"])
     by_ops, by_bytes = ops / PEAK_FP32 * 1e3, n_bytes / PEAK_BYTES * 1e3
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes,
                                                               "bytes")
@@ -176,7 +190,8 @@ def main() -> int:
 
     from bevyray_tpu_torch import (FusedRenderer, RaytracedCamera,
                                    RaytracedSphere, RenderConfig,
-                                   StandardMaterial, Transform, rtiow)
+                                   StandardMaterial, Transform, cube_mesh,
+                                   rtiow)
     from bevyray_tpu_torch.kernels.cuda import build
     from bevyray_tpu_torch.kernels.cuda.megakernel import (
         TILE, block_grid, kernel_mode, pack_camera, prepare_kernel_scene,
@@ -200,7 +215,9 @@ def main() -> int:
     # full, so those blocks take the full walk at bounce 0 too; one has
     # 512 padded spheres in 64 candidate groups of 8; the last holds two
     # spheres twice (only the lower index may win a tie) in groups of 24,
-    # the last of them partly empty.
+    # the last of them partly empty. The mesh cases put a metallic cube mesh
+    # in front of a sphere of the simple scene, in every mode, and then the
+    # same cube twice (only the lower triangle index may win a tie).
     small = RenderConfig(128, 128, 4, 4, level=3, pallas_primary="off",
                          pallas_intersect="grouped")
     lens = RaytracedCamera(aperture=0.2, focus_distance=4.0)
@@ -212,6 +229,14 @@ def main() -> int:
             world.spawn_sphere(Transform.from_xyz(*pos),
                                RaytracedSphere(radius=1.0),
                                StandardMaterial(base_color=(1.0, 0.0, 0.0)))
+        return world
+
+    def mesh_scene(copies=1):
+        world = rtiow.simple_scene()
+        for color in ((0.9, 0.6, 0.2), (0.2, 0.9, 0.2))[:copies]:
+            world.spawn_mesh(Transform.from_xyz(0.3, 0.4, 1.0), cube_mesh(0.5),
+                             StandardMaterial(base_color=color, metallic=1.0,
+                                              perceptual_roughness=0.1))
         return world
 
     cases = [("material_test_scene", rtiow.material_test_scene, {}),
@@ -237,6 +262,13 @@ def main() -> int:
              ("final_scene(grid=4) duplicates", duplicates,
               {"pallas_primary": "split", "pallas_intersect": "candidates",
                "pallas_cand_size": 24})]
+    cases += [("simple_scene + cube mesh", mesh_scene,
+               {"pallas_primary": mode[0], "pallas_intersect": mode[1]})
+              for mode in MODES]
+    cases.append(("simple_scene + cube mesh twice",
+                  lambda: mesh_scene(copies=2),
+                  {"pallas_primary": "split",
+                   "pallas_intersect": "candidates"}))
     small_times = {}
     for name, scene_fn, options in cases:
         cfg = dataclasses.replace(small, **options)
@@ -250,8 +282,10 @@ def main() -> int:
             slmeta = slmeta.clone()
             slmeta[::2, 0] = 1.0
         mode = kernel_mode(kscene, cfg, sl)
-        if options.get("pallas_primary") == "split" and mode[0] != "split":
-            raise SystemExit(f"phase 2 {name}: the split did not run")
+        if any(knob not in ("auto", ran) for knob, ran in zip(
+                (cfg.pallas_primary, cfg.pallas_intersect), mode)):
+            raise SystemExit(f"phase 2 {name}: ran {mode}, not the mode "
+                             "the case forces")
         got = render_tiles(kscene, cam, cfg, 7, sl=sl, slmeta=slmeta)
         want = render_tiles_reference(kscene, cam, cfg, 7, sl=sl,
                                       slmeta=slmeta)
@@ -362,6 +396,7 @@ def main() -> int:
             "library_ms": None})
 
     entries.append(accumulation_phase(world, scene, cam, headline, card))
+    entries.append(hybrid_phase(card))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -564,6 +599,138 @@ def accumulation_phase(world, scene, cam, headline, card) -> dict:
             "launches": adaptive_launches, "max_abs_err": stats["max_abs"],
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None}
+
+
+def hybrid_phase(card) -> dict:
+    """Phase 6: BASELINE config 5 at full size (scripts/bench_matrix.py:
+    101-114) through the public entry points: the raster layer on the card,
+    then the default-config ``FusedRenderer``, which must take the mode the
+    JAX gate picks (the port's copies of ``shortlists_for`` and
+    ``use_candidate_walk``) and launch the kernel once per frame with no
+    plain run; then the kernel against its plain version at these shapes.
+    Returns the kernels-line entry of the triangle branch."""
+    import torch
+
+    from bevyray_tpu_torch import (FusedRenderer, RenderConfig,
+                                   StandardMaterial, Transform, cube_mesh,
+                                   rtiow)
+    from bevyray_tpu_torch.engine.raster import raster_layer
+    from bevyray_tpu_torch.kernels.cuda.megakernel import (
+        TILE, block_grid, kernel_mode, pack_camera, render_tiles,
+        render_tiles_reference, use_candidate_walk)
+    from bevyray_tpu_torch.kernels.cuda.primary import device_shortlists_for
+
+    width, height = HYBRID_SIZE
+    world = rtiow.final_scene(seed=42)
+    world.spawn_mesh(Transform.from_xyz(-4.0, 0.6, 1.0), cube_mesh(1.2),
+                     StandardMaterial(base_color=(0.2, 0.5, 0.9), metallic=1.0,
+                                      perceptual_roughness=0.15))
+    config = RenderConfig(width, height, SPP, BOUNCES, level=2)
+    cam = world.camera_state(aspect=16 / 9)
+    scene = world.extract(with_bvh=False)
+
+    # The raster layer: a set-up per camera (host extraction, upload and the
+    # center-ray pass), host clock around a synchronised call.
+    raster_times = []
+    for _ in range(1 + RASTER_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc, rd = raster_layer(world, cam, config)
+        torch.cuda.synchronize()
+        raster_times.append((time.perf_counter() - t0) * 1e3)
+    raster_p50 = sorted(raster_times[1:])[RASTER_REPS // 2]
+    if (rd.device != scene.spheres.cx.device
+            or tuple(rd.shape) != (width * height,)
+            or not bool(torch.isfinite(rd).all()) or not bool((rd > 0).any())):
+        raise SystemExit("phase 6: the raster layer did not give finite "
+                         "buffers with the cube on the card")
+
+    renderer = FusedRenderer(config)
+    kscene = renderer.prepare(scene)
+    gate_sl = device_shortlists_for(kscene, cam, config, SPP)[0]
+    expected = ("split" if gate_sl is not None else "off",
+                "candidates" if use_candidate_walk(
+                    config, kscene.sph.shape[1], gate_sl is not None)
+                else "grouped")
+    renderer.render(scene, cam, seed=0, raster_color=rc, raster_depth=rd)
+    torch.cuda.synchronize()
+    render_tiles.launches = 0
+    render_tiles_reference.calls = 0
+    times, rays = [], []
+    for i in range(TIMED_FRAMES):
+        t0 = time.perf_counter()
+        frame = renderer.render(scene, cam, seed=i + 1, raster_color=rc,
+                                raster_depth=rd)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        rays.append(int(frame.rays_traced))
+    launches = render_tiles.launches
+    if (launches != TIMED_FRAMES or render_tiles_reference.calls
+            or renderer.last_mode != expected):
+        raise SystemExit(f"phase 6: {launches} kernel launches, "
+                         f"{render_tiles_reference.calls} plain calls and "
+                         f"mode {renderer.last_mode} (the gate picks "
+                         f"{expected}) in {TIMED_FRAMES} frames")
+    image = frame.image
+    if (tuple(image.shape) != (height, width, 3)
+            or not bool(torch.isfinite(image).all())
+            or not bool(torch.isfinite(frame.rt_depth).all())
+            or min(rays) <= 0 or not 0.0 < float(image.mean()) < 2.0):
+        raise SystemExit("phase 6: frame is not a finite image with traced "
+                         "segments")
+    # Where the raster layer wins the blend (kernels/composite.py, level 2).
+    rt_depth = frame.rt_depth.reshape(-1)
+    rz = torch.where(rt_depth > cam.far, -1.0, cam.near / rt_depth)
+    raster_wins = int((rd > rz).sum())
+    times.sort()
+    p50_ms = times[len(times) // 2] * 1e3
+    segments = sum(rays) / len(rays)
+    print(f"phase 6 BASELINE config 5 default config {'/'.join(expected)} "
+          f"{width}x{height} {SPP}spp {BOUNCES} bounces level 2, "
+          f"{world.n_spheres} spheres + {kscene.n_tris} triangles "
+          f"({kscene.tri.shape[1]} rows): p50 {p50_ms:.3f} ms, "
+          f"{segments / (p50_ms * 1e-3) / 1e6:.2f} Mrays/s, {segments:.0f} "
+          f"segments/frame, frame ms {[round(t * 1e3, 3) for t in times]}; "
+          f"raster layer p50 {raster_p50:.3f} ms of "
+          f"{[round(t, 3) for t in raster_times]} (first call included), "
+          f"raster wins {raster_wins} of {width * height} pixels | {card}",
+          flush=True)
+
+    sl, slmeta = renderer.shortlists(kscene, cam)
+    got = render_tiles(kscene, cam, config, 1, sl=sl, slmeta=slmeta)
+    torch.cuda.synchronize()
+    work = {}
+    t0 = time.perf_counter()
+    want = render_tiles_reference(kscene, cam, config, 1, sl=sl,
+                                  slmeta=slmeta, work=work)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    stats = compare(config, got, want)
+    kernel_ms = cuda_ms(lambda: render_tiles(kscene, cam, config, 1, sl=sl,
+                                             slmeta=slmeta), 3)
+    nbx, nby = block_grid(config)
+    b_ms, b_by = bound_ms(kscene, pack_camera(cam, config), sl, slmeta,
+                          nbx * nby * TILE, work)
+    # The cube mesh lies just outside the 16:9 frustum (its nearest edge at
+    # |x/z| = 3.4/4.6 = 0.739 against tan(fov/2) * aspect = 0.736), so it
+    # shows through reflections and bounces, not in primary segments.
+    print(f"phase 6 segments that hit a triangle: {work['triangle_hits']} "
+          f"of {int(want[4])}, {work['triangle_first_hits']} of them first "
+          f"segments (of {width * height * SPP})", flush=True)
+    if work["triangle_hits"] <= 0:
+        raise SystemExit("phase 6: no segment hits the cube mesh")
+    check_agreement(
+        f"phase 6 {'/'.join(kernel_mode(kscene, config, sl))} + triangles "
+        f"config-5 shapes, kernel {kernel_ms:.3f} ms, plain {plain_ms:.1f} "
+        f"ms, bound {b_ms:.3f} ms ({b_by}), sphere tests "
+        f"{work['sphere_tests']}, slab tests {work['slab_tests']}, triangle "
+        f"tests {work['triangle_tests']} | {card}", stats)
+    return {"name": f"render_tiles[{expected[0]},{expected[1]},triangles]",
+            "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": f"{TPU_KERNEL}:1346", "launches": launches,
+            "max_abs_err": stats["max_abs"], "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
 
 
 if __name__ == "__main__":

@@ -367,18 +367,6 @@ def test_unported_branches_raise(kwargs, item):
         mk.render_tiles(kscene, pcam, cfg, 1, **kwargs)
 
 
-def test_triangles_raise():
-    jw = jrtiow.simple_scene()
-    from bevyray_tpu.scene import components as jcomp
-    jw.spawn_mesh(jcomp.Transform.from_xyz(0.0, 0.5, 1.0), jcomp.cube_mesh(0.3),
-                  jcomp.StandardMaterial())
-    _, _, kscene, pcam = _inputs(jw, 16, 16)
-    assert kscene.tri.shape == (10, 128)
-    cfg = bt.RenderConfig(width=16, height=16, **SLICE)
-    with pytest.raises(NotImplementedError, match="ROADMAP B9"):
-        mk.render_tiles(kscene, pcam, cfg, 1)
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("scene_fn,options", [
     (lambda: bt.rtiow.final_scene(seed=42, grid=4), {}),
