@@ -10,8 +10,9 @@ a stopped pixel traces nothing and the pass makes no host round trip. Every
 its disagreement, so a noisy pixel that stopped on one lucky pass recovers.
 
 Estimates stay unbiased: sums divide by each pixel's actual count, and the
-PCG streams are keyed by (pixel, absolute sample index), so a pixel's k-th
-sample is the same whether it was traced adaptively or uniformly.
+draws of either draw path are keyed by (pixel, absolute sample index), so a
+pixel's k-th sample is the same whether it was traced adaptively or
+uniformly.
 Checkpoints are the JAX package's ``.npz``; ``rays_traced`` is an exact int64
 count, as in :mod:`.film`.
 """

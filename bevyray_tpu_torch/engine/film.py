@@ -4,8 +4,10 @@ passes.
 Counterpart of ``bevyray_tpu/engine/film.py``. A ``Film`` holds the running
 sums of a viewpoint; each pass of :class:`ProgressiveRenderer` traces
 ``config.samples_per_pixel`` fresh samples through the fused kernel, with the
-sample index offset by the samples already taken so that no PCG stream
-repeats, and adds them. The film resets whenever the camera changes.
+sample index offset by the samples already taken so that no stream
+repeats, and adds them. The kernel pass draws from the path that the kernel
+resolves by default: the fast one for a film on a CUDA card, the exact PCG
+streams elsewhere. The film resets whenever the camera changes.
 
 Checkpoints are the JAX package's ``.npz`` (keys ``color_x``, ``color_y``,
 ``color_z``, ``depth``, ``n_samples``, ``rays_traced``, and ``width`` /
@@ -100,7 +102,10 @@ def trace_pass(kscene: KernelScene, cam: CameraState, config: RenderConfig,
                spp_map=None):
     """One fused-kernel pass of an accumulating film: (r, g, b, depth) sums
     in row-major pixel order and the segment count. ``sample_offset`` wraps
-    mod 2^32, as the kernel's add does."""
+    mod 2^32, as the kernel's add does. The draw path is the kernel's
+    default for the scene's device
+    (:func:`...kernels.cuda.megakernel.resolve_exact_rng`), as the JAX
+    package's film passes none."""
     r, g, b, depth, segs = render_tiles(
         kscene, cam, config, frame_seed & _M32,
         sample_offset=sample_offset & _M32, normalize=False, sl=sl,

@@ -11,9 +11,10 @@ import torch
 from ..core.types import CameraState, RenderConfig, SceneBuffers
 from ..core.vec import Vec3
 from ..kernels.composite import composite
-from ..kernels.cuda.megakernel import (KernelScene, kernel_mode,
-                                       kernel_scene_cache_key, morton_order,
-                                       prepare_kernel_scene, render_tiles,
+from ..kernels.cuda.megakernel import (KernelScene, kernel_fuse,
+                                       kernel_mode, kernel_scene_cache_key,
+                                       morton_order, prepare_kernel_scene,
+                                       render_tiles, resolve_exact_rng,
                                        unshuffle_blocks)
 from ..kernels.cuda.primary import device_shortlists_for
 from .renderer import FrameResult
@@ -28,19 +29,23 @@ class FusedRenderer:
     built (and the split gated) by :mod:`..kernels.cuda.primary`, and the
     full walk's mode by ``use_candidate_walk``. ``last_mode`` holds the
     (primary, intersect) pair of the last traced frame, e.g.
-    ``("split", "candidates")``. ``exact_rng=None`` resolves to True;
-    ``exact_rng=False`` (the TPU's fast RNG) raises (ROADMAP B8).
+    ``("split", "candidates")``, ``last_fuse`` its block fusion
+    (:func:`kernel_fuse`, sized by whether the scene emits, as in the JAX
+    package) and ``last_exact_rng`` its draw path.
+
+    ``exact_rng``: True draws from the exact PCG streams, False from the
+    fast path (:mod:`..kernels.cuda.fast_rng`); None resolves per frame to
+    the fast path for a scene on a CUDA card and to the exact one for a
+    scene elsewhere (:func:`resolve_exact_rng`), as ``PallasRenderer``
+    resolves it on and off the TPU.
     """
 
     def __init__(self, config: RenderConfig, exact_rng: Optional[bool] = None):
-        if exact_rng is None:
-            exact_rng = True
-        if not exact_rng:
-            raise NotImplementedError(
-                "the fast RNG (exact_rng=False) is not ported yet (ROADMAP B8)")
         self.config = config
         self.exact_rng = exact_rng
         self.last_mode = None
+        self.last_fuse = None
+        self.last_exact_rng = None
         self._kscene_cache = None
         self._sl_cache = None
         self._cam_memo = None
@@ -108,6 +113,8 @@ class FusedRenderer:
                                             exact_rng=self.exact_rng, sl=sl,
                                             slmeta=slmeta)
         self.last_mode = kernel_mode(kscene, config, sl)
+        self.last_fuse = kernel_fuse(kscene, config, sl)
+        self.last_exact_rng = resolve_exact_rng(self.exact_rng, dev)
         r, g, b, depth = (unshuffle_blocks(x, config) for x in (r, g, b, depth))
         return frame_result(config, cam, Vec3(r, g, b), depth, segs,
                             raster_color, raster_depth)

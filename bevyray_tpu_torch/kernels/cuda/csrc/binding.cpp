@@ -30,6 +30,8 @@ void check_f32(const torch::Tensor& t, const torch::Tensor& like, const char* na
 // `sl`/`slmeta` are read only when `split`; `gaabb`'s candidate columns only
 // when `candidates`; `spp_map` (int32, one target per lane) only when it is
 // not empty; the first `n_tris` rows of `tri` only when it is not 0.
+// `fast_rng` takes the fast draw path with `draw_words` words per bounce;
+// `fuse` pixel blocks share a CUDA block's lane positions (the split only).
 void render_tiles(const torch::Tensor& cam, const torch::Tensor& sph,
                   const torch::Tensor& attr, const torch::Tensor& gaabb,
                   const torch::Tensor& tri, int64_t n_tris,
@@ -41,7 +43,8 @@ void render_tiles(const torch::Tensor& cam, const torch::Tensor& sph,
                   int64_t seed, int64_t sample_offset, double inv_spp,
                   int64_t level, bool defocus,
                   bool cosine, bool split, bool candidates, int64_t gc,
-                  int64_t n_cand, int64_t cand_off) {
+                  int64_t n_cand, int64_t cand_off, bool fast_rng,
+                  int64_t draw_words, int64_t fuse) {
   check_f32(sph, sph, "sph");
   check_f32(cam, sph, "cam");
   check_f32(attr, sph, "attr");
@@ -96,6 +99,10 @@ void render_tiles(const torch::Tensor& cam, const torch::Tensor& sph,
   }
   TORCH_CHECK(sample_offset >= 0 && sample_offset <= 0xFFFFFFFFLL,
               "sample_offset must lie in [0, 2^32)");
+  TORCH_CHECK(!fast_rng || draw_words == 6 || draw_words == 9 || draw_words == 13,
+              "the fast path takes 6, 9 or 13 words per bounce");
+  TORCH_CHECK(fuse == 1 || (split && (fuse == 2 || fuse == 4 || fuse == 8)),
+              "fuse must be 1, or 2, 4 or 8 with the split");
 
   RenderArgs args{};
   args.cam = cam.data_ptr<float>();
@@ -116,7 +123,7 @@ void render_tiles(const torch::Tensor& cam, const torch::Tensor& sph,
   args.gaabb_stride = static_cast<int>(gaabb.size(1));
   args.tri_stride = static_cast<int>(tri.size(1));
   args.n_tris_live = static_cast<int>(n_tris);
-  args.n_lanes = static_cast<int>(n_lanes);
+  args.n_tiles = static_cast<int>(n_tiles);
   args.nbx = static_cast<int>(nbx);
   args.width = static_cast<int>(width);
   args.height = static_cast<int>(height);
@@ -134,9 +141,12 @@ void render_tiles(const torch::Tensor& cam, const torch::Tensor& sph,
   args.gc = static_cast<int>(gc);
   args.n_cand = static_cast<int>(n_cand);
   args.cand_off = static_cast<int>(cand_off);
+  args.fast_rng = fast_rng ? 1 : 0;
+  args.draw_words = static_cast<int>(draw_words);
+  args.fuse = static_cast<int>(fuse);
 
   const c10::cuda::CUDAGuard guard(sph.device());
-  launch_render_tiles(args, c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_CHECK(launch_render_tiles(args, c10::cuda::getCurrentCUDAStream().stream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 

@@ -14,7 +14,7 @@ struct RenderArgs {
   const float* tri;     // (10, tri_stride): ax, ay, az, bx, ..., cz, valid
   const float* sl;      // (n_tiles, 5, sl_cap) shortlists, or null
   const float* slmeta;  // (n_tiles, 1 + sl_cap / 8): [full flag, chunk t_lo...]
-  const int* spp_map;   // (n_lanes,) per-lane sample targets, block-ordered, or null
+  const int* spp_map;   // (n_tiles * 4096,) per-lane sample targets, block-ordered, or null
   float* out_r;
   float* out_g;
   float* out_b;
@@ -25,7 +25,7 @@ struct RenderArgs {
   int gaabb_stride;
   int tri_stride;       // triangle rows of the table (padded)
   int n_tris_live;      // rows the walks test: the last valid one + 1 (0: none)
-  int n_lanes;          // n_tiles * 4096
+  int n_tiles;          // 64x64 pixel blocks of the frame (outputs hold n_tiles * 4096)
   int nbx;
   int width;
   int height;
@@ -43,7 +43,11 @@ struct RenderArgs {
   int gc;               // spheres per candidate group
   int n_cand;           // candidate groups
   int cand_off;         // gaabb column of candidate group 0
+  int fast_rng;         // the fast draw path (else the exact PCG streams)
+  int draw_words;       // fast path: words per bounce, 6, 9 or 13
+  int fuse;             // pixel blocks per CUDA block's lane positions: 1, 2, 4, 8
 };
 
-// Launches on `stream`; allocates nothing. The caller checks the launch.
-void launch_render_tiles(const RenderArgs& args, cudaStream_t stream);
+// Launches on `stream`; allocates nothing. Returns the error of the set-up
+// before the launch (a shared-memory limit); the caller checks the launch.
+cudaError_t launch_render_tiles(const RenderArgs& args, cudaStream_t stream);

@@ -4,14 +4,21 @@ and its plain PyTorch version.
 Counterpart of ``bevyray_tpu/kernels/pallas/megakernel.py``. The TPU kernel
 (``render_tiles`` -> ``_render_kernel``) traces the whole frame in one
 ``pallas_call``; here ``render_tiles`` launches ``csrc/megakernel.cu``, one
-thread per pixel looping over samples, bounces and spheres, with the exact
-PCG streams (``exact_rng=True``). A scene with triangle meshes merges a
-Möller–Trumbore test of its live triangle rows after the sphere walk of every
-segment, in every mode (the TPU kernel's ``_intersect_triangles_scalar``):
-a triangle wins only with a strictly smaller t, so a sphere wins an exact
-tie and the lowest triangle index wins among triangles. Accumulating passes
-(:mod:`...engine.film`, :mod:`...engine.adaptive`) give it a sample offset
-and per-lane sample targets. It runs the JAX kernel's four sphere-walk
+thread per pixel looping over samples, bounces and spheres. It draws from
+the exact PCG streams (``exact_rng=True``) or from the fast path's keyed
+words and bit-trick balls (``exact_rng=False``, :mod:`.fast_rng`);
+:func:`resolve_exact_rng` picks the fast path for tensors on a CUDA card,
+as the JAX package picks its hardware generator for arrays on the TPU. With
+the phase
+split one CUDA block runs ``fuse`` consecutive pixel blocks in turn
+(:func:`resolve_fuse`, the JAX kernel's block fusion). A scene with
+triangle meshes merges a Möller–Trumbore test of its live triangle rows
+after the sphere walk of every segment, in every mode (the TPU kernel's
+``_intersect_triangles_scalar``): a triangle wins only with a strictly
+smaller t, so a sphere wins an exact tie and the lowest triangle index wins
+among triangles. Accumulating passes (:mod:`...engine.film`,
+:mod:`...engine.adaptive`) give it a sample offset and per-lane sample
+targets. It runs the JAX kernel's four sphere-walk
 modes, (primary, intersect):
 
 - primary ``"off"``: every bounce takes the full walk; ``"split"`` (``sl``
@@ -34,7 +41,9 @@ The contract carried over from the TPU kernel:
   lexicographic minimum of (q, table index), so the lowest index wins ties
   and the sphere-0 padding duplicates lose every tie; a negative
   discriminant gives a NaN that fails every compare;
-- draws are keyed by (row-major pixel id, sample, slot) (:mod:`...engine.slots`);
+- draws are keyed by (row-major pixel id, sample, slot) (:mod:`...engine.slots`),
+  and so are the fast path's words (:mod:`.fast_rng`), so neither the mode
+  nor the fusion changes a value;
 - gamma is applied per sample, and the depth sum uses ``far + 10`` (level 1)
   or ``far - 1`` (other levels) where a sample's first segment missed.
 
@@ -44,6 +53,7 @@ hi/lo table (~16 mantissa bits); the port stores and loads them in float32.
 
 from __future__ import annotations
 
+import collections
 import numbers
 from typing import NamedTuple
 
@@ -59,6 +69,7 @@ from ..composite import background_gradient, linear_to_gamma
 from ..intersect import (DENSE_ELEMS, HitInfo, MaterialLanes,
                          intersect_triangles)
 from ..shade import scatter
+from . import fast_rng
 
 BLOCK_W = 64           # pixel-block width
 BLOCK_H = 64           # pixel-block height
@@ -69,6 +80,12 @@ CAND_UNIT = 16         # the auto candidate-group size quantum
 MAX_CAND_GROUPS = 62   # candidate groups the auto size aims at (two mask words)
 MAX_CAND_WORDS = 6     # 31-group mask words the JAX kernel allows at most
 MAX_SPLIT_SPP = 32     # the JAX kernel's phase-split spp limit (its VMEM park)
+# Block fusion under the phase split (the JAX kernel's PHASE_FUSE): 1 | 2 | 4
+# | 8 | "auto". The JAX kernel sizes it by its parked per-sample state: fuse
+# x spp x planes of that state stays within MAX_FUSE_PLANES. The port parks
+# nothing, but picks the same fuse for the same frame.
+PHASE_FUSE = "auto"
+MAX_FUSE_PLANES = 704
 
 # Attribute table rows: sphere center (triangle unit normal), then materials.
 N_MAT = 10             # base rgb, metallic, roughness, ior, transmission, emissive rgb
@@ -107,6 +124,9 @@ class KernelScene(NamedTuple):
     # Triangle rows the walks test: the last valid row + 1. Padding rows
     # (valid = 0) never hit, so stopping there changes no value.
     n_tris: int = 0
+    # Whether any material emits (:func:`scene_has_emissive`); it sizes the
+    # block fusion (:func:`kernel_fuse`) and changes no value.
+    has_emissive: bool = True
 
 
 def auto_cand_size(s: int) -> int:
@@ -272,7 +292,8 @@ def prepare_kernel_scene(scene: SceneBuffers, cand_size: int = 0,
     gaabb = torch.cat([gmin_f, gmax_f])
     return KernelScene(sph=sph.contiguous(), attr=attr.contiguous(),
                        gaabb=gaabb.contiguous(), tri=tri.contiguous(),
-                       gc=gc, n_cand=n_cand, cand_off=cand_off, n_tris=n_tris)
+                       gc=gc, n_cand=n_cand, cand_off=cand_off, n_tris=n_tris,
+                       has_emissive=scene_has_emissive(scene))
 
 
 def pack_camera(cam: CameraState, config: RenderConfig) -> torch.Tensor:
@@ -337,6 +358,65 @@ def use_candidate_walk(config: RenderConfig, n_spheres_padded: int,
     return False
 
 
+def scene_has_emissive(scene: SceneBuffers) -> bool:
+    """Whether any material of the table emits (table-wide, as the JAX
+    package's probe); it sets the parked-state planes that size the fuse."""
+    mt = scene.materials
+    return bool(torch.stack([mt.emissive_r, mt.emissive_g, mt.emissive_b])
+                .ne(0).any())
+
+
+def st_planes(has_emissive: bool) -> int:
+    """Planes of the JAX kernel's parked per-sample state (``_st_layout``
+    with its shipped depth-in-phase-A): origin, direction, throughput, the
+    sample id and, on emissive scenes, the radiance."""
+    return 13 if has_emissive else 10
+
+
+def resolve_fuse(n_tiles: int, spp: int, phase_split: bool,
+                 n_spheres_padded: int, n_st: int) -> int:
+    """Pixel blocks per kernel instance, by the JAX kernel's rule
+    (``_resolve_fuse``): only with the phase split; "auto" takes none under
+    128 padded spheres, 8 at spp <= 4 from 2048 and 4 otherwise; the
+    largest power of two up to that with fuse x spp x ``n_st`` <= 704, and
+    under "auto" no more tail padding than 1/12 of the blocks."""
+    if not phase_split:
+        return 1
+    want = PHASE_FUSE
+    auto = want == "auto"
+    if auto:
+        if n_spheres_padded < 128:
+            want = 1
+        elif spp <= 4 and n_spheres_padded >= 2048:
+            want = 8
+        else:
+            want = 4
+    want = int(want)
+    f = 1
+    while f < want and f < 8 and (f * 2) * spp * n_st <= MAX_FUSE_PLANES:
+        if auto and ((-n_tiles) % (f * 2)) * 12 > n_tiles:
+            break
+        f *= 2
+    return f
+
+
+def resolve_exact_rng(exact_rng, device) -> bool:
+    """The draw path for tensors on ``device``: None takes the fast path on a
+    CUDA card and the exact PCG streams elsewhere, as the JAX package takes
+    its hardware generator for arrays on the TPU only; True or False is
+    taken as given."""
+    if exact_rng is None:
+        return torch.device(device).type != "cuda"
+    return bool(exact_rng)
+
+
+def kernel_fuse(pscene: KernelScene, config: RenderConfig, sl) -> int:
+    """The block fusion that :func:`render_tiles` runs for these inputs."""
+    nbx, nby = block_grid(config)
+    return resolve_fuse(nbx * nby, config.samples_per_pixel, sl is not None,
+                        pscene.sph.shape[1], st_planes(pscene.has_emissive))
+
+
 def kernel_mode(pscene: KernelScene, config: RenderConfig, sl) -> tuple:
     """(primary, intersect) that :func:`render_tiles` runs for these inputs:
     ("split" | "off", "candidates" | "grouped")."""
@@ -346,18 +426,12 @@ def kernel_mode(pscene: KernelScene, config: RenderConfig, sl) -> tuple:
             "candidates" if candidates else "grouped")
 
 
-def _check_slice(pscene: KernelScene, exact_rng, block_offset,
-                 n_blocks_local):
+def _check_slice(block_offset, n_blocks_local):
     """Raise for the inputs whose kernel branch is not ported yet."""
-    missing = [
-        (bool(block_offset) or n_blocks_local is not None,
-         "shard offsets (block_offset/n_blocks_local)", "A10"),
-        (not exact_rng, "the fast RNG (exact_rng=False)", "B8"),
-    ]
-    for bad, what, item in missing:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not ported to the CUDA kernel yet (ROADMAP {item})")
+    if bool(block_offset) or n_blocks_local is not None:
+        raise NotImplementedError(
+            "shard offsets (block_offset/n_blocks_local) are not ported to "
+            "the CUDA kernel yet (ROADMAP A10)")
 
 
 def _check_accumulation(pscene: KernelScene, config: RenderConfig,
@@ -407,7 +481,7 @@ def _check_shortlists(pscene: KernelScene, config: RenderConfig, sl, slmeta):
 
 
 def render_tiles(pscene: KernelScene, cam: CameraState, config: RenderConfig,
-                 frame_seed, exact_rng: bool = True, block_offset=0,
+                 frame_seed, exact_rng=None, block_offset=0,
                  sample_offset=0, n_blocks_local=None, normalize: bool = True,
                  sl=None, slmeta=None, spp_map=None):
     """Trace the frame. Returns (r, g, b, depth) as flat block-ordered float32
@@ -421,32 +495,40 @@ def render_tiles(pscene: KernelScene, cam: CameraState, config: RenderConfig,
     (:func:`kernel_mode`).
 
     ``sample_offset``: an int in [0, 2^32) added (mod 2^32) to every sample
-    index that keys the PCG streams, so a later pass of an accumulating film
+    index that keys the draws, so a later pass of an accumulating film
     draws fresh samples. ``spp_map``: per-lane sample targets, int32 in the
     kernel's block order, ``(nbx*nby, TILE // 128, 128)`` as
     :func:`shuffle_blocks` gives them; each pixel traces min(map, spp)
     samples, so pass ``normalize=False`` and divide by the counts outside.
 
+    ``exact_rng``: the draw path, resolved for the scene's device by
+    :func:`resolve_exact_rng`; the fast path takes the layout of
+    :func:`.fast_rng.words_per_bounce`. The block fusion is
+    :func:`kernel_fuse`'s; no value depends on it.
+
     On CPU tensors this runs :func:`render_tiles_reference`. On CUDA tensors
     it launches the CUDA kernel (built on first use) or raises; it never
-    falls back. ``render_tiles.launches`` counts the kernel's launches.
+    falls back. ``render_tiles.launches`` counts the kernel's launches and
+    ``render_tiles.launches_by`` splits them by ("exact" | "fast", fuse).
     """
-    _check_slice(pscene, exact_rng, block_offset, n_blocks_local)
+    dev = pscene.sph.device
+    exact_rng = resolve_exact_rng(exact_rng, dev)
+    _check_slice(block_offset, n_blocks_local)
     _check_shortlists(pscene, config, sl, slmeta)
     _check_accumulation(pscene, config, sample_offset, spp_map)
-    dev = pscene.sph.device
     if dev.type == "cpu":
         return render_tiles_reference(pscene, cam, config, frame_seed,
                                       normalize=normalize, sl=sl,
                                       slmeta=slmeta,
                                       sample_offset=sample_offset,
-                                      spp_map=spp_map)
+                                      spp_map=spp_map, exact_rng=exact_rng)
     if dev.type != "cuda":
         raise ValueError(f"render_tiles takes CPU or CUDA tensors, not {dev}")
     from .build import extension
 
     ext = extension()
     mode = kernel_mode(pscene, config, sl)
+    fuse = kernel_fuse(pscene, config, sl)
     nbx, nby = block_grid(config)
     n_lanes = nbx * nby * TILE
     cam_row = pack_camera(cam, config).to(dev)
@@ -468,12 +550,15 @@ def render_tiles(pscene: KernelScene, cam: CameraState, config: RenderConfig,
                      config.level, config.defocus,
                      config.diffuse_sampling == "cosine", mode[0] == "split",
                      mode[1] == "candidates", pscene.gc, pscene.n_cand,
-                     pscene.cand_off)
+                     pscene.cand_off, not exact_rng,
+                     fast_rng.words_per_bounce(), fuse)
     render_tiles.launches += 1
+    render_tiles.launches_by["exact" if exact_rng else "fast", fuse] += 1
     return (*outs, segs[0])
 
 
 render_tiles.launches = 0
+render_tiles.launches_by = collections.Counter()
 
 
 def _inv_spp(config: RenderConfig, normalize: bool) -> float:
@@ -650,16 +735,42 @@ def _intersect(o: Vec3, d: Vec3, active, pscene: KernelScene,
     return t, idx
 
 
-def _raygen(cam: torch.Tensor, config: RenderConfig, stream, u, v):
+class _ExactDraws:
+    """The exact path's draws of one (pixel, sample) stream: two PCG steps
+    per slot of :mod:`...engine.slots` (the JAX kernel's
+    ``ExactRngProvider``)."""
+
+    def __init__(self, stream):
+        self.stream = stream
+
+    def jitter(self):
+        return (rng.draw(self.stream, slots.JITTER_U),
+                rng.draw(self.stream, slots.JITTER_V))
+
+    def lens(self):
+        return (rng.draw(self.stream, slots.LENS_U),
+                rng.draw(self.stream, slots.LENS_V))
+
+    def scatter_draws(self, bounce: int):
+        base = slots.bounce_base(bounce)
+        return (rng.draw(self.stream, base + slots.S_METAL),
+                rng.draw(self.stream, base + slots.S_TRANS),
+                rng.draw(self.stream, base + slots.S_REFLECT),
+                _ball(self.stream, base + slots.S_BALL1),
+                _ball(self.stream, base + slots.S_BALL2))
+
+
+def _raygen(cam: torch.Tensor, config: RenderConfig, draws, exact_rng: bool,
+            u, v):
     """Jittered primary ray (random_ray_from_uv, wgsl:139-156), the JAX
-    kernel's own raygen, with the thin lens when ``config.defocus``."""
+    kernel's own raygen, with the thin lens when ``config.defocus``; the
+    fast path turns the lens with the fast trig, as the JAX kernel does."""
     pos = Vec3(cam[C_POS_X], cam[C_POS_Y], cam[C_POS_Z])
     cdir = Vec3(cam[C_DIR_X], cam[C_DIR_Y], cam[C_DIR_Z])
     up = Vec3(cam[C_UP_X], cam[C_UP_Y], cam[C_UP_Z])
     right = Vec3(cam[C_RIGHT_X], cam[C_RIGHT_Y], cam[C_RIGHT_Z])
     scale, aspect = cam[C_SCALE], cam[C_ASPECT]
-    ju = rng.draw(stream, slots.JITTER_U)
-    jv = rng.draw(stream, slots.JITTER_V)
+    ju, jv = draws.jitter()
     h_px = cam[C_HEIGHT]
     w_px = h_px * aspect
     ndc_x = (u * 2.0 - 1.0) + (ju - 0.5) / w_px
@@ -668,12 +779,15 @@ def _raygen(cam: torch.Tensor, config: RenderConfig, stream, u, v):
          + up.scale(ndc_y * scale)).normalize()
     o = Vec3(*(c.expand_as(d.x) for c in pos))
     if config.defocus:
-        lu = rng.draw(stream, slots.LENS_U)
-        lv = rng.draw(stream, slots.LENS_V)
+        lu, lv = draws.lens()
         rr = cam[C_APERTURE] * 0.5 * torch.sqrt(lu)
-        theta = rng.TWO_PI * lv
-        lx = rr * torch.cos(theta)
-        ly = rr * torch.sin(theta)
+        if exact_rng:
+            theta = rng.TWO_PI * lv
+            lx = rr * torch.cos(theta)
+            ly = rr * torch.sin(theta)
+        else:
+            lx = rr * fast_rng.fast_cos2pi(lv)
+            ly = rr * fast_rng.fast_sin2pi(lv)
         focal = o + d.scale(cam[C_FOCUS])
         o = o + right.scale(lx) + up.scale(ly)
         d = (focal - o).normalize()
@@ -689,10 +803,13 @@ def render_tiles_reference(pscene: KernelScene, cam: CameraState,
                            config: RenderConfig, frame_seed,
                            normalize: bool = True, sl=None, slmeta=None,
                            work: dict | None = None, sample_offset: int = 0,
-                           spp_map=None):
+                           spp_map=None, exact_rng=None):
     """The plain PyTorch version of the kernel, on any device, in the
     dtype of the scene tables (float32 as prepared; a float64 copy replays
-    the frame on the same inputs in float64).
+    the frame on the same inputs in float64, on the exact path). The draw
+    path resolves as in :func:`render_tiles`; the fast path's helpers are
+    float32 (:mod:`.fast_rng`). Block fusion changes no value, so it has no
+    counterpart here.
 
     Tensors over all lanes of the padded block grid, like the JAX kernel, and
     a Python loop over samples and bounces; each bounce intersects only the
@@ -712,11 +829,12 @@ def render_tiles_reference(pscene: KernelScene, cam: CameraState,
     samples traced.
     """
     render_tiles_reference.calls += 1
+    dev = pscene.sph.device
+    exact_rng = resolve_exact_rng(exact_rng, dev)
     work = {} if work is None else work
     for key in ("sphere_tests", "slab_tests", "triangle_tests",
                 "triangle_hits", "triangle_first_hits"):
         work.setdefault(key, 0)
-    dev = pscene.sph.device
     candidates = kernel_mode(pscene, config, sl)[1] == "candidates"
     cam_row = pack_camera(cam, config).to(dev, pscene.sph.dtype)
     nbx, nby = block_grid(config)
@@ -741,7 +859,9 @@ def render_tiles_reference(pscene: KernelScene, cam: CameraState,
     segs = torch.zeros((), dtype=torch.int64, device=dev)
     for s in range(spp):
         stream = rng.stream_init(pixel, (s + sample_offset) & _M32, seed)
-        o, d = _raygen(cam_row, config, stream, u, v)
+        draws = (_ExactDraws(stream) if exact_rng
+                 else fast_rng.FastRngProvider(stream))
+        o, d = _raygen(cam_row, config, draws, exact_rng, u, v)
         ray_color = Vec3(zero + 1.0, zero + 1.0, zero + 1.0)
         radiance = Vec3(zero, zero, zero)
         first_depth = torch.full_like(u, _INF32)
@@ -782,12 +902,7 @@ def render_tiles_reference(pscene: KernelScene, cam: CameraState,
                                 emissive=Vec3(rows[10], rows[11], rows[12]))
             radiance = Vec3.where(active_hit,
                                   radiance + ray_color * mat.emissive, radiance)
-            base = slots.bounce_base(b)
-            sc = scatter(d, hit, mat, rng.draw(stream, base + slots.S_METAL),
-                         rng.draw(stream, base + slots.S_TRANS),
-                         rng.draw(stream, base + slots.S_REFLECT),
-                         _ball(stream, base + slots.S_BALL1),
-                         _ball(stream, base + slots.S_BALL2),
+            sc = scatter(d, hit, mat, *draws.scatter_draws(b),
                          diffuse_mode=config.diffuse_sampling)
             cont = active_hit & ~sc.absorbed
             ray_color = Vec3.where(cont, ray_color * sc.attenuation, ray_color)

@@ -16,10 +16,11 @@ Phase 5 drives the accumulating path at the same settings:
 16 spp frame: equal segments, image within 1e-5; then 8 timed passes of
 16 spp) and ``AdaptiveRenderer`` (tolerance 0.02, a re-probe every 4
 passes: 8 timed passes with the share of pixels each samples; tolerance 0
-against the uniform film), each pass one kernel launch and no plain run;
-then the kernel under the sample map of adaptive pass 3, at sample offset
-32, against its plain version: within the bars on the lanes the map
-samples, and exact zero sums from both on every lane whose target is 0.
+against the uniform film), each pass one kernel launch of the fast path
+and no plain run; then the kernel under the sample map of adaptive pass 3,
+at sample offset 32, against its plain version on both draw paths: within
+the bars on the lanes the map samples, and exact zero sums from both on
+every lane whose target is 0.
 
 Phase 6 drives BASELINE config 5 (scripts/bench_matrix.py:101-114) at full
 size: the final scene with a metallic cube mesh, the raster layer on the
@@ -28,6 +29,21 @@ card, 1280x720, 16 spp, 4 bounces, level 2, through the default-config
 kernel against its plain version at those shapes with the triangle tests in
 the bound. Phase 2 holds the kernel's triangle branch against its plain
 version in every mode on a small mesh scene and on duplicate meshes.
+
+Phases 2-4 and 6 pin the exact PCG streams (``exact_rng=True``); the films
+of phase 5 take the default draw path, which on the card is the fast one.
+Phase 7 holds the fast path and block fusion: (a) the fast kernel against
+its fast plain version at 128x128, 4 spp, in every mode under each of the
+three draw layouts, with the lens, with forced fuses whose tail block is
+padding, with the cube mesh in every mode, and under a sample map at a
+sample offset; (b) the default-config headline through ``FusedRenderer``,
+which must resolve to the fast path, split/candidates and fuse 4, timed in
+the order exact, fast, fast, exact, then the fast kernel against its plain
+version there; (c) the fuse ladder 1, 2, 4, "auto" at the headline on the
+fast path: kernel ms and bit-equal frames; (d) the fast headline frame
+against the exact one, statistically; (e) BASELINE config 5 on both paths
+(kernel ms unfused and at the rule's fuse), the fast kernel against its
+plain version there, and progressive passes under the default.
 
 Each phase prints its lines; the line before the last is the kernel table
 as JSON, and the last line is ``{"ok": true, "device": {...}}``. Any failed
@@ -88,6 +104,45 @@ PIXEL_TOL, PIXEL_FRAC, MEAN_TOL, DEPTH_MEAN_RTOL, SEG_RTOL = (
 # left out, so the bound is a floor.
 SPHERE_TEST_OPS, SLAB_TEST_OPS, TRIANGLE_TEST_OPS = 21, 27, 60
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+# Phase 7. The TPU kernel's fast draw path and block fusion.
+FAST_REPLACES = f"{TPU_KERNEL}:486"     # HwRngProvider (+ fast math :375)
+FUSE_REPLACES = f"{TPU_KERNEL}:195"     # _resolve_fuse (+ halves :1517)
+LAYOUTS = {6: (True, True), 9: (True, False), 13: (False, True)}
+FUSE_LADDER = (1, 2, 4, "auto")
+# The fast frame against the exact frame of the same seed, both 16 spp:
+# other random streams, the same estimator. Means within STAT_MEAN_TOL;
+# after a BOX x BOX box filter the mean |d| within BOX_MEAN_TOL, twice
+# what the CPU twin (tests/torch_fast_rng_twin.py, the plain versions on the
+# final scene at 240x136 and 480x270) reads: 0.0032 and 0.0030.
+STAT_MEAN_TOL, BOX, BOX_MEAN_TOL = 0.01, 8, 0.006
+
+
+def mesh_scene(copies=1):
+    """The simple scene with a metallic cube mesh in front of a sphere,
+    ``copies`` times at one place (only the lower triangle index may win a
+    tie)."""
+    from bevyray_tpu_torch import (StandardMaterial, Transform, cube_mesh,
+                                   rtiow)
+
+    world = rtiow.simple_scene()
+    for color in ((0.9, 0.6, 0.2), (0.2, 0.9, 0.2))[:copies]:
+        world.spawn_mesh(Transform.from_xyz(0.3, 0.4, 1.0), cube_mesh(0.5),
+                         StandardMaterial(base_color=color, metallic=1.0,
+                                          perceptual_roughness=0.1))
+    return world
+
+
+def config5_world():
+    """BASELINE config 5 (scripts/bench_matrix.py:101-114): the final scene
+    with a metallic cube mesh, and its ``RenderConfig``."""
+    from bevyray_tpu_torch import (RenderConfig, StandardMaterial, Transform,
+                                   cube_mesh, rtiow)
+
+    world = rtiow.final_scene(seed=42)
+    world.spawn_mesh(Transform.from_xyz(-4.0, 0.6, 1.0), cube_mesh(1.2),
+                     StandardMaterial(base_color=(0.2, 0.5, 0.9), metallic=1.0,
+                                      perceptual_roughness=0.15))
+    return world, RenderConfig(*HYBRID_SIZE, SPP, BOUNCES, level=2)
 
 
 def card_line() -> str:
@@ -190,8 +245,7 @@ def main() -> int:
 
     from bevyray_tpu_torch import (FusedRenderer, RaytracedCamera,
                                    RaytracedSphere, RenderConfig,
-                                   StandardMaterial, Transform, cube_mesh,
-                                   rtiow)
+                                   StandardMaterial, Transform, rtiow)
     from bevyray_tpu_torch.kernels.cuda import build
     from bevyray_tpu_torch.kernels.cuda.megakernel import (
         TILE, block_grid, kernel_mode, pack_camera, prepare_kernel_scene,
@@ -229,14 +283,6 @@ def main() -> int:
             world.spawn_sphere(Transform.from_xyz(*pos),
                                RaytracedSphere(radius=1.0),
                                StandardMaterial(base_color=(1.0, 0.0, 0.0)))
-        return world
-
-    def mesh_scene(copies=1):
-        world = rtiow.simple_scene()
-        for color in ((0.9, 0.6, 0.2), (0.2, 0.9, 0.2))[:copies]:
-            world.spawn_mesh(Transform.from_xyz(0.3, 0.4, 1.0), cube_mesh(0.5),
-                             StandardMaterial(base_color=color, metallic=1.0,
-                                              perceptual_roughness=0.1))
         return world
 
     cases = [("material_test_scene", rtiow.material_test_scene, {}),
@@ -286,9 +332,10 @@ def main() -> int:
                 (cfg.pallas_primary, cfg.pallas_intersect), mode)):
             raise SystemExit(f"phase 2 {name}: ran {mode}, not the mode "
                              "the case forces")
-        got = render_tiles(kscene, cam, cfg, 7, sl=sl, slmeta=slmeta)
-        want = render_tiles_reference(kscene, cam, cfg, 7, sl=sl,
-                                      slmeta=slmeta)
+        got = render_tiles(kscene, cam, cfg, 7, exact_rng=True, sl=sl,
+                           slmeta=slmeta)
+        want = render_tiles_reference(kscene, cam, cfg, 7, exact_rng=True,
+                                      sl=sl, slmeta=slmeta)
         label = " ".join([name, "/".join(mode)]
                          + [f"{k}={v}" for k, v in options.items()
                             if not k.startswith("pallas_p")
@@ -297,10 +344,12 @@ def main() -> int:
                         compare(cfg, got, want))
         if cfg.level == 3:
             small_times[label] = (
-                cuda_ms(lambda: render_tiles(kscene, cam, cfg, 7, sl=sl,
+                cuda_ms(lambda: render_tiles(kscene, cam, cfg, 7,
+                                             exact_rng=True, sl=sl,
                                              slmeta=slmeta), 10),
                 cuda_ms(lambda: render_tiles_reference(
-                    kscene, cam, cfg, 7, sl=sl, slmeta=slmeta), 3))
+                    kscene, cam, cfg, 7, exact_rng=True, sl=sl,
+                    slmeta=slmeta), 3))
     print("phase 2 times at 128x128 4spp 4 bounces (kernel ms, plain ms): "
           + json.dumps(small_times) + f" | {card}", flush=True)
 
@@ -319,7 +368,7 @@ def main() -> int:
         default = mode == ("split", "candidates")
         config = headline if default else forced(headline, mode)
         n_frames = TIMED_FRAMES if default else OTHER_FRAMES
-        renderer = FusedRenderer(config)
+        renderer = FusedRenderer(config, exact_rng=True)
         renderer.render(scene, cam, seed=0)
         torch.cuda.synchronize()
         render_tiles.launches = 0
@@ -368,22 +417,23 @@ def main() -> int:
         config = renderer.config
         kscene = renderer.prepare(scene)
         sl, slmeta = renderer.shortlists(kscene, cam)
-        got = render_tiles(kscene, cam, config, 1, sl=sl, slmeta=slmeta)
+        run = dict(exact_rng=True, sl=sl, slmeta=slmeta)
+        got = render_tiles(kscene, cam, config, 1, **run)
         torch.cuda.synchronize()
         work = {}
         t0 = time.perf_counter()
-        want = render_tiles_reference(kscene, cam, config, 1, sl=sl,
-                                      slmeta=slmeta, work=work)
+        want = render_tiles_reference(kscene, cam, config, 1, exact_rng=True,
+                                      sl=sl, slmeta=slmeta, work=work)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         full = compare(config, got, want)
-        kernel_ms = cuda_ms(lambda: render_tiles(kscene, cam, config, 1, sl=sl,
-                                                 slmeta=slmeta), 3)
+        kernel_ms = cuda_ms(lambda: render_tiles(kscene, cam, config, 1,
+                                                 **run), 3)
         b_ms, b_by = bound_ms(kscene, pack_camera(cam, config), sl, slmeta,
                               n_lanes, work)
         check_agreement(
-            f"phase 4 {'/'.join(mode)} main-path shapes, kernel "
-            f"{kernel_ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+            f"phase 4 {'/'.join(mode)} fuse {renderer.last_fuse} main-path "
+            f"shapes, kernel {kernel_ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
             f"{b_ms:.3f} ms ({b_by}), sphere tests {work['sphere_tests']}, "
             f"slab tests {work['slab_tests']} | {card}", full)
         entries.append({
@@ -397,6 +447,7 @@ def main() -> int:
 
     entries.append(accumulation_phase(world, scene, cam, headline, card))
     entries.append(hybrid_phase(card))
+    entries += fast_phase(scene, cam, headline, card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -435,11 +486,12 @@ def accumulation_phase(world, scene, cam, headline, card) -> dict:
                                    ProgressiveRenderer)
     from bevyray_tpu_torch.engine.film import resolve_impl
     from bevyray_tpu_torch.kernels.cuda.megakernel import (
-        TILE, block_grid, kernel_mode, pack_camera, render_tiles,
+        TILE, block_grid, kernel_fuse, kernel_mode, pack_camera, render_tiles,
         render_tiles_reference, shuffle_blocks)
 
     def counts_zeroed():
         render_tiles.launches = 0
+        render_tiles.launches_by.clear()
         render_tiles_reference.calls = 0
 
     def check_counts(what, launches):
@@ -524,6 +576,12 @@ def accumulation_phase(world, scene, cam, headline, card) -> dict:
     passes = timed_passes(adap, scene, cam, range(1, PASSES + 1))
     check_counts("adaptive passes", PASSES)
     adaptive_launches = render_tiles.launches
+    # On the card the films draw from the fast path, as JAX's do on the TPU.
+    fuse = kernel_fuse(kscene, headline, sl)
+    if dict(render_tiles.launches_by) != {("fast", fuse): PASSES}:
+        raise SystemExit(f"phase 5 adaptive passes: launches "
+                         f"{dict(render_tiles.launches_by)}, not {PASSES} of "
+                         f"the fast path at fuse {fuse}")
     check_frame("adaptive film", adap.resolve(cam))
     counts = adap.samples_map()
     for k, (ms, n, sampled) in enumerate(passes):
@@ -547,58 +605,61 @@ def accumulation_phase(world, scene, cam, headline, card) -> dict:
                flat.resolve(cam), uniform_frame)
 
     # The kernel against its plain version under the map of pass MAP_PASS
-    # at sample offset MAP_OFFSET. Sums over a pass are compared at the
-    # scale of the per-spp bars (times 1/spp), on the pixels the map samples;
-    # every lane whose target is 0 (unsampled pixels, block padding) must
-    # trace nothing and leave exact zero sums.
+    # at sample offset MAP_OFFSET, on both draw paths: the exact one, which
+    # phases 2-6 hold, and the fast one, which the passes above launched.
+    # Sums over a pass are compared at the scale of the per-spp bars (times
+    # 1/spp), on the pixels the map samples; every lane whose target is 0
+    # (unsampled pixels, block padding) must trace nothing and leave exact
+    # zero sums.
     spp_map = shuffle_blocks(
         torch.where(passes[MAP_PASS][2], SPP, 0).to(torch.int32), headline,
         fill=0)
     share = float((spp_map > 0).float().sum()) / (WIDTH * HEIGHT)
-
-    def kernel():
-        return render_tiles(kscene, cam, headline, 1, sl=sl, slmeta=slmeta,
-                            normalize=False, spp_map=spp_map,
-                            sample_offset=MAP_OFFSET)
-
-    got = kernel()
-    torch.cuda.synchronize()
-    work = {}
-    t0 = time.perf_counter()
-    want = render_tiles_reference(kscene, cam, headline, 1, sl=sl,
-                                  slmeta=slmeta, normalize=False,
-                                  spp_map=spp_map, sample_offset=MAP_OFFSET,
-                                  work=work)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    scale = 1.0 / SPP
-    stats = compare(headline, [x * scale for x in got[:4]] + [got[4]],
-                    [x * scale for x in want[:4]] + [want[4]],
-                    mask=spp_map > 0)
-    idle = spp_map.reshape(-1) == 0
-    idle_max = [max(float(torch.where(idle, x, 0.0).abs().max())
-                    for x in out[:4]) for out in (got, want)]
-    print(f"phase 5 spp_map: {int(idle.sum())} lanes of target 0, max |sum| "
-          f"there kernel {idle_max[0]:.3g}, plain {idle_max[1]:.3g}",
-          flush=True)
-    if idle_max != [0.0, 0.0]:
-        raise SystemExit("phase 5 spp_map: a lane whose target is 0 must "
-                         "leave exact zero sums (r, g, b, depth)")
-    kernel_ms = cuda_ms(kernel, 3)
     nbx, nby = block_grid(headline)
-    b_ms, b_by = bound_ms(kscene, pack_camera(cam, headline), sl, slmeta,
-                          nbx * nby * TILE, work, spp_map)
-    check_agreement(
-        f"phase 5 split/candidates + spp_map (pass {MAP_PASS}, {share:.4f} "
-        f"of pixels), sample_offset {MAP_OFFSET}, kernel {kernel_ms:.3f} ms, "
-        f"plain {plain_ms:.1f} ms, bound {b_ms:.3f} ms ({b_by}), sphere tests "
-        f"{work['sphere_tests']}, slab tests {work['slab_tests']} | {card}",
-        stats)
-    return {"name": "render_tiles[split,candidates,spp_map]", "route": "cuda",
-            "source": KERNEL_SOURCE, "replaces": f"{TPU_KERNEL}:1571",
-            "launches": adaptive_launches, "max_abs_err": stats["max_abs"],
-            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None}
+    checked = {}
+    for arm in ("exact", "fast"):
+        run = dict(exact_rng=arm == "exact", sl=sl, slmeta=slmeta,
+                   normalize=False, spp_map=spp_map, sample_offset=MAP_OFFSET)
+        got = render_tiles(kscene, cam, headline, 1, **run)
+        torch.cuda.synchronize()
+        work = {}
+        t0 = time.perf_counter()
+        want = render_tiles_reference(kscene, cam, headline, 1, work=work,
+                                      **run)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        scale = 1.0 / SPP
+        stats = compare(headline, [x * scale for x in got[:4]] + [got[4]],
+                        [x * scale for x in want[:4]] + [want[4]],
+                        mask=spp_map > 0)
+        idle = spp_map.reshape(-1) == 0
+        idle_max = [max(float(torch.where(idle, x, 0.0).abs().max())
+                        for x in out[:4]) for out in (got, want)]
+        print(f"phase 5 spp_map {arm} rng: {int(idle.sum())} lanes of target "
+              f"0, max |sum| there kernel {idle_max[0]:.3g}, plain "
+              f"{idle_max[1]:.3g}", flush=True)
+        if idle_max != [0.0, 0.0]:
+            raise SystemExit("phase 5 spp_map: a lane whose target is 0 must "
+                             "leave exact zero sums (r, g, b, depth)")
+        kernel_ms = cuda_ms(lambda: render_tiles(kscene, cam, headline, 1,
+                                                 **run), 3)
+        b_ms, b_by = bound_ms(kscene, pack_camera(cam, headline), sl, slmeta,
+                              nbx * nby * TILE, work, spp_map)
+        check_agreement(
+            f"phase 5 split/candidates fuse {fuse} {arm} rng + spp_map (pass "
+            f"{MAP_PASS}, {share:.4f} of pixels), sample_offset {MAP_OFFSET}, "
+            f"kernel {kernel_ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+            f"{b_ms:.3f} ms ({b_by}), sphere tests {work['sphere_tests']}, "
+            f"slab tests {work['slab_tests']} | {card}", stats)
+        checked[arm] = stats, kernel_ms, plain_ms, b_ms, b_by
+    # The entry of the instance the adaptive passes launched.
+    stats, kernel_ms, plain_ms, b_ms, b_by = checked["fast"]
+    return {"name": "render_tiles[split,candidates,spp_map,fast_rng]",
+            "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": f"{TPU_KERNEL}:1571", "launches": adaptive_launches,
+            "max_abs_err": stats["max_abs"], "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
 
 
 def hybrid_phase(card) -> dict:
@@ -611,9 +672,7 @@ def hybrid_phase(card) -> dict:
     Returns the kernels-line entry of the triangle branch."""
     import torch
 
-    from bevyray_tpu_torch import (FusedRenderer, RenderConfig,
-                                   StandardMaterial, Transform, cube_mesh,
-                                   rtiow)
+    from bevyray_tpu_torch import FusedRenderer
     from bevyray_tpu_torch.engine.raster import raster_layer
     from bevyray_tpu_torch.kernels.cuda.megakernel import (
         TILE, block_grid, kernel_mode, pack_camera, render_tiles,
@@ -621,11 +680,7 @@ def hybrid_phase(card) -> dict:
     from bevyray_tpu_torch.kernels.cuda.primary import device_shortlists_for
 
     width, height = HYBRID_SIZE
-    world = rtiow.final_scene(seed=42)
-    world.spawn_mesh(Transform.from_xyz(-4.0, 0.6, 1.0), cube_mesh(1.2),
-                     StandardMaterial(base_color=(0.2, 0.5, 0.9), metallic=1.0,
-                                      perceptual_roughness=0.15))
-    config = RenderConfig(width, height, SPP, BOUNCES, level=2)
+    world, config = config5_world()
     cam = world.camera_state(aspect=16 / 9)
     scene = world.extract(with_bvh=False)
 
@@ -645,7 +700,7 @@ def hybrid_phase(card) -> dict:
         raise SystemExit("phase 6: the raster layer did not give finite "
                          "buffers with the cube on the card")
 
-    renderer = FusedRenderer(config)
+    renderer = FusedRenderer(config, exact_rng=True)
     kscene = renderer.prepare(scene)
     gate_sl = device_shortlists_for(kscene, cam, config, SPP)[0]
     expected = ("split" if gate_sl is not None else "off",
@@ -697,17 +752,18 @@ def hybrid_phase(card) -> dict:
           flush=True)
 
     sl, slmeta = renderer.shortlists(kscene, cam)
-    got = render_tiles(kscene, cam, config, 1, sl=sl, slmeta=slmeta)
+    run = dict(exact_rng=True, sl=sl, slmeta=slmeta)
+    got = render_tiles(kscene, cam, config, 1, **run)
     torch.cuda.synchronize()
     work = {}
     t0 = time.perf_counter()
-    want = render_tiles_reference(kscene, cam, config, 1, sl=sl,
-                                  slmeta=slmeta, work=work)
+    want = render_tiles_reference(kscene, cam, config, 1, exact_rng=True,
+                                  sl=sl, slmeta=slmeta, work=work)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     stats = compare(config, got, want)
-    kernel_ms = cuda_ms(lambda: render_tiles(kscene, cam, config, 1, sl=sl,
-                                             slmeta=slmeta), 3)
+    kernel_ms = cuda_ms(lambda: render_tiles(kscene, cam, config, 1, **run),
+                        3)
     nbx, nby = block_grid(config)
     b_ms, b_by = bound_ms(kscene, pack_camera(cam, config), sl, slmeta,
                           nbx * nby * TILE, work)
@@ -731,6 +787,328 @@ def hybrid_phase(card) -> dict:
             "max_abs_err": stats["max_abs"], "ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None}
+
+
+def box_mean_abs(a, b) -> float:
+    """Mean |a - b| of two [H, W, 3] images after a BOX x BOX box filter."""
+    h, w = (a.shape[0] // BOX) * BOX, (a.shape[1] // BOX) * BOX
+
+    def box(img):
+        return img[:h, :w].reshape(h // BOX, BOX, w // BOX, BOX, 3).mean(
+            dim=(1, 3))
+
+    return float((box(a) - box(b)).abs().mean())
+
+
+def fast_phase(scene, cam, headline, card) -> list:
+    """Phase 7: the fast draw path (ROADMAP B8) and block fusion (B10). Returns
+    the kernels-line entries of the two branches and of the triangle branch
+    on the fast path (config 5)."""
+    import torch
+
+    from bevyray_tpu_torch import (FusedRenderer, ProgressiveRenderer,
+                                   RaytracedCamera, RenderConfig, rtiow)
+    from bevyray_tpu_torch.engine.raster import raster_layer
+    from bevyray_tpu_torch.kernels.cuda import fast_rng
+    from bevyray_tpu_torch.kernels.cuda import megakernel as mk
+    from bevyray_tpu_torch.kernels.cuda.primary import device_shortlists_for
+
+    dev = torch.device("cuda", 0)
+    render_tiles, render_tiles_reference = (mk.render_tiles,
+                                            mk.render_tiles_reference)
+
+    def counts_zeroed():
+        render_tiles.launches = 0
+        render_tiles.launches_by.clear()
+        render_tiles_reference.calls = 0
+
+    def held(name, kscene, cam_s, cfg, sl, slmeta, seed=7, spp_map=None,
+             sample_offset=0, work=None) -> tuple:
+        """The fast kernel against its fast plain version on the same CUDA
+        tensors at phase 2's bars (max |d| 0 and equal segments expected).
+        Under ``spp_map`` the sums are compared per spp on the lanes it
+        samples, and its lanes of target 0 must leave exact zero sums.
+        Returns the agreement and the plain version's ms."""
+        run = dict(exact_rng=False, sl=sl, slmeta=slmeta, spp_map=spp_map,
+                   sample_offset=sample_offset, normalize=spp_map is None)
+        got = render_tiles(kscene, cam_s, cfg, seed, **run)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = render_tiles_reference(kscene, cam_s, cfg, seed, work=work,
+                                      **run)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        mask = None
+        if spp_map is not None:
+            idle = spp_map.reshape(-1) == 0
+            if any(float(x[idle].abs().max()) != 0.0
+                   for out in (got, want) for x in out[:4]):
+                raise SystemExit(f"phase 7 {name}: a lane whose target is 0 "
+                                 "must leave exact zero sums")
+            scale = 1.0 / cfg.samples_per_pixel
+            got, want = ([x * scale for x in out[:4]] + [out[4]]
+                         for out in (got, want))
+            mask = spp_map > 0
+        stats = compare(cfg, got, want, mask)
+        check_agreement(f"phase 7 fast {name}", stats)
+        return stats, plain_ms
+
+    # (a) Every mode under each layout; the lens; forced fuses 4 and 8 of
+    # the split on 6 blocks, so the last CUDA block's tail halves are
+    # padding; the cube mesh in every mode; and a sample map of targets 0-5
+    # at sample offset MAP_OFFSET under fuse 4.
+    small = RenderConfig(128, 128, 4, 4, level=3)
+    wide = dataclasses.replace(small, width=192)
+    final = rtiow.final_scene(seed=42)
+    lens_world = rtiow.material_test_scene(
+        RaytracedCamera(aperture=0.2, focus_distance=4.0))
+    mesh = mesh_scene()
+    cases = [(f"final_scene {'/'.join(mode)} layout {w}", final, small, mode,
+              w, None, False) for mode in MODES for w in LAYOUTS]
+    cases += [(f"material_test_scene(aperture=0.2) defocus layout {w}",
+               lens_world, dataclasses.replace(small, defocus=True),
+               ("split", "candidates"), w, None, False) for w in LAYOUTS]
+    cases += [(f"final_scene 192x128 split/{mode[1]} fuse {f}", final, wide,
+               mode, 6, f, False)
+              for mode in MODES if mode[0] == "split" for f in (4, 8)]
+    cases += [(f"simple_scene + cube mesh {'/'.join(mode)}", mesh, small,
+               mode, 6, None, False) for mode in MODES]
+    cases.append((f"final_scene 192x128 split/candidates fuse 4 + spp_map, "
+                  f"sample_offset {MAP_OFFSET}", final, wide,
+                  ("split", "candidates"), 6, 4, True))
+    targets = torch.randint(0, 6, (wide.width * wide.height,),
+                            generator=torch.Generator().manual_seed(5),
+                            dtype=torch.int32)
+    fast_max = fused_max = 0.0
+    for name, world, cfg, mode, layout, fuse, mapped in cases:
+        cfg = dataclasses.replace(cfg, pallas_primary=mode[0],
+                                  pallas_intersect=mode[1])
+        kscene = mk.prepare_kernel_scene(world.extract(with_bvh=False,
+                                                       device=dev))
+        cam_s = world.camera_state(aspect=cfg.width / cfg.height, device=dev)
+        sl, slmeta = device_shortlists_for(kscene, cam_s, cfg, 4)
+        fast_rng.HW_DRAWS_COMPACT, fast_rng.HW_DRAWS_ZPHI = LAYOUTS[layout]
+        mk.PHASE_FUSE = "auto" if fuse is None else fuse
+        ran = (mk.kernel_mode(kscene, cfg, sl), mk.kernel_fuse(kscene, cfg, sl),
+               fast_rng.words_per_bounce())
+        if ran[0] != mode or ran[2] != layout or fuse not in (None, ran[1]):
+            raise SystemExit(f"phase 7 {name}: ran {ran}")
+        extra = (dict(spp_map=mk.shuffle_blocks(targets, cfg).to(dev),
+                      sample_offset=MAP_OFFSET) if mapped else {})
+        stats, _ = held(f"{name} (fuse {ran[1]}) {cfg.width}x{cfg.height} "
+                        "4spp", kscene, cam_s, cfg, sl, slmeta, **extra)
+        fast_max = max(fast_max, stats["max_abs"])
+        if ran[1] > 1:
+            fused_max = max(fused_max, stats["max_abs"])
+    fast_rng.HW_DRAWS_COMPACT, fast_rng.HW_DRAWS_ZPHI = LAYOUTS[6]
+    mk.PHASE_FUSE = "auto"
+
+    # (b) The default-config headline: it must resolve to the fast path,
+    # split/candidates and fuse 4. Timed in the order exact, fast, fast,
+    # exact, each arm a warm-up frame and TIMED_FRAMES frames; the counts
+    # are zeroed before each arm and read after it.
+    fast = FusedRenderer(headline)
+    exact = FusedRenderer(headline, exact_rng=True)
+    arms = {"exact": [], "fast": []}
+    frames, fast_launches, fused_launches = {}, 0, 0
+    for arm in ("exact", "fast", "fast", "exact"):
+        renderer = fast if arm == "fast" else exact
+        renderer.render(scene, cam, seed=0)
+        torch.cuda.synchronize()
+        counts_zeroed()
+        times, rays = [], []
+        for i in range(TIMED_FRAMES):
+            t0 = time.perf_counter()
+            frame = renderer.render(scene, cam, seed=i + 1)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            rays.append(int(frame.rays_traced))
+        by = dict(render_tiles.launches_by)
+        want_by = {(arm, 4): TIMED_FRAMES}
+        if (by != want_by or render_tiles_reference.calls
+                or renderer.last_mode != ("split", "candidates")
+                or renderer.last_fuse != 4
+                or renderer.last_exact_rng != (arm == "exact")):
+            raise SystemExit(f"phase 7 {arm} headline: launches {by} (want "
+                             f"{want_by}), {render_tiles_reference.calls} "
+                             f"plain calls, mode {renderer.last_mode}, fuse "
+                             f"{renderer.last_fuse}, exact_rng "
+                             f"{renderer.last_exact_rng}")
+        if arm == "fast":
+            fast_launches += render_tiles.launches
+            fused_launches += sum(n for (_, f), n in by.items() if f > 1)
+        frames[arm] = frame
+        times.sort()
+        arms[arm].append({"p50_ms": times[len(times) // 2] * 1e3,
+                          "segments": sum(rays) / len(rays)})
+    kscene = fast.prepare(scene)
+    sl, slmeta = fast.shortlists(kscene, cam)
+    kernel = {arm: cuda_ms(lambda: render_tiles(
+        kscene, cam, headline, 1, exact_rng=arm == "exact", sl=sl,
+        slmeta=slmeta), 3) for arm in ("exact", "fast")}
+    for arm, runs in arms.items():
+        p50s = [r["p50_ms"] for r in runs]
+        segs = runs[0]["segments"]
+        print(f"phase 7 headline default config {arm} rng split/candidates "
+              f"fuse 4 {WIDTH}x{HEIGHT} {SPP}spp {BOUNCES} bounces: p50 "
+              f"{[round(p, 3) for p in p50s]} ms (arms in call order), "
+              f"{segs / (min(p50s) * 1e-3) / 1e6:.2f} Mrays/s at the lower, "
+              f"{segs:.0f} segments/frame, kernel {kernel[arm]:.3f} ms "
+              f"| {card}", flush=True)
+    work = {}
+    head_stats, plain_ms = held(
+        f"split/candidates fuse 4 main-path shapes, kernel "
+        f"{kernel['fast']:.3f} ms | {card}", kscene, cam, headline, sl,
+        slmeta, seed=1, work=work)
+    nbx, nby = mk.block_grid(headline)
+    b_ms, b_by = bound_ms(kscene, mk.pack_camera(cam, headline), sl, slmeta,
+                          nbx * nby * mk.TILE, work)
+    print(f"phase 7 fast headline: plain {plain_ms:.1f} ms, bound {b_ms:.3f} "
+          f"ms ({b_by}), sphere tests {work['sphere_tests']}, slab tests "
+          f"{work['slab_tests']}", flush=True)
+    fast_max = max(fast_max, head_stats["max_abs"])
+    fused_max = max(fused_max, head_stats["max_abs"])
+
+    # (c) The fuse ladder on the fast path: kernel ms, and the same frame
+    # and segments from every fuse.
+    ladder, base = {}, None
+    for want_fuse in FUSE_LADDER:
+        mk.PHASE_FUSE = want_fuse
+        fuse = mk.kernel_fuse(kscene, headline, sl)
+        out = render_tiles(kscene, cam, headline, 1, exact_rng=False, sl=sl,
+                           slmeta=slmeta)
+        base = out if base is None else base
+        if not all(torch.equal(x, y) for x, y in zip(out, base)):
+            raise SystemExit(f"phase 7 fuse {want_fuse}: the frame differs "
+                             "from fuse 1's")
+        ladder[str(want_fuse)] = {"fuse": fuse, "kernel_ms": cuda_ms(
+            lambda: render_tiles(kscene, cam, headline, 1, exact_rng=False,
+                                 sl=sl, slmeta=slmeta), 3)}
+    mk.PHASE_FUSE = "auto"
+    print(f"phase 7 fuse ladder, fast path, headline (PHASE_FUSE: fuse, "
+          f"kernel ms): {json.dumps(ladder)}; frames and segments "
+          f"({int(base[4])}) bit-equal | {card}", flush=True)
+
+    # (d) Statistics: the fast frame against the exact frame, same seed.
+    fast_img, exact_img = frames["fast"].image, frames["exact"].image
+    d_mean = abs(float(fast_img.mean()) - float(exact_img.mean()))
+    d_box = box_mean_abs(fast_img, exact_img)
+    print(f"phase 7 fast vs exact headline frame, {SPP} spp: mean "
+          f"{float(fast_img.mean()):.6f} vs {float(exact_img.mean()):.6f} "
+          f"(|d| {d_mean:.6f}, bar {STAT_MEAN_TOL}), {BOX}x{BOX} box mean |d| "
+          f"{d_box:.6f} (bar {BOX_MEAN_TOL})", flush=True)
+    if not (d_mean < STAT_MEAN_TOL and d_box < BOX_MEAN_TOL
+            and bool(torch.isfinite(fast_img).all())):
+        raise SystemExit("phase 7: the fast frame disagrees with the exact "
+                         "frame beyond the statistical bars")
+
+    # (e) BASELINE config 5 under the default (fast) against the exact path,
+    # in the order exact, fast, fast, exact, with the kernel timed at the
+    # rule's fuse and unfused; then the fast kernel against its plain
+    # version at these shapes; then progressive passes under the default.
+    world5, config5 = config5_world()
+    cam5 = world5.camera_state(aspect=16 / 9)
+    scene5 = world5.extract(with_bvh=False)
+    rc, rd = raster_layer(world5, cam5, config5)
+    renderers = {"exact": FusedRenderer(config5, exact_rng=True),
+                 "fast": FusedRenderer(config5)}
+    k5 = renderers["fast"].prepare(scene5)
+    sl5, slmeta5 = renderers["fast"].shortlists(k5, cam5)
+    fuse5 = mk.kernel_fuse(k5, config5, sl5)
+    hybrid_launches = 0
+    for arm in ("exact", "fast", "fast", "exact"):
+        renderer = renderers[arm]
+        renderer.render(scene5, cam5, seed=0, raster_color=rc, raster_depth=rd)
+        torch.cuda.synchronize()
+        counts_zeroed()
+        times, rays = [], []
+        for i in range(TIMED_FRAMES):
+            t0 = time.perf_counter()
+            frame = renderer.render(scene5, cam5, seed=i + 1, raster_color=rc,
+                                    raster_depth=rd)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            rays.append(int(frame.rays_traced))
+        if (dict(render_tiles.launches_by) != {(arm, fuse5): TIMED_FRAMES}
+                or render_tiles_reference.calls
+                or not bool(torch.isfinite(frame.image).all())
+                or min(rays) <= 0):
+            raise SystemExit(f"phase 7 config 5 {arm}: launches "
+                             f"{dict(render_tiles.launches_by)} or not a "
+                             "finite frame")
+        if arm == "fast":
+            hybrid_launches += render_tiles.launches
+        times.sort()
+        p50 = times[len(times) // 2] * 1e3
+        segs = sum(rays) / len(rays)
+        k_ms = {}
+        for want_fuse in (1, "auto"):
+            mk.PHASE_FUSE = want_fuse
+            k_ms[mk.kernel_fuse(k5, config5, sl5)] = cuda_ms(
+                lambda: render_tiles(k5, cam5, config5, 1,
+                                     exact_rng=arm == "exact", sl=sl5,
+                                     slmeta=slmeta5), 3)
+        mk.PHASE_FUSE = "auto"
+        print(f"phase 7 BASELINE config 5 {arm} rng "
+              f"{'/'.join(renderer.last_mode)} fuse {renderer.last_fuse}: p50 "
+              f"{p50:.3f} ms, {segs / (p50 * 1e-3) / 1e6:.2f} Mrays/s, "
+              f"{segs:.0f} segments/frame, kernel ms by fuse "
+              f"{json.dumps(k_ms)} | {card}", flush=True)
+    work5 = {}
+    stats5, plain5_ms = held(
+        f"{'/'.join(mk.kernel_mode(k5, config5, sl5))} fuse {fuse5} + "
+        f"triangles config-5 shapes | {card}", k5, cam5, config5, sl5,
+        slmeta5, seed=1, work=work5)
+    nbx, nby = mk.block_grid(config5)
+    b5_ms, b5_by = bound_ms(k5, mk.pack_camera(cam5, config5), sl5, slmeta5,
+                            nbx * nby * mk.TILE, work5)
+    if work5["triangle_hits"] <= 0:
+        raise SystemExit("phase 7 config 5: no segment hits the cube mesh")
+    k5_ms = cuda_ms(lambda: render_tiles(k5, cam5, config5, 1,
+                                         exact_rng=False, sl=sl5,
+                                         slmeta=slmeta5), 3)
+    print(f"phase 7 fast config 5: kernel {k5_ms:.3f} ms, plain "
+          f"{plain5_ms:.1f} ms, bound {b5_ms:.3f} ms ({b5_by}), sphere tests "
+          f"{work5['sphere_tests']}, slab tests {work5['slab_tests']}, "
+          f"triangle tests {work5['triangle_tests']}, triangle hits "
+          f"{work5['triangle_hits']}", flush=True)
+    fast_max = max(fast_max, stats5["max_abs"])
+    if fuse5 > 1:
+        fused_max = max(fused_max, stats5["max_abs"])
+
+    prog = ProgressiveRenderer(headline, backend="pallas")
+    prog.step(scene, cam, seed=0)
+    prog.reset()
+    counts_zeroed()
+    passes = timed_passes(prog, scene, cam, range(1, 4))
+    if dict(render_tiles.launches_by) != {("fast", 4): 3}:
+        raise SystemExit(f"phase 7: the progressive passes launched "
+                         f"{dict(render_tiles.launches_by)}, not the fast "
+                         "path at fuse 4")
+    pass_ms = sorted(ms for ms, _, _ in passes)
+    segs = sum(n for _, n, _ in passes) / len(passes)
+    print(f"phase 7 progressive {SPP} spp/pass under the default (fast), 3 "
+          f"passes: p50 {pass_ms[1]:.3f} ms/pass, "
+          f"{segs / (pass_ms[1] * 1e-3) / 1e6:.2f} Mrays/s | {card}",
+          flush=True)
+
+    return [
+        {"name": "render_tiles[split,candidates,fast_rng]", "route": "cuda",
+         "source": KERNEL_SOURCE, "replaces": FAST_REPLACES,
+         "launches": fast_launches, "max_abs_err": fast_max,
+         "ms": kernel["fast"], "plain_ms": plain_ms, "bound_ms": b_ms,
+         "bound_by": b_by, "library_ms": None},
+        {"name": "render_tiles[split,candidates,fast_rng,fuse=4]",
+         "route": "cuda", "source": KERNEL_SOURCE, "replaces": FUSE_REPLACES,
+         "launches": fused_launches, "max_abs_err": fused_max,
+         "ms": ladder["4"]["kernel_ms"], "plain_ms": plain_ms,
+         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None},
+        {"name": "render_tiles[split,candidates,triangles,fast_rng]",
+         "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": f"{TPU_KERNEL}:1346", "launches": hybrid_launches,
+         "max_abs_err": stats5["max_abs"], "ms": k5_ms,
+         "plain_ms": plain5_ms, "bound_ms": b5_ms, "bound_by": b5_by,
+         "library_ms": None}]
 
 
 if __name__ == "__main__":

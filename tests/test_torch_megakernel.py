@@ -358,7 +358,6 @@ def test_cpu_tensors_take_the_plain_version():
 @pytest.mark.parametrize("kwargs,item", [
     (dict(block_offset=1), "A10"),
     (dict(n_blocks_local=1), "A10"),
-    (dict(exact_rng=False), "B8"),
 ])
 def test_unported_branches_raise(kwargs, item):
     _, _, kscene, pcam = _inputs(jrtiow.simple_scene(), 16, 16)

@@ -170,10 +170,31 @@ def test_modes_and_shortlist_cache():
 
 
 def test_exact_rng_resolution():
-    cfg = bt.RenderConfig(width=8, height=8)
-    assert bt.FusedRenderer(cfg).exact_rng is True
-    with pytest.raises(NotImplementedError, match="ROADMAP B8"):
-        bt.FusedRenderer(cfg, exact_rng=False)
+    """None takes the fast path for tensors on a CUDA card and the exact
+    streams elsewhere (``PallasRenderer``: exact off the TPU); an explicit
+    value holds either way, and ``exact_rng=False`` renders (on CPU tensors
+    through the fast plain version)."""
+    from bevyray_tpu_torch.kernels.cuda.megakernel import resolve_exact_rng
+
+    for dev, exact in (("cpu", True), ("cuda", False),
+                       (torch.device("cuda", 0), False)):
+        assert resolve_exact_rng(None, dev) is exact
+        assert resolve_exact_rng(True, dev) is True
+        assert resolve_exact_rng(False, dev) is False
+    cfg = bt.RenderConfig(**SLICE)
+    world = bt.rtiow.material_test_scene()
+    scene = world.extract(with_bvh=False, device="cpu")
+    cam = world.camera_state(aspect=1.0, device="cpu")
+    frames = {}
+    for exact_rng in (None, True, False):
+        renderer = bt.FusedRenderer(cfg, exact_rng=exact_rng)
+        frames[exact_rng] = renderer.render(scene, cam, seed=5)
+        assert renderer.exact_rng is exact_rng
+        assert renderer.last_exact_rng is (exact_rng is not False)
+    fast = frames[False]
+    assert bool(torch.isfinite(fast.image).all()) and int(fast.rays_traced) > 0
+    assert torch.equal(frames[None].image, frames[True].image)
+    assert not torch.equal(fast.image, frames[True].image)
 
 
 def test_render_config_validation_matches():
