@@ -3,9 +3,12 @@
 The JAX package ``bevyray_tpu`` stays the reference; this package imports
 torch and never jax. Public surface so far:
 
-    from bevyray_tpu_torch import (FusedRenderer, ProgressiveRenderer,
-                                   AdaptiveRenderer, RenderConfig, World,
-                                   rtiow, Transform, StandardMaterial, ...)
+    from bevyray_tpu_torch import (Renderer, FusedRenderer,
+                                   ProgressiveRenderer, AdaptiveRenderer,
+                                   RenderConfig, World, rtiow, Transform,
+                                   StandardMaterial, ...)
+
+Views are in ``engine.views``, sharded frames in ``parallel.sharding``.
 """
 
 from .core.types import CameraState, RenderConfig, SceneBuffers
@@ -13,7 +16,7 @@ from .core.vec import Vec3
 from .engine.adaptive import AdaptiveRenderer
 from .engine.film import ProgressiveRenderer
 from .engine.fused_renderer import FusedRenderer
-from .engine.renderer import FrameResult
+from .engine.renderer import FrameResult, Renderer
 from .scene.components import (PerspectiveProjection, RaytracedCamera,
                                RaytracedMesh, RaytracedSphere, Raytracing,
                                StandardMaterial, Transform, cube_mesh)

@@ -3,11 +3,13 @@ passes.
 
 Counterpart of ``bevyray_tpu/engine/film.py``. A ``Film`` holds the running
 sums of a viewpoint; each pass of :class:`ProgressiveRenderer` traces
-``config.samples_per_pixel`` fresh samples through the fused kernel, with the
-sample index offset by the samples already taken so that no stream
-repeats, and adds them. The kernel pass draws from the path that the kernel
-resolves by default: the fast one for a film on a CUDA card, the exact PCG
-streams elsewhere. The film resets whenever the camera changes.
+``config.samples_per_pixel`` fresh samples, with the sample index offset by
+the samples already taken so that no stream repeats, and adds them: through
+the wavefront ``trace_sample`` (backend "xla", the default, exact PCG
+streams) or through the fused kernel (backend "pallas"), whose pass draws
+from the path that the kernel resolves by default: the fast one for a film
+on a CUDA card, the exact PCG streams elsewhere. The film resets whenever
+the camera changes.
 
 Checkpoints are the JAX package's ``.npz`` (keys ``color_x``, ``color_y``,
 ``color_z``, ``depth``, ``n_samples``, ``rays_traced``, and ``width`` /
@@ -29,8 +31,9 @@ from ..core.types import (CameraState, RenderConfig, SceneBuffers,
                           resolve_device)
 from ..core.vec import Vec3
 from ..kernels.cuda.megakernel import KernelScene, render_tiles, unshuffle_blocks
-from .fused_renderer import FusedRenderer, camera_key, frame_result
-from .renderer import FrameResult
+from ..kernels.raygen import pixel_uv
+from .fused_renderer import FusedRenderer, camera_key
+from .renderer import FrameResult, frame_result, trace_sample
 
 _M32 = 0xFFFFFFFF
 
@@ -97,6 +100,32 @@ def resolve_impl(film: Film, cam: CameraState, config: RenderConfig,
                         raster_depth)
 
 
+def accumulate_impl(film: Film, scene: SceneBuffers, cam: CameraState,
+                    config: RenderConfig, frame_seed: int,
+                    sample_offset: int) -> Film:
+    """One pass of ``config.samples_per_pixel`` fresh samples of every pixel
+    through the wavefront :func:`.renderer.trace_sample`, sample indices
+    ``sample_offset + i`` (mod 2^32), folded into ``film`` one sample at a
+    time, as the JAX package's pass folds them (a new film; the old one is
+    not changed)."""
+    dev = film.depth_sum.device
+    n = config.n_pixels
+    u, v = pixel_uv(config.width, config.height, device=dev)
+    pixel_ids = torch.arange(n, device=dev)
+    color_sum, depth_sum = film.color_sum, film.depth_sum
+    segments = film.rays_traced
+    for i in range(config.samples_per_pixel):
+        color, depth, segs = trace_sample(scene, cam, config, pixel_ids, u, v,
+                                          (sample_offset + i) & _M32,
+                                          frame_seed)
+        color_sum = color_sum + color
+        depth_sum = depth_sum + depth
+        segments = segments + segs
+    return Film(color_sum=color_sum, depth_sum=depth_sum,
+                n_samples=film.n_samples + config.samples_per_pixel,
+                rays_traced=segments)
+
+
 def trace_pass(kscene: KernelScene, cam: CameraState, config: RenderConfig,
                frame_seed: int, sample_offset: int, sl=None, slmeta=None,
                spp_map=None):
@@ -127,12 +156,12 @@ def pallas_accumulate_impl(film: Film, kscene: KernelScene, cam: CameraState,
                 rays_traced=film.rays_traced + segs)
 
 
-def begin_pass(owner, scene: SceneBuffers, cam: CameraState):
-    """The set-up of one step of an accumulating renderer ``owner`` (one
-    with ``film``, ``reset()``, ``_renderer`` and ``_last_cam_key``): the
-    scene must lie on the film's device; any change of a camera value,
-    compared on the host from one copy, resets the film. Returns the prepared
-    scene and the shortlists ``(kscene, sl, slmeta)``."""
+def check_scene_and_camera(owner, scene: SceneBuffers,
+                           cam: CameraState) -> tuple:
+    """The first check of one step of an accumulating renderer ``owner``
+    (one with ``film``, ``reset()`` and ``_last_cam_key``): the scene must
+    lie on the film's device; any change of a camera value, compared on the
+    host from one copy, resets the film. Returns the camera's key."""
     dev = owner.film.depth_sum.device
     if scene.spheres.cx.device != dev:
         raise ValueError(f"the scene lies on {scene.spheres.cx.device} but "
@@ -141,6 +170,14 @@ def begin_pass(owner, scene: SceneBuffers, cam: CameraState):
     if key != owner._last_cam_key:
         owner.reset()
         owner._last_cam_key = key
+    return key
+
+
+def begin_pass(owner, scene: SceneBuffers, cam: CameraState):
+    """The set-up of one fused-kernel step of an accumulating renderer
+    ``owner`` (:func:`check_scene_and_camera`, and a ``_renderer``): returns
+    the prepared scene and the shortlists ``(kscene, sl, slmeta)``."""
+    key = check_scene_and_camera(owner, scene, cam)
     kscene = owner._renderer.prepare(scene)
     return (kscene, *owner._renderer.shortlists(kscene, cam, values=key))
 
@@ -151,23 +188,20 @@ class ProgressiveRenderer:
     host from one copy per step).
 
     ``backend="pallas"`` runs each pass through the fused CUDA kernel (its
-    plain PyTorch version on CPU tensors). The default stays the JAX
-    package's ``"xla"``, so the signature reads the same, but that backend
-    needs the wavefront ``trace_sample`` and raises until it is ported
-    (ROADMAP A7). ``device``: where the film lives (None: the CUDA card); the
-    scenes given to ``step`` must lie there too.
+    plain PyTorch version on CPU tensors); any other backend, the default
+    ``"xla"`` among them, as in the JAX package, through the wavefront
+    ``trace_sample`` (:func:`accumulate_impl`). ``device``: where the film
+    lives (None: the CUDA card); the scenes given to ``step`` must lie there
+    too.
     """
 
     def __init__(self, config: RenderConfig, backend: str = "xla", *,
                  device=None):
-        if backend != "pallas":
-            raise NotImplementedError(
-                f"backend={backend!r} needs the wavefront trace_sample, which "
-                "is not ported yet (ROADMAP A7); use backend=\"pallas\"")
         self.config = config
+        self.backend = backend
         self.device = resolve_device(device)
         self.film = new_film(config, self.device)
-        self._renderer = FusedRenderer(config)
+        self._renderer = FusedRenderer(config) if backend == "pallas" else None
         self._last_cam_key = None
         self._sample_offset = 0
 
@@ -178,10 +212,16 @@ class ProgressiveRenderer:
     def step(self, scene: SceneBuffers, cam: CameraState, seed: int,
              raster_color: Optional[Vec3] = None,
              raster_depth=None) -> FrameResult:
-        kscene, sl, slmeta = begin_pass(self, scene, cam)
-        self.film = pallas_accumulate_impl(self.film, kscene, cam,
-                                           self.config, seed,
-                                           self._sample_offset, sl, slmeta)
+        if self.backend != "pallas":
+            check_scene_and_camera(self, scene, cam)
+            self.film = accumulate_impl(self.film, scene, cam, self.config,
+                                        seed & _M32, self._sample_offset)
+        else:
+            kscene, sl, slmeta = begin_pass(self, scene, cam)
+            self.film = pallas_accumulate_impl(self.film, kscene, cam,
+                                               self.config, seed,
+                                               self._sample_offset, sl,
+                                               slmeta)
         self._sample_offset += self.config.samples_per_pixel
         return resolve_impl(self.film, cam, self.config, raster_color,
                             raster_depth)

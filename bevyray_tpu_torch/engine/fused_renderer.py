@@ -10,14 +10,13 @@ import torch
 
 from ..core.types import CameraState, RenderConfig, SceneBuffers
 from ..core.vec import Vec3
-from ..kernels.composite import composite
 from ..kernels.cuda.megakernel import (KernelScene, kernel_fuse,
                                        kernel_mode, kernel_scene_cache_key,
                                        morton_order, prepare_kernel_scene,
                                        render_tiles, resolve_exact_rng,
                                        unshuffle_blocks)
 from ..kernels.cuda.primary import device_shortlists_for
-from .renderer import FrameResult
+from .renderer import FrameResult, frame_result, passthrough_frame
 
 
 class FusedRenderer:
@@ -96,18 +95,12 @@ class FusedRenderer:
                raster_depth=None) -> FrameResult:
         config = self.config
         dev = scene.spheres.cx.device
-        h, w = config.height, config.width
         # As PallasRenderer: the tables and the split gate come first, so a
         # forced split at level 0 raises there too.
         kscene = self.prepare(scene)
         sl, slmeta = self.shortlists(kscene, cam)
-        if config.level == 0:   # Skip: raster passthrough, no tracing (wgsl:97-99)
-            if raster_color is None:
-                raster_color = Vec3.splat(1.0, device=dev)
-            return FrameResult(
-                image=_pixels(raster_color, h * w).reshape(h, w, 3),
-                rt_depth=torch.zeros((h, w), dtype=torch.float32, device=dev),
-                rays_traced=torch.zeros((), dtype=torch.int64, device=dev))
+        if config.level == 0:
+            return passthrough_frame(config, raster_color, dev)
         r, g, b, depth, segs = render_tiles(kscene, cam, config,
                                             seed & 0xFFFFFFFF,
                                             exact_rng=self.exact_rng, sl=sl,
@@ -118,25 +111,6 @@ class FusedRenderer:
         r, g, b, depth = (unshuffle_blocks(x, config) for x in (r, g, b, depth))
         return frame_result(config, cam, Vec3(r, g, b), depth, segs,
                             raster_color, raster_depth)
-
-
-def frame_result(config: RenderConfig, cam: CameraState, rt_color: Vec3,
-                 rt_depth: torch.Tensor, rays_traced: torch.Tensor,
-                 raster_color: Optional[Vec3] = None,
-                 raster_depth=None) -> FrameResult:
-    """The traced layer (row-major ``[N]`` color and depth) composited over
-    the raster layer at ``config.level``; the raster layer defaults to white
-    at reverse-Z depth 0."""
-    dev = rt_depth.device
-    h, w = config.height, config.width
-    if raster_color is None:
-        raster_color = Vec3.splat(1.0, device=dev)
-    if raster_depth is None:
-        raster_depth = torch.zeros((), dtype=torch.float32, device=dev)
-    out = composite(config.level, rt_color, rt_depth, cam.near.to(dev),
-                    cam.far.to(dev), raster_color, raster_depth)
-    return FrameResult(image=_pixels(out, h * w).reshape(h, w, 3),
-                       rt_depth=rt_depth.reshape(h, w), rays_traced=rays_traced)
 
 
 def _camera_leaves(cam: CameraState) -> tuple:
@@ -150,8 +124,3 @@ def camera_key(cam: CameraState) -> tuple:
     also saved in an adaptive checkpoint), from one host copy."""
     return tuple(torch.stack([torch.as_tensor(v, dtype=torch.float32)
                               for v in _camera_leaves(cam)]).cpu().tolist())
-
-
-def _pixels(color: Vec3, n: int) -> torch.Tensor:
-    """[n, 3] from a Vec3 whose components broadcast to [n]."""
-    return torch.stack([torch.broadcast_to(c, (n,)) for c in color], dim=-1)

@@ -1,17 +1,257 @@
-"""Frame results.
+"""The wavefront frame step and its front-end, ``Renderer``.
 
-Counterpart of the result record of ``bevyray_tpu/engine/renderer.py``. The
-wavefront ``Renderer`` of that module is not ported yet (ROADMAP §A item 7).
+Counterpart of ``bevyray_tpu/engine/renderer.py``, the JAX package's public
+default. The reference runs one fragment thread per pixel with a sample loop
+and a bounce loop of per-thread ``break``s (raytrace.wgsl:93-224); here the
+whole frame is one flat batch of rays, one per pixel, and each bounce is a
+handful of dense tensor operations over it: the chunked sphere test
+(:func:`..kernels.intersect.intersect_spheres`), the hit and material
+gathers, :func:`..kernels.shade.scatter` and the sky. The JAX package wrote
+this step in jnp rather than Pallas, so it runs on PyTorch's own operators
+on either device; the fused CUDA kernel is :class:`.fused_renderer.FusedRenderer`.
+
+Each bounce works on the rays still active only (a dead ray adds nothing,
+so that changes no value), and the bounce loop ends once no ray is active,
+as JAX's ``while_loop`` does, unless ``fixed_trip_count`` asks for every
+bounce.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
+
+from ..core import rng
+from ..core.constants import INF
+from ..core.types import CameraState, RenderConfig, SceneBuffers
+from ..core.vec import Vec3
+from ..kernels.composite import (background_gradient, composite,
+                                 linear_to_gamma)
+from ..kernels.intersect import (gather_materials, intersect_spheres,
+                                 intersect_triangles, make_hit_info,
+                                 merge_hits, triangle_hit_info)
+from ..kernels.raygen import generate_rays, pixel_uv
+from ..kernels.shade import scatter
+from . import slots
+
+_M32 = 0xFFFFFFFF
 
 
 class FrameResult(NamedTuple):
     image: torch.Tensor        # [H, W, 3] f32 — final composited, gamma-space
     rt_depth: torch.Tensor     # [H, W] f32 — sample-averaged first-hit distance
     rays_traced: torch.Tensor  # 0-d int64 — path segments traced this frame
+
+
+def frame_result(config: RenderConfig, cam: CameraState, rt_color: Vec3,
+                 rt_depth: torch.Tensor, rays_traced: torch.Tensor,
+                 raster_color: Optional[Vec3] = None,
+                 raster_depth=None) -> FrameResult:
+    """The traced layer (row-major ``[N]`` color and depth) composited over
+    the raster layer at ``config.level``; the raster layer defaults to white
+    at reverse-Z depth 0."""
+    dev = rt_depth.device
+    h, w = config.height, config.width
+    if raster_color is None:
+        raster_color = Vec3.splat(1.0, device=dev)
+    if raster_depth is None:
+        raster_depth = torch.zeros((), dtype=torch.float32, device=dev)
+    out = composite(config.level, rt_color, rt_depth, cam.near.to(dev),
+                    cam.far.to(dev), raster_color, raster_depth)
+    return FrameResult(image=_pixels(out, h * w).reshape(h, w, 3),
+                       rt_depth=rt_depth.reshape(h, w), rays_traced=rays_traced)
+
+
+def passthrough_frame(config: RenderConfig, raster_color: Optional[Vec3],
+                      device) -> FrameResult:
+    """Level 0 (Skip): the raster layer as it is, nothing traced
+    (wgsl:97-99)."""
+    h, w = config.height, config.width
+    if raster_color is None:
+        raster_color = Vec3.splat(1.0, device=device)
+    return FrameResult(
+        image=_pixels(raster_color, h * w).reshape(h, w, 3),
+        rt_depth=torch.zeros((h, w), dtype=torch.float32, device=device),
+        rays_traced=torch.zeros((), dtype=torch.int64, device=device))
+
+
+def _pixels(color: Vec3, n: int) -> torch.Tensor:
+    """[n, 3] from a Vec3 whose components broadcast to [n]."""
+    return torch.stack([torch.broadcast_to(c, (n,)) for c in color], dim=-1)
+
+
+def resolve_intersect_backend(scene: SceneBuffers,
+                              config: RenderConfig) -> str:
+    """The sphere test's backend, resolved once per frame. The port never
+    runs on a TPU, so "auto" takes the JAX package's off-TPU rule: the BVH
+    only for a scene that carries one and holds over 4096 primitives. The
+    BVH is not ported (ROADMAP A8) and no scene of the port carries one, so
+    "auto" resolves to "brute", and an explicit "bvh" raises."""
+    if config.intersect_backend == "bvh":
+        raise NotImplementedError(
+            "intersect_backend='bvh' needs the BVH, which is not ported yet "
+            "(ROADMAP A8); use 'auto' or 'brute'")
+    return "brute"
+
+
+def make_intersect_fn(scene: SceneBuffers, config: RenderConfig):
+    """``(origin, direction) -> (t, index)`` of the resolved backend: the
+    dense chunked test over the whole sphere table."""
+    resolve_intersect_backend(scene, config)
+    return lambda o, d: intersect_spheres(o, d, scene.spheres,
+                                          config.sphere_chunk)
+
+
+def _draw_ball(stream, base: int, first_slot: int) -> Vec3:
+    return rng.unit_ball_from_uniforms(
+        *(rng.draw(stream, base + first_slot + k)
+          for k in range(rng.BALL_DRAWS)))
+
+
+def _at(v: Vec3, lanes) -> Vec3:
+    return Vec3(v.x[lanes], v.y[lanes], v.z[lanes])
+
+
+def _put(dst: Vec3, lanes, src: Vec3) -> None:
+    for d, s in zip(dst, src):
+        d[lanes] = s
+
+
+def trace_sample(scene: SceneBuffers, cam: CameraState, config: RenderConfig,
+                 pixel_ids: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                 sample_index: int, frame_seed: int, intersect_fn=None,
+                 fixed_trip_count: bool = False):
+    """Trace one sample of every pixel in ``pixel_ids`` (row-major ids, with
+    their ``u``/``v``). Returns (gamma-space color: Vec3, depth: [N], the
+    segments traced: 0-d int64).
+
+    Twin of one iteration of ``trace_multisampled`` + ``raytrace``
+    (raytrace.wgsl:159-224): draws keyed by (pixel, ``sample_index``,
+    ``frame_seed``, slot) (:mod:`.slots`), miss depth ``far + 10`` at level 1
+    and ``far - 1`` otherwise, radiance from the sky and emissive hits
+    weighted by the throughput, gamma per sample.
+
+    ``intersect_fn``: ``(origin, direction) -> (t, index)`` in place of
+    :func:`make_intersect_fn`'s (the sphere-sharded step passes its own).
+    ``fixed_trip_count``: run every bounce even when no ray is active (the
+    JAX package needs it where the test holds collectives; it changes no
+    value).
+    """
+    if intersect_fn is None:
+        intersect_fn = make_intersect_fn(scene, config)
+    dev = u.device
+    n = pixel_ids.shape[0]
+    stream = rng.stream_init(pixel_ids, int(sample_index) & _M32,
+                             int(frame_seed) & _M32)
+    ju = rng.draw(stream, slots.JITTER_U)
+    jv = rng.draw(stream, slots.JITTER_V)
+    lu = lv = None
+    if config.defocus:
+        lu = rng.draw(stream, slots.LENS_U)
+        lv = rng.draw(stream, slots.LENS_V)
+    o, d = generate_rays(u, v, ju, jv, cam, config.height, lens_u=lu,
+                         lens_v=lv)
+    o = Vec3(*(c.contiguous() for c in o))
+    fallback_far = cam.far + 10.0 if config.level == 1 else cam.far - 1.0
+
+    ray_color = Vec3.full((n,), 1.0, 1.0, 1.0, device=dev)
+    radiance = Vec3.full((n,), 0.0, 0.0, 0.0, device=dev)
+    first_depth = torch.full((n,), INF, dtype=torch.float32, device=dev)
+    active = torch.ones(n, dtype=torch.bool, device=dev)
+    segments = torch.zeros((), dtype=torch.int64, device=dev)
+    for bounce in range(config.bounces + 1):          # wgsl:189
+        lanes = active.nonzero()[:, 0]
+        if lanes.numel() == 0 and not fixed_trip_count:
+            break
+        segments = segments + lanes.numel()
+        lo, ld, lc = _at(o, lanes), _at(d, lanes), _at(ray_color, lanes)
+        t, idx = intersect_fn(lo, ld)
+        hit = make_hit_info(lo, ld, t, idx, scene.spheres)
+        if scene.triangles is not None:
+            tt, ti = intersect_triangles(lo, ld, scene.triangles)
+            hit = merge_hits(hit, triangle_hit_info(lo, ld, tt, ti,
+                                                    scene.triangles))
+        if bounce == 0:                               # wgsl:193-195
+            first_depth = hit.t
+        # A miss picks up the sky and ends the path (wgsl:198-201); a hit
+        # adds its emission (an extension: 0 in the reference's scenes).
+        sky = lc * background_gradient(ld)
+        mat = gather_materials(scene.materials, hit.material_id)
+        glow = lc * mat.emissive
+        lr = _at(radiance, lanes)
+        _put(radiance, lanes, Vec3.where(hit.miss, lr + sky, lr + glow))
+        base = slots.bounce_base(bounce)
+        ls = stream[lanes]
+        sc = scatter(ld, hit, mat, rng.draw(ls, base + slots.S_METAL),
+                     rng.draw(ls, base + slots.S_TRANS),
+                     rng.draw(ls, base + slots.S_REFLECT),
+                     _draw_ball(ls, base, slots.S_BALL1),
+                     _draw_ball(ls, base, slots.S_BALL2),
+                     diffuse_mode=config.diffuse_sampling)   # wgsl:203-211
+        cont = ~hit.miss & ~sc.absorbed
+        _put(ray_color, lanes, Vec3.where(cont, lc * sc.attenuation, lc))
+        _put(o, lanes, Vec3.where(hit.miss, lo, hit.position))
+        _put(d, lanes, Vec3.where(hit.miss, ld, sc.direction))
+        active[lanes] = cont
+    # Paths that ran out of bounces or were absorbed keep only the light
+    # they gathered (wgsl:215-217). Gamma is per sample, before the average
+    # (wgsl:165, 223).
+    depth = torch.where(first_depth >= INF, fallback_far, first_depth)
+    return linear_to_gamma(radiance), depth, segments
+
+
+def render_impl(scene: SceneBuffers, cam: CameraState, config: RenderConfig,
+                frame_seed: int, raster_color: Optional[Vec3] = None,
+                raster_depth=None) -> FrameResult:
+    """One frame: ``config.samples_per_pixel`` samples of every pixel,
+    averaged, composited over the raster layer at ``config.level`` (level 0
+    passes the raster layer through and traces nothing)."""
+    dev = scene.spheres.cx.device
+    if config.level == 0:
+        return passthrough_frame(config, raster_color, dev)
+    n = config.n_pixels
+    u, v = pixel_uv(config.width, config.height, device=dev)
+    pixel_ids = torch.arange(n, device=dev)
+    color_sum = Vec3.full((n,), 0.0, 0.0, 0.0, device=dev)
+    depth_sum = torch.zeros(n, dtype=torch.float32, device=dev)
+    segments = torch.zeros((), dtype=torch.int64, device=dev)
+    intersect_fn = make_intersect_fn(scene, config)
+    for i in range(config.samples_per_pixel):
+        color, depth, segs = trace_sample(scene, cam, config, pixel_ids, u, v,
+                                          i, frame_seed, intersect_fn)
+        color_sum = color_sum + color
+        depth_sum = depth_sum + depth
+        segments = segments + segs
+    inv_spp = float(np.float32(1.0 / config.samples_per_pixel))
+    return frame_result(config, cam, color_sum.scale(inv_spp),   # wgsl:169
+                        depth_sum * inv_spp, segments, raster_color,
+                        raster_depth)
+
+
+class Renderer:
+    """The wavefront front-end. Usage::
+
+        world = rtiow.final_scene()
+        r = Renderer(RenderConfig(width=1280, height=720, samples_per_pixel=16))
+        frame = r.render(world.extract(), world.camera_state(aspect=16/9),
+                         seed=1)
+
+    Runs where the scene lies (torch operators on either device); the draws
+    are the exact PCG streams, the only ones this path has.
+    """
+
+    def __init__(self, config: RenderConfig):
+        self.config = config
+
+    def render(self, scene: SceneBuffers, cam: CameraState, seed: int,
+               raster_color: Optional[Vec3] = None,
+               raster_depth=None) -> FrameResult:
+        """Render one frame. ``seed`` plays the role of the reference's
+        per-frame ``thread_rng`` seed (extract.rs:72-73), explicit and
+        reproducible. ``raster_color``/``raster_depth`` supply the raster
+        layer of the hybrid levels; they default to the reference app's
+        white clear color (main.rs:60) at reverse-Z depth 0."""
+        return render_impl(scene, cam, self.config, seed & _M32,
+                           raster_color, raster_depth)

@@ -39,6 +39,7 @@ void render_tiles(const torch::Tensor& cam, const torch::Tensor& sph,
                   const torch::Tensor& spp_map,
                   torch::Tensor out_r, torch::Tensor out_g, torch::Tensor out_b,
                   torch::Tensor out_depth, torch::Tensor segments, int64_t nbx,
+                  int64_t block_offset,
                   int64_t width, int64_t height, int64_t spp, int64_t bounces,
                   int64_t seed, int64_t sample_offset, double inv_spp,
                   int64_t level, bool defocus,
@@ -63,8 +64,11 @@ void render_tiles(const torch::Tensor& cam, const torch::Tensor& sph,
   const int64_t n_lanes = out_r.numel();
   const int64_t n_tiles = n_lanes / kTile;
   TORCH_CHECK(n_lanes > 0 && n_lanes % kTile == 0, "outputs must cover whole 64x64 blocks");
-  TORCH_CHECK(n_tiles == nbx * ((height + 63) / 64) && nbx == (width + 63) / 64,
-              "outputs must cover the frame's block grid");
+  // A launch renders n_tiles blocks from global block block_offset: the whole
+  // grid, or one shard's range of a grid padded to a multiple of the shards.
+  TORCH_CHECK(nbx == (width + 63) / 64, "nbx must be the frame's blocks per row");
+  TORCH_CHECK(block_offset >= 0 && block_offset + n_tiles < (int64_t{1} << 31),
+              "block_offset must be >= 0 and the blocks' indices must fit in int32");
   for (const auto* out : {&out_r, &out_g, &out_b, &out_depth}) {
     check_f32(*out, sph, "outputs");
     TORCH_CHECK(out->numel() == n_lanes, "outputs must have equal sizes");
@@ -124,6 +128,7 @@ void render_tiles(const torch::Tensor& cam, const torch::Tensor& sph,
   args.tri_stride = static_cast<int>(tri.size(1));
   args.n_tris_live = static_cast<int>(n_tris);
   args.n_tiles = static_cast<int>(n_tiles);
+  args.block_offset = static_cast<int>(block_offset);
   args.nbx = static_cast<int>(nbx);
   args.width = static_cast<int>(width);
   args.height = static_cast<int>(height);

@@ -25,8 +25,9 @@ struct RenderArgs {
   int gaabb_stride;
   int tri_stride;       // triangle rows of the table (padded)
   int n_tris_live;      // rows the walks test: the last valid one + 1 (0: none)
-  int n_tiles;          // 64x64 pixel blocks of the frame (outputs hold n_tiles * 4096)
-  int nbx;
+  int n_tiles;          // 64x64 pixel blocks this launch renders (outputs hold n_tiles * 4096)
+  int block_offset;     // global index of the first of them (a shard's offset)
+  int nbx;              // blocks per row of the frame's grid
   int width;
   int height;
   int spp;

@@ -18,8 +18,9 @@ after the sphere walk of every segment, in every mode (the TPU kernel's
 smaller t, so a sphere wins an exact tie and the lowest triangle index wins
 among triangles. Accumulating passes (:mod:`...engine.film`,
 :mod:`...engine.adaptive`) give it a sample offset and per-lane sample
-targets. It runs the JAX kernel's four sphere-walk
-modes, (primary, intersect):
+targets, and a sharded frame a range of pixel blocks
+(``block_offset`` / ``n_blocks_local``, the JAX kernel's shard offsets). It
+runs the JAX kernel's four sphere-walk modes, (primary, intersect):
 
 - primary ``"off"``: every bounce takes the full walk; ``"split"`` (``sl``
   and ``slmeta`` given): bounce 0 walks the pixel block's host-built
@@ -410,10 +411,21 @@ def resolve_exact_rng(exact_rng, device) -> bool:
     return bool(exact_rng)
 
 
-def kernel_fuse(pscene: KernelScene, config: RenderConfig, sl) -> int:
-    """The block fusion that :func:`render_tiles` runs for these inputs."""
-    nbx, nby = block_grid(config)
-    return resolve_fuse(nbx * nby, config.samples_per_pixel, sl is not None,
+def local_blocks(config: RenderConfig, n_blocks_local=None) -> int:
+    """The pixel blocks one launch renders: ``n_blocks_local``, or the whole
+    block grid when it is None."""
+    if n_blocks_local is None:
+        nbx, nby = block_grid(config)
+        return nbx * nby
+    return n_blocks_local
+
+
+def kernel_fuse(pscene: KernelScene, config: RenderConfig, sl,
+                n_blocks_local=None) -> int:
+    """The block fusion that :func:`render_tiles` runs for these inputs,
+    sized by the launch's local block count as the JAX kernel sizes it."""
+    return resolve_fuse(local_blocks(config, n_blocks_local),
+                        config.samples_per_pixel, sl is not None,
                         pscene.sph.shape[1], st_planes(pscene.has_emissive))
 
 
@@ -426,26 +438,31 @@ def kernel_mode(pscene: KernelScene, config: RenderConfig, sl) -> tuple:
             "candidates" if candidates else "grouped")
 
 
-def _check_slice(block_offset, n_blocks_local):
-    """Raise for the inputs whose kernel branch is not ported yet."""
-    if bool(block_offset) or n_blocks_local is not None:
-        raise NotImplementedError(
-            "shard offsets (block_offset/n_blocks_local) are not ported to "
-            "the CUDA kernel yet (ROADMAP A10)")
+def _is_int(v) -> bool:
+    return isinstance(v, numbers.Integral) and not isinstance(v, bool)
 
 
-def _check_accumulation(pscene: KernelScene, config: RenderConfig,
-                        sample_offset, spp_map):
+def _check_blocks(block_offset, n_blocks_local):
+    """Type and range of a shard's block range."""
+    if not _is_int(block_offset) or block_offset < 0:
+        raise ValueError(f"block_offset={block_offset!r} must be an int >= 0")
+    if n_blocks_local is not None and (not _is_int(n_blocks_local)
+                                       or n_blocks_local < 1):
+        raise ValueError(f"n_blocks_local={n_blocks_local!r} must be None or "
+                         "an int >= 1")
+    if block_offset + (n_blocks_local or 0) >= 1 << 31:
+        raise ValueError("the blocks' global indices must fit in int32")
+
+
+def _check_accumulation(pscene: KernelScene, sample_offset, spp_map,
+                        n_tiles: int):
     """Type, range, shape and device of an accumulating pass's inputs."""
-    if (not isinstance(sample_offset, numbers.Integral)
-            or isinstance(sample_offset, bool)
-            or not 0 <= sample_offset <= _M32):
+    if not _is_int(sample_offset) or not 0 <= sample_offset <= _M32:
         raise ValueError(f"sample_offset={sample_offset!r} must be an int in "
                          "[0, 2^32)")
     if spp_map is None:
         return
-    nbx, nby = block_grid(config)
-    shape = (nbx * nby, TILE // 128, 128)
+    shape = (n_tiles, TILE // 128, 128)
     if (not isinstance(spp_map, torch.Tensor) or spp_map.dtype != torch.int32
             or spp_map.device != pscene.sph.device
             or tuple(spp_map.shape) != shape):
@@ -454,8 +471,10 @@ def _check_accumulation(pscene: KernelScene, config: RenderConfig,
             f"{shape} (shuffle_blocks' block order)")
 
 
-def _check_shortlists(pscene: KernelScene, config: RenderConfig, sl, slmeta):
-    """Shapes, type and device of the phase-split inputs (:mod:`.primary`)."""
+def _check_shortlists(pscene: KernelScene, config: RenderConfig, sl, slmeta,
+                      n_tiles: int):
+    """Shapes, type and device of the phase-split inputs (:mod:`.primary`):
+    one row per block of the launch."""
     from .primary import N_SL_ROWS, SL_CHUNK, SL_MAX
 
     if (sl is None) != (slmeta is None):
@@ -465,14 +484,13 @@ def _check_shortlists(pscene: KernelScene, config: RenderConfig, sl, slmeta):
     if config.samples_per_pixel > MAX_SPLIT_SPP:
         raise ValueError(f"the phase split takes at most {MAX_SPLIT_SPP} "
                          "samples per pixel")
-    nbx, nby = block_grid(config)
     k = sl.shape[-1]
-    if (sl.shape != (nbx * nby, N_SL_ROWS, k) or k % SL_CHUNK
+    if (sl.shape != (n_tiles, N_SL_ROWS, k) or k % SL_CHUNK
             or not SL_CHUNK <= k <= SL_MAX
-            or slmeta.shape != (nbx * nby, 1 + k // SL_CHUNK)):
+            or slmeta.shape != (n_tiles, 1 + k // SL_CHUNK)):
         raise ValueError(
             f"shortlists {tuple(sl.shape)} / {tuple(slmeta.shape)} must be "
-            f"({nbx * nby}, {N_SL_ROWS}, K) / ({nbx * nby}, 1 + K/{SL_CHUNK}) "
+            f"({n_tiles}, {N_SL_ROWS}, K) / ({n_tiles}, 1 + K/{SL_CHUNK}) "
             f"with K a multiple of {SL_CHUNK} up to {SL_MAX}")
     for t in (sl, slmeta):
         if t.dtype != torch.float32 or t.device != pscene.sph.device:
@@ -484,10 +502,19 @@ def render_tiles(pscene: KernelScene, cam: CameraState, config: RenderConfig,
                  frame_seed, exact_rng=None, block_offset=0,
                  sample_offset=0, n_blocks_local=None, normalize: bool = True,
                  sl=None, slmeta=None, spp_map=None):
-    """Trace the frame. Returns (r, g, b, depth) as flat block-ordered float32
-    tensors of nbx*nby*TILE lanes (pass through :func:`unshuffle_blocks`) and
-    the traced-segment count as a 0-d int64 tensor; ``normalize=False`` gives
-    sample sums instead of per-spp means.
+    """Trace the frame, or one shard of it. Returns (r, g, b, depth) as flat
+    block-ordered float32 tensors of n_tiles*TILE lanes (pass the whole
+    grid's through :func:`unshuffle_blocks`) and the traced-segment count as
+    a 0-d int64 tensor; ``normalize=False`` gives sample sums instead of
+    per-spp means.
+
+    ``block_offset`` / ``n_blocks_local``: the launch renders the
+    ``n_tiles = n_blocks_local`` pixel blocks from global block
+    ``block_offset`` of the row-major block grid (None: the whole grid,
+    nbx*nby blocks), as one shard of a sharded frame does
+    (:mod:`...parallel.sharding`); the grid may be padded past its last row,
+    and those blocks trace nothing. The shortlists, the sample map and the
+    outputs then hold one row per local block.
 
     ``sl``/``slmeta``: per-block primary shortlists
     (:func:`.primary.device_shortlists_for`); given, bounce 0 runs the phase
@@ -497,7 +524,7 @@ def render_tiles(pscene: KernelScene, cam: CameraState, config: RenderConfig,
     ``sample_offset``: an int in [0, 2^32) added (mod 2^32) to every sample
     index that keys the draws, so a later pass of an accumulating film
     draws fresh samples. ``spp_map``: per-lane sample targets, int32 in the
-    kernel's block order, ``(nbx*nby, TILE // 128, 128)`` as
+    kernel's block order, ``(n_tiles, TILE // 128, 128)`` as
     :func:`shuffle_blocks` gives them; each pixel traces min(map, spp)
     samples, so pass ``normalize=False`` and divide by the counts outside.
 
@@ -513,24 +540,27 @@ def render_tiles(pscene: KernelScene, cam: CameraState, config: RenderConfig,
     """
     dev = pscene.sph.device
     exact_rng = resolve_exact_rng(exact_rng, dev)
-    _check_slice(block_offset, n_blocks_local)
-    _check_shortlists(pscene, config, sl, slmeta)
-    _check_accumulation(pscene, config, sample_offset, spp_map)
+    _check_blocks(block_offset, n_blocks_local)
+    n_tiles = local_blocks(config, n_blocks_local)
+    _check_shortlists(pscene, config, sl, slmeta, n_tiles)
+    _check_accumulation(pscene, sample_offset, spp_map, n_tiles)
     if dev.type == "cpu":
         return render_tiles_reference(pscene, cam, config, frame_seed,
                                       normalize=normalize, sl=sl,
                                       slmeta=slmeta,
                                       sample_offset=sample_offset,
-                                      spp_map=spp_map, exact_rng=exact_rng)
+                                      spp_map=spp_map, exact_rng=exact_rng,
+                                      block_offset=block_offset,
+                                      n_blocks_local=n_blocks_local)
     if dev.type != "cuda":
         raise ValueError(f"render_tiles takes CPU or CUDA tensors, not {dev}")
     from .build import extension
 
     ext = extension()
     mode = kernel_mode(pscene, config, sl)
-    fuse = kernel_fuse(pscene, config, sl)
-    nbx, nby = block_grid(config)
-    n_lanes = nbx * nby * TILE
+    fuse = kernel_fuse(pscene, config, sl, n_blocks_local)
+    nbx, _ = block_grid(config)
+    n_lanes = n_tiles * TILE
     cam_row = pack_camera(cam, config).to(dev)
     outs = [torch.empty(n_lanes, dtype=torch.float32, device=dev)
             for _ in range(4)]
@@ -543,7 +573,7 @@ def render_tiles(pscene: KernelScene, cam: CameraState, config: RenderConfig,
                      pscene.tri, pscene.n_tris, sl.contiguous(),
                      slmeta.contiguous(),
                      spp_map.contiguous(), *outs, segs,
-                     nbx, config.width, config.height,
+                     nbx, block_offset, config.width, config.height,
                      config.samples_per_pixel, config.bounces,
                      int(frame_seed) & _M32, int(sample_offset),
                      _inv_spp(config, normalize),
@@ -803,7 +833,8 @@ def render_tiles_reference(pscene: KernelScene, cam: CameraState,
                            config: RenderConfig, frame_seed,
                            normalize: bool = True, sl=None, slmeta=None,
                            work: dict | None = None, sample_offset: int = 0,
-                           spp_map=None, exact_rng=None):
+                           spp_map=None, exact_rng=None, block_offset=0,
+                           n_blocks_local=None):
     """The plain PyTorch version of the kernel, on any device, in the
     dtype of the scene tables (float32 as prepared; a float64 copy replays
     the frame on the same inputs in float64, on the exact path). The draw
@@ -826,7 +857,9 @@ def render_tiles_reference(pscene: KernelScene, cam: CameraState,
     a triangle, at any bounce and at bounce 0.
     Under ``spp_map`` every sample runs over all lanes, masked to the lanes
     whose target it is below, so ``work`` and the segments count only the
-    samples traced.
+    samples traced. With ``block_offset`` / ``n_blocks_local`` the lanes are
+    those of the launch's local blocks: the local block indexes the outputs,
+    the shortlists and the map, the global block gives the pixel.
     """
     render_tiles_reference.calls += 1
     dev = pscene.sph.device
@@ -837,11 +870,13 @@ def render_tiles_reference(pscene: KernelScene, cam: CameraState,
         work.setdefault(key, 0)
     candidates = kernel_mode(pscene, config, sl)[1] == "candidates"
     cam_row = pack_camera(cam, config).to(dev, pscene.sph.dtype)
-    nbx, nby = block_grid(config)
-    lane = torch.arange(nbx * nby * TILE, device=dev)
+    nbx, _ = block_grid(config)
+    lane = torch.arange(local_blocks(config, n_blocks_local) * TILE,
+                        device=dev)
     blk, r = lane // TILE, lane % TILE
-    px = (blk % nbx) * BLOCK_W + r % BLOCK_W
-    py = (blk // nbx) * BLOCK_H + r // BLOCK_W
+    block = block_offset + blk
+    px = (block % nbx) * BLOCK_W + r % BLOCK_W
+    py = (block // nbx) * BLOCK_H + r // BLOCK_W
     in_image = (px < config.width) & (py < config.height)
     pixel = py * config.width + px        # row-major id keys the streams
     u = (px.to(cam_row.dtype) + 0.5) / cam_row[C_WIDTH]

@@ -60,8 +60,10 @@ def live_sphere_count(sph: np.ndarray) -> int:
     return int(live_mask(sph).sum())
 
 
-def shortlists_for(sph: np.ndarray, cam, config, local_spp: int):
-    """The gate and the build of the phase-split shortlists.
+def shortlists_for(sph: np.ndarray, cam, config, local_spp: int,
+                   block_lo: int = 0, n_blocks: int | None = None):
+    """The gate and the build of the phase-split shortlists, for the
+    ``n_blocks`` blocks from ``block_lo`` (:func:`build_block_shortlists`).
 
     Returns NumPy ``(sl, meta)`` when the split should run and
     ``(None, None)`` when it should not, and raises when
@@ -77,18 +79,21 @@ def shortlists_for(sph: np.ndarray, cam, config, local_spp: int):
                 f"per-device samples_per_pixel (here {local_spp}) of at most "
                 f"{MAX_SPLIT_SPP}")
         return None, None
-    sl, meta = build_block_shortlists(sph, cam, config)
+    sl, meta = build_block_shortlists(sph, cam, config, block_lo=block_lo,
+                                      n_blocks=n_blocks)
     if (config.pallas_primary == "auto"
             and not split_worthwhile(sl, meta, sph, local_spp)):
         return None, None
     return sl, meta
 
 
-def device_shortlists_for(kscene, cam, config, spp: int):
+def device_shortlists_for(kscene, cam, config, spp: int, block_lo: int = 0,
+                          n_blocks: int | None = None):
     """:func:`shortlists_for` on a prepared ``KernelScene``: ``(sl, slmeta)``
     as float32 tensors on the scene's device, or ``(None, None)`` where the
     gate declined."""
-    sl, meta = shortlists_for(kscene.sph.cpu().numpy(), cam, config, spp)
+    sl, meta = shortlists_for(kscene.sph.cpu().numpy(), cam, config, spp,
+                              block_lo=block_lo, n_blocks=n_blocks)
     if sl is None:
         return None, None
     dev = kscene.sph.device
@@ -112,8 +117,13 @@ def split_worthwhile(sl: np.ndarray, meta: np.ndarray, sph: np.ndarray,
     return mean_count * 2.0 <= live_sphere_count(sph)
 
 
-def build_block_shortlists(sph: np.ndarray, cam, config):
-    """Per-block primary shortlists, for every block of the frame's grid.
+def build_block_shortlists(sph: np.ndarray, cam, config, block_lo: int = 0,
+                           n_blocks: int | None = None):
+    """Per-block primary shortlists for the ``n_blocks`` blocks from
+    ``block_lo`` of the row-major block grid (None: to the grid's end).
+    Block ids past the grid's last block are allowed: a sharded frame pads
+    the grid to a multiple of its shards, and such a block's frustum lies
+    below the image (the kernel traces none of its lanes).
 
     ``sph``: the kernel sphere table, (4, S) float32 rows cx, cy, cz, r²
     (trailing sphere-0 duplicates are dropped: a duplicate ties sphere 0 and
@@ -156,7 +166,8 @@ def build_block_shortlists(sph: np.ndarray, cam, config):
         r_eff = r + lens_r * t_par
 
     nbx, nby = block_grid(config)
-    n_blocks = nbx * nby
+    if n_blocks is None:
+        n_blocks = nbx * nby - block_lo
 
     w_px = h * aspect                            # raygen jitter denominators
     jx, jy = 0.5 / w_px, 0.5 / h
@@ -170,7 +181,7 @@ def build_block_shortlists(sph: np.ndarray, cam, config):
     t_lo = np.maximum(dist - r - lens_r - fp_eps, 0.0)
     order_key = np.where(live, t_lo, np.inf)
 
-    b_ids = np.arange(n_blocks)
+    b_ids = block_lo + np.arange(n_blocks)
     bx, by = b_ids % nbx, b_ids // nbx
     x0, y0 = bx * BLOCK_W, by * BLOCK_H
     nx_lo = (2.0 * (x0 + 0.5) / w - 1.0) - jx              # (B,)

@@ -1,10 +1,17 @@
-"""Per-lane hit and material records, and the dense triangle test.
+"""Ray-sphere and ray-triangle tests over ray batches, and the per-lane hit
+and material records built from their winners.
 
-Counterpart of ``bevyray_tpu/kernels/intersect.py``. ``intersect_triangles``
-serves the raster layer (:mod:`..engine.raster`) and the fused kernel's plain
-version (:mod:`.cuda.megakernel`), whose CUDA kernel has its own per-thread
-copy. The wavefront sphere test, ``triangle_hit_info`` and ``merge_hits``
-come with the wavefront renderer (ROADMAP §A item 7).
+Counterpart of ``bevyray_tpu/kernels/intersect.py``, with the reference's
+acceptance rules (raytrace.wgsl:348-383): the near root only, ``disc >= 0 &&
+t > 0.001 && t < closest``, normals always outward, ``front_face =
+dot(dir, normal) < 0``. The wavefront renderer (:mod:`..engine.renderer`)
+runs these per bounce; ``intersect_triangles`` also serves the raster layer
+(:mod:`..engine.raster`) and the fused kernel's plain version
+(:mod:`.cuda.megakernel`), whose CUDA kernel has its own per-thread copies.
+
+The tests are dense [rays x table chunk] blocks, as in the JAX package. Rays
+go in steps that bound the temporaries (:func:`dense_rows`); each ray's
+result depends on its own row only, so the step changes no value.
 """
 
 from __future__ import annotations
@@ -14,12 +21,23 @@ from typing import NamedTuple
 import torch
 
 from ..core.constants import INF, T_MIN
+from ..core.types import Materials, Spheres
 from ..core.vec import Vec3
 
 # Lanes per step times table columns of a dense [lanes x columns] test (here
 # and in the fused kernel's plain version): its temporaries stay near 16 MB
-# each whatever the frame size.
+# each whatever the frame size. On a CUDA card the wavefront tests take
+# steps 16 times as large (256 MB temporaries, a few GB live at most), so
+# that a 1080p bounce launches tens of steps, not hundreds.
 DENSE_ELEMS = 1 << 22
+DENSE_ELEMS_CUDA = 1 << 26
+
+
+def dense_rows(n_cols: int, device) -> int:
+    """Rays per step of a dense test against ``n_cols`` table columns."""
+    elems = (DENSE_ELEMS_CUDA if torch.device(device).type == "cuda"
+             else DENSE_ELEMS)
+    return max(1, elems // max(n_cols, 1))
 
 
 class HitInfo(NamedTuple):
@@ -94,7 +112,7 @@ def intersect_triangles(origin: Vec3, direction: Vec3, tris,
     best_t = torch.full((n,), INF, dtype=origin.x.dtype,
                         device=origin.x.device)
     best_i = torch.full((n,), -1, dtype=torch.int64, device=origin.x.device)
-    step = max(1, DENSE_ELEMS // chunk)
+    step = dense_rows(chunk, origin.x.device)
     for base in range(0, cap, chunk):
         rows = [c[base:base + chunk] for c in cols]
         for lo in range(0, n, step):
@@ -106,3 +124,124 @@ def intersect_triangles(origin: Vec3, direction: Vec3, tris,
             best_i[span] = torch.where(take, base + ci, best_i[span])
             best_t[span] = torch.where(take, ct, best_t[span])
     return best_t, best_i
+
+
+def intersect_spheres(origin: Vec3, direction: Vec3, spheres: Spheres,
+                      chunk: int = 512):
+    """Nearest hit of each ray over the whole (padded) sphere table as
+    ``(t, index)``, INF / -1 on a miss (``hit_sphere`` +
+    ``raycast_against_range``, wgsl:348-383).
+
+    The table goes in chunks of ``chunk`` spheres (one chunk when the
+    capacity is not a multiple of it), as in the JAX package: ``t = (h -
+    sqrt(max(disc, 0))) * (1 / a)`` with ``a = d.d`` (directions need not be
+    unit), accepted where ``disc >= 0``, ``t > T_MIN`` and the lane is valid;
+    within a chunk the lowest lane among equal minima wins, and a later
+    chunk replaces the best only with a strictly smaller t, so the lowest
+    index wins every tie.
+    """
+    n = origin.x.shape[0]
+    dev = origin.x.device
+    cap = spheres.capacity
+    if cap % chunk:
+        chunk = cap
+    a = direction.dot(direction)
+    inv_a = 1.0 / a
+    best_t = torch.full((n,), INF, dtype=torch.float32, device=dev)
+    best_i = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    lane = torch.arange(chunk, device=dev)
+    step = dense_rows(chunk, dev)
+    for base in range(0, cap, chunk):
+        ccx, ccy, ccz, cr, cvalid = (c[base:base + chunk] for c in (
+            spheres.cx, spheres.cy, spheres.cz, spheres.radius, spheres.valid))
+        r2 = (cr * cr)[None, :]
+        for lo in range(0, n, step):
+            span = slice(lo, lo + step)
+            ocx = ccx[None, :] - origin.x[span, None]
+            ocy = ccy[None, :] - origin.y[span, None]
+            ocz = ccz[None, :] - origin.z[span, None]
+            h = (direction.x[span, None] * ocx + direction.y[span, None] * ocy
+                 + direction.z[span, None] * ocz)                 # wgsl:374
+            c = ocx * ocx + ocy * ocy + ocz * ocz - r2             # wgsl:375
+            del ocx, ocy, ocz
+            disc = h * h - a[span, None] * c                       # wgsl:376
+            del c
+            t = (h - torch.sqrt(torch.clamp(disc, min=0.0))) * inv_a[span, None]
+            del h
+            ok = (disc >= 0.0) & (t > T_MIN) & cvalid[None, :]     # wgsl:353
+            del disc
+            t = torch.where(ok, t, INF)
+            del ok
+            ct = t.amin(dim=1)
+            ci = torch.where(t == ct[:, None], lane, chunk).amin(dim=1)
+            del t
+            take = ct < best_t[span]                               # wgsl:354
+            best_i[span] = torch.where(take, base + ci, best_i[span])
+            best_t[span] = torch.where(take, ct, best_t[span])
+    return best_t, best_i
+
+
+def make_hit_info(origin: Vec3, direction: Vec3, t: torch.Tensor,
+                  index: torch.Tensor, spheres: Spheres) -> HitInfo:
+    """Hit attributes of the winning sphere (raycast_against_range body,
+    wgsl:355-358). Missed lanes get a well-defined placeholder (position at
+    the origin, normal +y), masked by the caller."""
+    miss = t >= INF
+    safe_t = torch.where(miss, 0.0, t)
+    idx = torch.clamp(index, 0, spheres.capacity - 1)
+    center = Vec3(spheres.cx[idx], spheres.cy[idx], spheres.cz[idx])
+    position = origin + direction.scale(safe_t)            # ray_at, wgsl:130
+    normal = (position - center).normalize()               # outward, wgsl:356
+    normal = Vec3.where(miss, _up(t), normal)
+    return HitInfo(t=t, miss=miss, position=position, normal=normal,
+                   material_id=spheres.material_id[idx],
+                   front_face=direction.dot(normal) < 0.0)   # wgsl:358
+
+
+def triangle_hit_info(origin: Vec3, direction: Vec3, t: torch.Tensor,
+                      index: torch.Tensor, tris) -> HitInfo:
+    """Hit attributes of triangle hits: the geometric normal, normalized
+    (b - a) x (c - a), not flipped toward the ray (as the sphere normal is
+    always outward); ``front_face`` from the ray-normal sign."""
+    miss = t >= INF
+    safe_t = torch.where(miss, 0.0, t)
+    idx = torch.clamp(index, 0, tris.capacity - 1)
+    a = Vec3(tris.ax[idx], tris.ay[idx], tris.az[idx])
+    b = Vec3(tris.bx[idx], tris.by[idx], tris.bz[idx])
+    c = Vec3(tris.cx[idx], tris.cy[idx], tris.cz[idx])
+    normal = (b - a).cross(c - a).normalize()
+    normal = Vec3.where(miss, _up(t), normal)
+    position = origin + direction.scale(safe_t)
+    return HitInfo(t=t, miss=miss, position=position, normal=normal,
+                   material_id=tris.material_id[idx],
+                   front_face=direction.dot(normal) < 0.0)
+
+
+def merge_hits(a: HitInfo, b: HitInfo) -> HitInfo:
+    """The nearer of two hit sets (sphere and triangle passes): ``b`` wins
+    only with a strictly smaller t, so ``a`` wins a tie."""
+    b_wins = b.t < a.t
+    return HitInfo(
+        t=torch.where(b_wins, b.t, a.t), miss=a.miss & b.miss,
+        position=Vec3.where(b_wins, b.position, a.position),
+        normal=Vec3.where(b_wins, b.normal, a.normal),
+        material_id=torch.where(b_wins, b.material_id, a.material_id),
+        front_face=torch.where(b_wins, b.front_face, a.front_face))
+
+
+def gather_materials(materials: Materials,
+                     material_id: torch.Tensor) -> MaterialLanes:
+    """Each lane's material attributes, by its (clamped) material id."""
+    idx = torch.clamp(material_id, 0, materials.capacity - 1)
+    return MaterialLanes(
+        base_color=Vec3(materials.base_r[idx], materials.base_g[idx],
+                        materials.base_b[idx]),
+        metallic=materials.metallic[idx], roughness=materials.roughness[idx],
+        ior=materials.ior[idx],
+        specular_transmission=materials.specular_transmission[idx],
+        emissive=Vec3(materials.emissive_r[idx], materials.emissive_g[idx],
+                      materials.emissive_b[idx]))
+
+
+def _up(like: torch.Tensor) -> Vec3:
+    return Vec3.full((), 0.0, 1.0, 0.0, device=like.device)

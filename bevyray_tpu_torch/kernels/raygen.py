@@ -16,6 +16,14 @@ from ..core.types import CameraState
 from ..core.vec import Vec3
 
 
+def _f32(value, device) -> torch.Tensor:
+    """``value`` as a 0-d float32 tensor on ``device``, for a divisor: on a
+    CUDA tensor torch divides by a Python float as a multiply by its
+    reciprocal, which rounds twice, where the kernel and the JAX package
+    divide once."""
+    return torch.tensor(float(value), dtype=torch.float32, device=device)
+
+
 def pixel_uv(width: int, height: int, device=None):
     """Per-pixel texture coordinates at pixel centers, flattened row-major
     (pixel 0 = top-left; u right, v down, raytrace.wgsl:94)."""
@@ -23,8 +31,8 @@ def pixel_uv(width: int, height: int, device=None):
         torch.arange(height, dtype=torch.float32, device=device),
         torch.arange(width, dtype=torch.float32, device=device),
         indexing="ij")
-    u = (xs.reshape(-1) + 0.5) / float(width)
-    v = (ys.reshape(-1) + 0.5) / float(height)
+    u = (xs.reshape(-1) + 0.5) / _f32(width, device)
+    v = (ys.reshape(-1) + 0.5) / _f32(height, device)
     return u, v
 
 
@@ -40,7 +48,7 @@ def generate_rays(u, v, jitter_u, jitter_v, cam: CameraState, height: int,
     point at ``cam.focus_distance``. The camera's 0-d tensors must lie on the
     device of ``u``.
     """
-    h = float(height)
+    h = _f32(height, u.device)
     w = h * cam.aspect
     ndc_x = (u * 2.0 - 1.0) + (jitter_u - 0.5) / w
     ndc_y = (1.0 - v * 2.0) + (jitter_v - 0.5) / h

@@ -115,6 +115,15 @@ FUSE_LADDER = (1, 2, 4, "auto")
 # what the CPU twin (tests/torch_fast_rng_twin.py, the plain versions on the
 # final scene at 240x136 and 480x270) reads: 0.0032 and 0.0030.
 STAT_MEAN_TOL, BOX, BOX_MEAN_TOL = 0.01, 8, 0.006
+# Phase 8. The shard offsets and the sharded frames.
+SHARD_REPLACES = f"{TPU_KERNEL}:1510"   # block_offset / n_tiles_local :1510-1540
+SHARD_MESHES = ((3, 1), (4, 1), (2, 2), (1, 4))   # (sp, dp) at the headline
+SHARD_FRAMES = 3       # timed frames per mesh
+# A dp > 1 frame against the unsharded one: the same samples, the sums taken
+# in another order (JAX's bar, tests/test_sharding.py:62); depth relatively.
+SHARD_TOL, SHARD_DEPTH_RTOL = 1e-6, 1e-5
+WAVE_SIZE = (480, 270)  # the wavefront sharded step and its film
+WAVE_MESHES = ((2, 1, 2), (1, 2, 2))
 
 
 def mesh_scene(copies=1):
@@ -177,10 +186,25 @@ def compare(config, got, want, mask=None) -> dict:
             else unshuffle_blocks(mask.reshape(-1), config))
     rgb = [torch.stack([unshuffle_blocks(c, config) for c in out[:3]],
                        -1)[keep] for out in (got, want)]
+    depths = [unshuffle_blocks(out[3], config)[keep] for out in (got, want)]
+    return agreement(rgb, depths, (int(got[4]), int(want[4])))
+
+
+def compare_frames(got, want) -> dict:
+    """Pixel agreement of two ``FrameResult``s."""
+    return agreement([f.image.reshape(-1, 3) for f in (got, want)],
+                     [f.rt_depth.reshape(-1) for f in (got, want)],
+                     (int(got.rays_traced), int(want.rays_traced)))
+
+
+def agreement(rgb, depths, segs) -> dict:
+    """The statistics that :func:`check_agreement` holds: ``rgb`` and
+    ``depths`` are (got, want) pairs of [N, 3] colors and [N] depths."""
+    import torch
+
     diff = (rgb[0] - rgb[1]).abs()
-    want_depth = unshuffle_blocks(want[3], config)[keep]
-    depth = (unshuffle_blocks(got[3], config)[keep] - want_depth).abs()
-    segs = (int(got[4]), int(want[4]))
+    want_depth = depths[1]
+    depth = (depths[0] - want_depth).abs()
     return {
         "frac_within": float((diff.amax(-1) <= PIXEL_TOL).float().mean()),
         "mean_abs": float(diff.mean()), "max_abs": float(diff.max()),
@@ -190,7 +214,7 @@ def compare(config, got, want, mask=None) -> dict:
         "segments": segs,
         "seg_rel": abs(segs[0] - segs[1]) / max(segs[1], 1),
         "finite": bool(torch.isfinite(rgb[0]).all()
-                       and torch.isfinite(got[3]).all()),
+                       and torch.isfinite(depths[0]).all()),
     }
 
 
@@ -201,8 +225,7 @@ def check_agreement(name: str, stats: dict) -> None:
             and stats["depth_frac_within"] >= PIXEL_FRAC
             and stats["depth_mean_rel"] < DEPTH_MEAN_RTOL
             and stats["seg_rel"] <= SEG_RTOL):
-        raise SystemExit(f"{name}: kernel disagrees with the plain version "
-                         f"(bars: >= {PIXEL_FRAC:.1%} of pixels within "
+        raise SystemExit(f"{name}: the two disagree (bars: >= {PIXEL_FRAC:.1%} of pixels within "
                          f"{PIXEL_TOL} in color and in depth, mean |d| < "
                          f"{MEAN_TOL}, depth mean |d| < {DEPTH_MEAN_RTOL} of "
                          f"the mean depth, segments within {SEG_RTOL:.1%})")
@@ -447,7 +470,11 @@ def main() -> int:
 
     entries.append(accumulation_phase(world, scene, cam, headline, card))
     entries.append(hybrid_phase(card))
-    entries += fast_phase(scene, cam, headline, card)
+    fast_entries = fast_phase(scene, cam, headline, card)
+    entries += fast_entries
+    entries.append(shard_phase(scene, cam, headline, card,
+                               fast_entries[0]["bound_ms"],
+                               fast_entries[0]["bound_by"]))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1109,6 +1136,235 @@ def fast_phase(scene, cam, headline, card) -> list:
          "max_abs_err": stats5["max_abs"], "ms": k5_ms,
          "plain_ms": plain5_ms, "bound_ms": b5_ms, "bound_by": b5_by,
          "library_ms": None}]
+
+
+def shard_phase(scene, cam, headline, card, head_bound, head_bound_by) -> dict:
+    """Phase 8: the shard offsets (ROADMAP B11), the sharded frames (A10)
+    and the wavefront renderer (A7). Returns the kernels-line entry of the
+    shard offsets, whose bound is the headline's (``head_bound``): the
+    shards of a mesh do the frame's work between them."""
+    import torch
+
+    from bevyray_tpu_torch import (FusedRenderer, ProgressiveRenderer,
+                                   RenderConfig, Renderer, rtiow)
+    from bevyray_tpu_torch.kernels.cuda import megakernel as mk
+    from bevyray_tpu_torch.kernels.cuda.primary import device_shortlists_for
+    from bevyray_tpu_torch.parallel.sharding import (
+        make_mesh, render_frame_sharded, render_frame_sharded_pallas)
+
+    dev = torch.device("cuda", 0)
+    render_tiles, render_tiles_reference = (mk.render_tiles,
+                                            mk.render_tiles_reference)
+
+    def counts_zeroed():
+        render_tiles.launches = 0
+        render_tiles.launches_by.clear()
+        render_tiles_reference.calls = 0
+
+    def bit_equal(name, got, want) -> float:
+        """The kernel's outputs against the plain version's: max |d| 0 and
+        equal segments."""
+        max_abs = max(float((g - w).abs().max()) for g, w in
+                      zip(got[:4], want[:4]))
+        print(f"phase 8 {name}: max |d| {max_abs:.3g}, segments "
+              f"{int(got[4])} / {int(want[4])}", flush=True)
+        if max_abs != 0.0 or int(got[4]) != int(want[4]):
+            raise SystemExit(f"phase 8 {name}: the kernel differs from its "
+                             "plain version")
+        return max_abs
+
+    # (a) 128x192 is 2 x 3 blocks: 2 shards of 3 blocks under fuse 2, so
+    # each shard's last instance pads a half whose global block is the
+    # other shard's. Per shard the kernel against its plain version on both
+    # draw paths, and the shards' segments summed against the whole frame's.
+    small = RenderConfig(128, 128 + 64, 2, 4, level=3, pallas_primary="split",
+                         pallas_intersect="candidates")
+    max_err = 0.0
+    mk.PHASE_FUSE = 2
+    for name, world in (("material_test_scene",
+                         rtiow.material_test_scene()),
+                        ("simple_scene + cube mesh", mesh_scene())):
+        kscene = mk.prepare_kernel_scene(world.extract(with_bvh=False,
+                                                       device=dev))
+        cam_s = world.camera_state(aspect=128 / 192, device=dev)
+        sl, slmeta = device_shortlists_for(kscene, cam_s, small, 2)
+        for arm in ("exact", "fast"):
+            run = dict(exact_rng=arm == "exact", normalize=False)
+            whole = render_tiles(kscene, cam_s, small, 7, sl=sl,
+                                 slmeta=slmeta, **run)
+            total = 0
+            for i in range(2):
+                shard = dict(run, block_offset=3 * i, n_blocks_local=3,
+                             sl=sl[3 * i:3 * i + 3],
+                             slmeta=slmeta[3 * i:3 * i + 3])
+                if mk.kernel_fuse(kscene, small, sl, 3) != 2:
+                    raise SystemExit("phase 8: the small shards do not fuse 2")
+                got = render_tiles(kscene, cam_s, small, 7, **shard)
+                want = render_tiles_reference(kscene, cam_s, small, 7,
+                                              **shard)
+                max_err = max(max_err, bit_equal(
+                    f"{name} {arm} rng shard {i} of 2, blocks {3 * i}-"
+                    f"{3 * i + 2}, fuse 2", got, want))
+                total += int(got[4])
+            print(f"phase 8 {name} {arm} rng: shard segments sum {total}, "
+                  f"whole frame {int(whole[4])}", flush=True)
+            if total != int(whole[4]):
+                raise SystemExit("phase 8: the shards' segments do not sum "
+                                 "to the whole frame's")
+    mk.PHASE_FUSE = "auto"
+
+    # (b) The headline through render_frame_sharded_pallas on meshes over
+    # the one card (the shards run one after another), each frame held to
+    # the unsharded frame of its seed.
+    fused = FusedRenderer(headline)
+    fused.render(scene, cam, seed=0)
+    torch.cuda.synchronize()
+    want, times = {}, []
+    for seed in range(1, SHARD_FRAMES + 1):
+        t0 = time.perf_counter()
+        want[seed] = fused.render(scene, cam, seed=seed)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    unsharded_p50 = sorted(times)[SHARD_FRAMES // 2] * 1e3
+    kscene = fused.prepare(scene)
+    print(f"phase 8 unsharded headline (default config, "
+          f"{'/'.join(fused.last_mode)}, fuse {fused.last_fuse}): p50 "
+          f"{unsharded_p50:.3f} ms | {card}", flush=True)
+    nbx, nby = mk.block_grid(headline)
+    n_blocks = nbx * nby
+    shard_launches, p50s = 0, {}
+    for sp, dp in SHARD_MESHES:
+        mesh = make_mesh(sp, dp, devices=["cuda:0"] * (sp * dp))
+        render_frame_sharded_pallas(mesh, scene, cam, headline, 0)
+        torch.cuda.synchronize()
+        counts_zeroed()
+        times = []
+        for seed in range(1, SHARD_FRAMES + 1):
+            t0 = time.perf_counter()
+            frame = render_frame_sharded_pallas(mesh, scene, cam, headline,
+                                                seed)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            ref = want[seed]
+            d_img = float((frame.image - ref.image).abs().max())
+            d_depth = float(((frame.rt_depth - ref.rt_depth).abs()
+                             / ref.rt_depth.abs().clamp(min=1e-30)).max())
+            segs = (int(frame.rays_traced), int(ref.rays_traced))
+            bar = 0.0 if dp == 1 else SHARD_TOL
+            if segs[0] != segs[1] or d_img > bar or (
+                    d_depth > (0.0 if dp == 1 else SHARD_DEPTH_RTOL)):
+                raise SystemExit(
+                    f"phase 8 mesh ({sp}, {dp}) seed {seed}: segments "
+                    f"{segs}, image max |d| {d_img:.3g} (bar {bar}), depth "
+                    f"max rel |d| {d_depth:.3g}")
+        launches = render_tiles.launches
+        if launches != SHARD_FRAMES * sp * dp or render_tiles_reference.calls:
+            raise SystemExit(f"phase 8 mesh ({sp}, {dp}): {launches} kernel "
+                             f"launches and {render_tiles_reference.calls} "
+                             f"plain calls in {SHARD_FRAMES} frames")
+        shard_launches += launches
+        blocks_local = -(-n_blocks // sp)
+        local_cfg = dataclasses.replace(headline,
+                                        samples_per_pixel=SPP // dp)
+        sl = device_shortlists_for(kscene, cam, headline, SPP // dp,
+                                   n_blocks=blocks_local * sp)[0]
+        fuse = mk.kernel_fuse(kscene, local_cfg, sl, blocks_local)
+        p50s[sp, dp] = sorted(times)[SHARD_FRAMES // 2] * 1e3
+        print(f"phase 8 headline mesh (sp={sp}, dp={dp}) on cuda:0: "
+              f"{blocks_local} blocks a shard, fuse {fuse} "
+              f"({-blocks_local % fuse} padded halves), {SPP // dp} spp a "
+              f"shard, {'split' if sl is not None else 'off'}: p50 "
+              f"{p50s[sp, dp]:.3f} ms (unsharded {unsharded_p50:.3f}), "
+              f"frame ms {[round(t * 1e3, 3) for t in times]}, segments "
+              f"{segs[0]} equal, image max |d| {d_img:.3g}, depth max rel "
+              f"|d| {d_depth:.3g} | {card}", flush=True)
+
+    # One headline mesh (3, 1) shard by shard: the kernel's ms on the
+    # default path, and each shard against its plain version on the exact
+    # path (shard 0 pads 2 halves aliasing shard 1's blocks).
+    blocks_local = n_blocks // 3
+    sl, slmeta = device_shortlists_for(kscene, cam, headline, SPP)
+    shard_ms, plain_ms = 0.0, 0.0
+    for i in range(3):
+        rows = slice(i * blocks_local, (i + 1) * blocks_local)
+        shard = dict(block_offset=i * blocks_local,
+                     n_blocks_local=blocks_local, normalize=False,
+                     sl=sl[rows], slmeta=slmeta[rows])
+        shard_ms += cuda_ms(lambda: render_tiles(kscene, cam, headline, 1,
+                                                 **shard), 3)
+        got = render_tiles(kscene, cam, headline, 1, exact_rng=True, **shard)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = render_tiles_reference(kscene, cam, headline, 1,
+                                       exact_rng=True, **shard)
+        torch.cuda.synchronize()
+        plain_ms += (time.perf_counter() - t0) * 1e3
+        max_err = max(max_err, bit_equal(
+            f"headline mesh (3, 1) shard {i}, exact rng, fuse "
+            f"{mk.kernel_fuse(kscene, headline, sl, blocks_local)}", got,
+            plain))
+    print(f"phase 8 headline mesh (3, 1) kernel, default path: {shard_ms:.3f} "
+          f"ms over the 3 shards (bound {head_bound:.3f} ms); plain version, "
+          f"exact path: {plain_ms:.1f} ms | {card}", flush=True)
+
+    # (c) The wavefront Renderer at the headline (the exact PCG streams, its
+    # only draw path) against the fused kernel's exact frame.
+    wave = Renderer(headline)
+    exact = FusedRenderer(headline, exact_rng=True).render(scene, cam, seed=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    frame = wave.render(scene, cam, seed=1)
+    torch.cuda.synchronize()
+    wave_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    check_agreement(
+        f"phase 8 wavefront Renderer {WIDTH}x{HEIGHT} {SPP}spp {BOUNCES} "
+        f"bounces vs FusedRenderer(exact_rng=True): {wave_ms:.1f} ms, peak "
+        f"{peak / 2**30:.3f} GiB above the inputs | {card}",
+        compare_frames(frame, exact))
+
+    # (d) The wavefront sharded step at 480x270 with tp, against the
+    # unsharded Renderer; then the wavefront film, 2 x 8 spp against 16 spp.
+    world = rtiow.final_scene(seed=42)
+    small_scene = world.extract(with_bvh=False)
+    small_cam = world.camera_state(aspect=WAVE_SIZE[0] / WAVE_SIZE[1])
+    wave_cfg = RenderConfig(*WAVE_SIZE, SPP, BOUNCES, level=3)
+    ref = Renderer(wave_cfg).render(small_scene, small_cam, seed=3)
+    for sp, dp, tp in WAVE_MESHES:
+        mesh = make_mesh(sp, dp, tp, devices=["cuda:0"] * (sp * dp * tp))
+        t0 = time.perf_counter()
+        got = render_frame_sharded(mesh, small_scene, small_cam, wave_cfg, 3)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        d_img = float((got.image - ref.image).abs().max())
+        print(f"phase 8 wavefront sharded {WAVE_SIZE[0]}x{WAVE_SIZE[1]} mesh "
+              f"({sp}, {dp}, {tp}): {ms:.1f} ms, image max |d| {d_img:.3g}, "
+              f"segments {int(got.rays_traced)} / {int(ref.rays_traced)}",
+              flush=True)
+        if d_img > IDENTITY_TOL or int(got.rays_traced) != int(
+                ref.rays_traced):
+            raise SystemExit(f"phase 8 wavefront mesh ({sp}, {dp}, {tp}): "
+                             f"not within {IDENTITY_TOL} of the unsharded "
+                             "frame with equal segments")
+    half = dataclasses.replace(wave_cfg, samples_per_pixel=SPP // 2)
+    prog = ProgressiveRenderer(half)
+    prog.step(small_scene, small_cam, seed=3)
+    film = prog.step(small_scene, small_cam, seed=3)
+    d_img = float((film.image - ref.image).abs().max())
+    print(f"phase 8 ProgressiveRenderer(backend=\"xla\") 2 x {SPP // 2} spp "
+          f"vs Renderer {SPP} spp at {WAVE_SIZE[0]}x{WAVE_SIZE[1]}: image max "
+          f"|d| {d_img:.3g}, segments {int(film.rays_traced)} / "
+          f"{int(ref.rays_traced)}", flush=True)
+    if d_img > IDENTITY_TOL or int(film.rays_traced) != int(ref.rays_traced):
+        raise SystemExit("phase 8: the wavefront film differs from the frame")
+
+    return {"name": "render_tiles[shard_offsets]", "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": SHARD_REPLACES,
+            "launches": shard_launches, "max_abs_err": max_err,
+            "ms": shard_ms, "plain_ms": plain_ms, "bound_ms": head_bound,
+            "bound_by": head_bound_by, "library_ms": None}
 
 
 if __name__ == "__main__":

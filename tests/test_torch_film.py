@@ -6,8 +6,9 @@ Pallas interpret mode, the port through its plain version.
   four sphere-walk modes, against JAX ``render_tiles`` (bars of
   tests/test_pallas.py:24-28: r/g/b atol 5e-5, depth atol 1e-3, segments
   equal), each mode also bit-equal to the port's off/grouped mode;
-- ``ProgressiveRenderer(backend="pallas")`` against JAX's, pass by pass, and
-  films saved by either package resumed in the other;
+- ``ProgressiveRenderer(backend="pallas")`` and the default wavefront
+  backend against JAX's, pass by pass, and films saved by either package
+  resumed in the other;
 - the JAX package's own film tests, run in the port.
 """
 
@@ -125,13 +126,29 @@ def test_accumulation_input_checks(kwargs, match):
         mk.render_tiles(kscene, pcam, cfg, 1, normalize=False, **kwargs)
 
 
-def test_xla_backend_raises_naming_a7():
-    cfg = bt.RenderConfig(width=8, height=8)
-    for backend in ("xla", "auto"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            bt.ProgressiveRenderer(cfg, backend=backend, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        bt.ProgressiveRenderer(cfg)
+@pytest.mark.parametrize("backend", [None, "auto"], ids=["default", "auto"])
+def test_default_backend_accumulates_like_jax(backend):
+    """``ProgressiveRenderer(cfg)`` (the JAX package's default "xla") and
+    ``backend="auto"`` take the wavefront ``trace_sample``: 2 passes of 8
+    spp against JAX's default ``ProgressiveRenderer``, pass by pass at the
+    bars, and the film equals the 16 spp ``Renderer`` frame (the same
+    samples, summed in the same order)."""
+    js, jcam, ps, pcam = _both(jrtiow.material_test_scene())
+    cfg = dict(FILM, samples_per_pixel=8)
+    jprog = JProgressive(JRenderConfig(**cfg))
+    kwargs = {} if backend is None else {"backend": backend}
+    prog = bt.ProgressiveRenderer(bt.RenderConfig(**cfg), device="cpu",
+                                  **kwargs)
+    for seed in (9, 9):
+        frame = prog.step(ps, pcam, seed=seed)
+        _close(frame, jprog.step(js, jcam, seed=seed))
+    assert prog.samples_accumulated == jprog.samples_accumulated == 16
+    assert prog.film.rays_traced.dtype == torch.int64
+    want = bt.Renderer(bt.RenderConfig(**dict(cfg, samples_per_pixel=16))
+                       ).render(ps, pcam, seed=9)
+    np.testing.assert_allclose(frame.image.numpy(), want.image.numpy(),
+                               atol=1e-6)
+    assert int(frame.rays_traced) == int(want.rays_traced)
 
 
 # -- ProgressiveRenderer against the JAX package ------------------------------

@@ -355,15 +355,123 @@ def test_cpu_tensors_take_the_plain_version():
         assert torch.equal(g, wnt)
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    (dict(block_offset=1), "A10"),
-    (dict(n_blocks_local=1), "A10"),
-])
-def test_unported_branches_raise(kwargs, item):
+@pytest.mark.parametrize("kwargs,blocks", [
+    (dict(block_offset=1), slice(1, 4)),
+    (dict(n_blocks_local=1), slice(0, 1)),
+], ids=["block_offset", "n_blocks_local"])
+def test_shard_offsets_slice_the_whole_frame(kwargs, blocks):
+    """``block_offset`` alone renders as many blocks as the grid holds from
+    that block (the last one lies past the grid: nothing traced there);
+    ``n_blocks_local`` alone the first blocks. Each gives the whole frame's
+    blocks to the bit."""
+    _, _, kscene, pcam = _inputs(jrtiow.material_test_scene(), 128, 128)
+    cfg = bt.RenderConfig(width=128, height=128, **SLICE)
+    whole = mk.render_tiles(kscene, pcam, cfg, 1)
+    got = mk.render_tiles(kscene, pcam, cfg, 1, **kwargs)
+    lanes = slice(blocks.start * mk.TILE, blocks.stop * mk.TILE)
+    n = blocks.stop - blocks.start
+    for g, w in zip(got[:4], whole[:4]):
+        assert torch.equal(g[:n * mk.TILE], w[lanes])
+        assert not bool(g[n * mk.TILE:].any())
+    assert 0 < int(got[4]) < int(whole[4])
+
+
+SHARD = dict(samples_per_pixel=2, bounces=2, level=3)
+
+
+@pytest.fixture(scope="module")
+def shard_frame():
+    """The material test scene at 128x192 (2 x 3 blocks), its split
+    shortlists over the grid padded for 4 shards, and the whole frame's
+    sums."""
+    js, jcam, kscene, pcam = _inputs(jrtiow.material_test_scene(), 128, 192)
+    cfg = bt.RenderConfig(width=128, height=192, pallas_primary="split",
+                          pallas_intersect="candidates", **SHARD)
+    sl, meta = primary.build_block_shortlists(kscene.sph.numpy(), pcam, cfg,
+                                              n_blocks=8)
+    sl, meta = torch.as_tensor(sl), torch.as_tensor(meta)
+    whole = mk.render_tiles(kscene, pcam, cfg, 7, normalize=False, sl=sl[:6],
+                            slmeta=meta[:6])
+    return js, jcam, kscene, pcam, cfg, sl, meta, whole
+
+
+@pytest.mark.parametrize("sp", [2, 4])
+def test_shards_join_to_the_whole_frame(shard_frame, sp):
+    """The grid's 6 blocks padded to a multiple of ``sp`` shards: the
+    shards' outputs, joined, are the whole frame's to the bit, the padded
+    blocks trace nothing, and their segments sum to the whole frame's."""
+    _, _, kscene, pcam, cfg, sl, meta, whole = shard_frame
+    local = -(-6 // sp)
+    parts = [mk.render_tiles(kscene, pcam, cfg, 7, block_offset=i * local,
+                             n_blocks_local=local, normalize=False,
+                             sl=sl[i * local:(i + 1) * local],
+                             slmeta=meta[i * local:(i + 1) * local])
+             for i in range(sp)]
+    for k in range(4):
+        joined = torch.cat([p[k] for p in parts])
+        assert torch.equal(joined[:6 * mk.TILE], whole[k])
+        assert not bool(joined[6 * mk.TILE:].any())
+    assert sum(int(p[4]) for p in parts) == int(whole[4])
+
+
+def test_shard_offsets_match_jax(shard_frame):
+    """Shard 1 of 2 (blocks 3-5) against JAX ``render_tiles`` with the same
+    offsets, in interpret mode (off/grouped, the cheapest program to
+    compile; every mode gives the same bits, and the split shards are held
+    to the whole frame above)."""
+    js, jcam, kscene, pcam, cfg, _, _, _ = shard_frame
+    cfg = dataclasses.replace(cfg, pallas_primary="off",
+                              pallas_intersect="grouped")
+    run = dict(block_offset=3, n_blocks_local=3, normalize=False)
+    want = jmk.render_tiles(
+        jmk.jitted_prepare(0, "kd")(js), jcam,
+        JRenderConfig(**{f.name: getattr(cfg, f.name)
+                         for f in dataclasses.fields(cfg)}),
+        np.uint32(7), exact_rng=True, **run)
+    got = mk.render_tiles(kscene, pcam, cfg, 7, **run)
+    # Sums of 2 samples, held at the per-spp bars.
+    for g, w in zip(got[:3], want[:3]):
+        np.testing.assert_allclose(g.numpy() / 2, np.asarray(w) / 2,
+                                   atol=5e-5)
+    np.testing.assert_allclose(got[3].numpy() / 2, np.asarray(want[3]) / 2,
+                               atol=1e-3)
+    assert int(got[4]) == int(want[4]) > 0
+
+
+def test_shard_input_checks():
     _, _, kscene, pcam = _inputs(jrtiow.simple_scene(), 16, 16)
     cfg = bt.RenderConfig(width=16, height=16, **SLICE)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        mk.render_tiles(kscene, pcam, cfg, 1, **kwargs)
+    for kwargs in (dict(block_offset=-1), dict(block_offset=1.0),
+                   dict(n_blocks_local=0), dict(n_blocks_local=True)):
+        with pytest.raises(ValueError, match="block_offset|n_blocks_local"):
+            mk.render_tiles(kscene, pcam, cfg, 1, **kwargs)
+    sl, meta = (torch.as_tensor(x) for x in _shortlists(kscene, pcam, cfg))
+    with pytest.raises(ValueError, match=r"\(2, 5, K\)"):
+        mk.render_tiles(kscene, pcam, cfg, 1, n_blocks_local=2, sl=sl,
+                        slmeta=meta)
+
+
+def test_fuse_resolves_from_the_local_block_count():
+    """As the JAX kernel's: 510 headline blocks in 3 shards of 170 keep fuse
+    4 under "auto" (2 padded tail halves, within 1/12); a shard of 3
+    blocks takes none."""
+    scene = mk.KernelScene(sph=torch.zeros(4, 512), attr=torch.zeros(13, 512),
+                           gaabb=torch.zeros(6, 1), tri=torch.zeros(10, 0),
+                           gc=16, n_cand=32, cand_off=0, has_emissive=False)
+    cfg = bt.RenderConfig(width=1920, height=1080, samples_per_pixel=16)
+    jcfg = JRenderConfig(width=1920, height=1080, samples_per_pixel=16)
+    assert jmk.block_grid(jcfg) == mk.block_grid(cfg)
+    old = jmk.PHASE_FUSE
+    jmk.PHASE_FUSE = mk.PHASE_FUSE    # the shipped "auto" (tests run fuse 1)
+    try:
+        for local in (None, 170, 128, 3):
+            n = 510 if local is None else local
+            want = jmk._resolve_fuse(n, 16, True, 512, 10)
+            assert mk.kernel_fuse(scene, cfg, 1, local) == want
+    finally:
+        jmk.PHASE_FUSE = old
+    assert mk.kernel_fuse(scene, cfg, 1, 170) == 4
+    assert mk.kernel_fuse(scene, cfg, 1, 3) == 1
 
 
 @pytest.mark.cuda
@@ -415,3 +523,39 @@ def test_cuda_kernel_matches_plain_version_on_card(scene_fn, options):
     assert float((depth <= 1e-3).float().mean()) >= 0.999
     assert float(depth.mean() / want[3].abs().mean()) < 1e-4
     assert abs(int(got[4]) - int(want[4])) <= 1e-3 * int(want[4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact_rng", [True, False], ids=["exact", "fast"])
+def test_cuda_shards_match_plain_version_on_card(exact_rng):
+    """On the card: the kernel with the shard offsets against its plain
+    version, 128x192 in 2 shards under fuse 2, so each shard's fused tail
+    half aliases the other shard's block (chip_smoke.py phase 8(a))."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs this check there")
+    world = bt.rtiow.material_test_scene()
+    dev = torch.device("cuda", 0)
+    cfg = bt.RenderConfig(width=128, height=192, **SHARD)
+    kscene = mk.prepare_kernel_scene(world.extract(with_bvh=False, device=dev))
+    cam = world.camera_state(aspect=128 / 192, device=dev)
+    old = mk.PHASE_FUSE
+    mk.PHASE_FUSE = 2
+    try:
+        total = 0
+        for i in range(2):
+            sl, slmeta = primary.device_shortlists_for(
+                kscene, cam, dataclasses.replace(cfg, pallas_primary="split"),
+                2, block_lo=3 * i, n_blocks=3)
+            run = dict(exact_rng=exact_rng, block_offset=3 * i,
+                       n_blocks_local=3, normalize=False, sl=sl,
+                       slmeta=slmeta)
+            assert mk.kernel_fuse(kscene, cfg, sl, 3) == 2
+            got = mk.render_tiles(kscene, cam, cfg, 7, **run)
+            want = mk.render_tiles_reference(kscene, cam, cfg, 7, **run)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+            total += int(got[4])
+        whole = mk.render_tiles(kscene, cam, cfg, 7, exact_rng=exact_rng)
+        assert total == int(whole[4])
+    finally:
+        mk.PHASE_FUSE = old
