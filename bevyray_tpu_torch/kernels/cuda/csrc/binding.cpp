@@ -4,6 +4,9 @@
 
 #include <torch/extension.h>
 
+#include <map>
+#include <string>
+
 #include <c10/cuda/CUDAException.h>
 #include <c10/cuda/CUDAGuard.h>
 #include <c10/cuda/CUDAStream.h>
@@ -31,21 +34,25 @@ void check_f32(const torch::Tensor& t, const torch::Tensor& like, const char* na
 // when `candidates`; `spp_map` (int32, one target per lane) only when it is
 // not empty; the first `n_tris` rows of `tri` only when it is not 0.
 // `fast_rng` takes the fast draw path with `draw_words` words per bounce;
-// `fuse` pixel blocks share a CUDA block's lane positions (the split only).
+// `fuse` pixel blocks share a work item's lane positions (the split only);
+// `grid` CUDA blocks take the items. `counters` holds two int64 zeros: the
+// segment count and the work counter. A non-empty `probe` (kProbeSlots
+// int64 zeros) launches the probe instance of the default kernel.
 void render_tiles(const torch::Tensor& cam, const torch::Tensor& sph,
                   const torch::Tensor& attr, const torch::Tensor& gaabb,
                   const torch::Tensor& tri, int64_t n_tris,
                   const torch::Tensor& sl, const torch::Tensor& slmeta,
                   const torch::Tensor& spp_map,
                   torch::Tensor out_r, torch::Tensor out_g, torch::Tensor out_b,
-                  torch::Tensor out_depth, torch::Tensor segments, int64_t nbx,
+                  torch::Tensor out_depth, torch::Tensor counters, int64_t nbx,
                   int64_t block_offset,
                   int64_t width, int64_t height, int64_t spp, int64_t bounces,
                   int64_t seed, int64_t sample_offset, double inv_spp,
                   int64_t level, bool defocus,
                   bool cosine, bool split, bool candidates, int64_t gc,
                   int64_t n_cand, int64_t cand_off, bool fast_rng,
-                  int64_t draw_words, int64_t fuse) {
+                  int64_t draw_words, int64_t fuse, int64_t grid,
+                  const torch::Tensor& probe) {
   check_f32(sph, sph, "sph");
   check_f32(cam, sph, "cam");
   check_f32(attr, sph, "attr");
@@ -67,15 +74,24 @@ void render_tiles(const torch::Tensor& cam, const torch::Tensor& sph,
   // A launch renders n_tiles blocks from global block block_offset: the whole
   // grid, or one shard's range of a grid padded to a multiple of the shards.
   TORCH_CHECK(nbx == (width + 63) / 64, "nbx must be the frame's blocks per row");
-  TORCH_CHECK(block_offset >= 0 && block_offset + n_tiles < (int64_t{1} << 31),
-              "block_offset must be >= 0 and the blocks' indices must fit in int32");
+  TORCH_CHECK(block_offset >= 0 && block_offset + n_tiles < (int64_t{1} << 31) &&
+                  n_tiles * (kTile / 256) < (int64_t{1} << 31),
+              "block_offset must be >= 0 and the blocks' indices and 256-lane units must "
+              "fit in int32");
   for (const auto* out : {&out_r, &out_g, &out_b, &out_depth}) {
     check_f32(*out, sph, "outputs");
     TORCH_CHECK(out->numel() == n_lanes, "outputs must have equal sizes");
   }
-  TORCH_CHECK(segments.is_cuda() && segments.device() == sph.device() &&
-                  segments.scalar_type() == torch::kInt64 && segments.numel() == 1,
-              "segments must be one int64 on the scene's device");
+  for (const torch::Tensor* t : {static_cast<const torch::Tensor*>(&counters), &probe}) {
+    TORCH_CHECK(t->is_cuda() && t->device() == sph.device() &&
+                    t->scalar_type() == torch::kInt64 && t->is_contiguous(),
+                "counters and probe must be int64 tensors on the scene's device");
+  }
+  TORCH_CHECK(counters.numel() == 2, "counters must hold two int64: segments, work");
+  const bool has_probe = probe.numel() > 0;
+  TORCH_CHECK(!has_probe || (probe.numel() == kProbeSlots && split && candidates && fast_rng),
+              "the probe takes kProbeSlots int64 and the split/candidates fast instance");
+  TORCH_CHECK(grid >= 1 && grid < (int64_t{1} << 31), "grid must be a positive int32");
   TORCH_CHECK(spp >= 1 && bounces >= 0, "spp must be >= 1 and bounces >= 0");
   TORCH_CHECK(!candidates || (gc > 0 && n_cand > 0 && cand_off >= 0 &&
                               cand_off + n_cand <= gaabb.size(1) &&
@@ -121,7 +137,9 @@ void render_tiles(const torch::Tensor& cam, const torch::Tensor& sph,
   args.out_g = out_g.data_ptr<float>();
   args.out_b = out_b.data_ptr<float>();
   args.out_depth = out_depth.data_ptr<float>();
-  args.segments = reinterpret_cast<long long*>(segments.data_ptr<int64_t>());
+  args.counters = reinterpret_cast<unsigned long long*>(counters.data_ptr<int64_t>());
+  args.probe =
+      has_probe ? reinterpret_cast<unsigned long long*>(probe.data_ptr<int64_t>()) : nullptr;
   args.n_spheres = static_cast<int>(sph.size(1));
   args.attr_stride = static_cast<int>(attr.size(1));
   args.gaabb_stride = static_cast<int>(gaabb.size(1));
@@ -149,10 +167,28 @@ void render_tiles(const torch::Tensor& cam, const torch::Tensor& sph,
   args.fast_rng = fast_rng ? 1 : 0;
   args.draw_words = static_cast<int>(draw_words);
   args.fuse = static_cast<int>(fuse);
+  args.grid = static_cast<int>(grid);
 
   const c10::cuda::CUDAGuard guard(sph.device());
   C10_CUDA_CHECK(launch_render_tiles(args, c10::cuda::getCurrentCUDAStream().stream()));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// Registers, spills, shared memory and resident blocks per SM of one kernel
+// instance at `fuse` staged shortlists of `sl_cap` entries, and the SM count,
+// on CUDA device `device`.
+std::map<std::string, int64_t> instance_info(int64_t device, bool split, bool candidates,
+                                             bool fast, bool probe, int64_t fuse,
+                                             int64_t sl_cap) {
+  TORCH_CHECK(fuse >= 1 && fuse <= 8 && sl_cap >= 0 && sl_cap <= kSlMax,
+              "fuse must lie in [1, 8] and sl_cap in [0, 512]");
+  const c10::cuda::CUDAGuard guard(static_cast<c10::DeviceIndex>(device));
+  KernelInfo info{};
+  C10_CUDA_CHECK(::kernel_info(split, candidates, fast, probe, static_cast<int>(fuse),
+                               static_cast<int>(sl_cap), &info));
+  return {{"num_regs", info.num_regs},         {"local_bytes", info.local_bytes},
+          {"static_smem", info.static_smem},   {"dynamic_smem", info.dynamic_smem},
+          {"blocks_per_sm", info.blocks_per_sm}, {"n_sms", info.n_sms}};
 }
 
 }  // namespace
@@ -160,4 +196,7 @@ void render_tiles(const torch::Tensor& cam, const torch::Tensor& sph,
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("render_tiles", &render_tiles,
         "Trace a frame into block-ordered r/g/b/depth and add its segment count");
+  m.def("kernel_info", &instance_info,
+        "Registers, spills, shared memory and occupancy of one kernel instance");
+  m.attr("probe_slots") = static_cast<int>(kProbeSlots);
 }

@@ -19,7 +19,11 @@ struct RenderArgs {
   float* out_g;
   float* out_b;
   float* out_depth;
-  long long* segments;  // one int64, added to
+  // Two int64 counters, zero at launch: [0] the traced segments, added to;
+  // [1] the work counter, the next work item a CUDA block takes.
+  unsigned long long* counters;
+  // The probe instance's per-stage clock sums (kProbeSlots), or null.
+  unsigned long long* probe;
   int n_spheres;
   int attr_stride;
   int gaabb_stride;
@@ -46,9 +50,42 @@ struct RenderArgs {
   int cand_off;         // gaabb column of candidate group 0
   int fast_rng;         // the fast draw path (else the exact PCG streams)
   int draw_words;       // fast path: words per bounce, 6, 9 or 13
-  int fuse;             // pixel blocks per CUDA block's lane positions: 1, 2, 4, 8
+  int fuse;             // pixel blocks per work item's lane positions: 1, 2, 4, 8
+  int grid;             // CUDA blocks of the persistent grid
+};
+
+// Slots of the probe's clock sums (cycles summed over threads, as unsigned
+// 64-bit): the thread's whole run, taking an item and staging its
+// shortlists, taking pixels (and writing finished ones), the segment
+// iterations, within them the bounce-0 shortlist walk, the table walks
+// (candidates or every sphere) and the triangle loop; a lane's wait for its
+// warp once it has no pixel left in the item; then the warp-level segment
+// iterations (counted once per group of lanes that run one together) and the
+// lanes' segments. The rest of a thread's cycles (the item's closing barrier,
+// the loops' overhead) is the total less the stages.
+enum ProbeSlot {
+  kProbeTotal, kProbeStage, kProbeFetch, kProbeSegment, kProbeWalk0,
+  kProbeWalk, kProbeTriangles, kProbeWarpIdle, kProbeIssues, kProbeSegments,
+  kProbeSlots
+};
+
+// Static facts of one kernel instance on the current device.
+struct KernelInfo {
+  int num_regs;           // registers per thread
+  int local_bytes;        // local memory per thread (spills)
+  int static_smem;        // static shared memory per block
+  int dynamic_smem;       // shared memory the launch asks for (the staged shortlists)
+  int blocks_per_sm;      // resident blocks per SM at that shared memory
+  int n_sms;              // SMs of the device
 };
 
 // Launches on `stream`; allocates nothing. Returns the error of the set-up
 // before the launch (a shared-memory limit); the caller checks the launch.
+// A non-null `args.probe` launches the probe instance of the default kernel
+// (split, candidates, fast draws).
 cudaError_t launch_render_tiles(const RenderArgs& args, cudaStream_t stream);
+
+// The facts of the instance (split, candidates, fast, probe) at `fuse`
+// staged shortlists of `sl_cap` entries each.
+cudaError_t kernel_info(bool split, bool candidates, bool fast, bool probe, int fuse,
+                        int sl_cap, KernelInfo* out);

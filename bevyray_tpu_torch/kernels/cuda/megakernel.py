@@ -4,13 +4,17 @@ and its plain PyTorch version.
 Counterpart of ``bevyray_tpu/kernels/pallas/megakernel.py``. The TPU kernel
 (``render_tiles`` -> ``_render_kernel``) traces the whole frame in one
 ``pallas_call``; here ``render_tiles`` launches ``csrc/megakernel.cu``, one
-thread per pixel looping over samples, bounces and spheres. It draws from
+thread per pixel looping over samples, bounces and spheres, on a persistent
+grid: as many CUDA blocks as the card holds at once take work items (runs of
+256-lane slices, :func:`work_items`, :func:`persistent_grid`) from a
+counter, and a thread that has finished its pixel takes the item's next one.
+It draws from
 the exact PCG streams (``exact_rng=True``) or from the fast path's keyed
 words and bit-trick balls (``exact_rng=False``, :mod:`.fast_rng`);
 :func:`resolve_exact_rng` picks the fast path for tensors on a CUDA card,
 as the JAX package picks its hardware generator for arrays on the TPU. With
-the phase
-split one CUDA block runs ``fuse`` consecutive pixel blocks in turn
+the phase split a work item lies within a run of ``fuse`` consecutive pixel
+blocks, whose shortlists the CUDA block stages together
 (:func:`resolve_fuse`, the JAX kernel's block fusion). A scene with
 triangle meshes merges a Möller–Trumbore test of its live triangle rows
 after the sphere walk of every segment, in every mode (the TPU kernel's
@@ -75,6 +79,7 @@ from . import fast_rng
 BLOCK_W = 64           # pixel-block width
 BLOCK_H = 64           # pixel-block height
 TILE = BLOCK_W * BLOCK_H   # lanes per pixel block
+SLICES = TILE // 256   # 256-lane units per pixel block (a CUDA block's width)
 GROUP = 32             # spheres per culling group (group AABB columns)
 SUPER = 8              # groups per supergroup (appended when >= 4*SUPER groups)
 CAND_UNIT = 16         # the auto candidate-group size quantum
@@ -554,41 +559,155 @@ def render_tiles(pscene: KernelScene, cam: CameraState, config: RenderConfig,
                                       n_blocks_local=n_blocks_local)
     if dev.type != "cuda":
         raise ValueError(f"render_tiles takes CPU or CUDA tensors, not {dev}")
+    fuse = kernel_fuse(pscene, config, sl, n_blocks_local)
+    outs = _launch(pscene, cam, config, frame_seed, exact_rng, block_offset,
+                   sample_offset, n_tiles, normalize, sl, slmeta, spp_map, fuse)
+    render_tiles.launches += 1
+    render_tiles.launches_by["exact" if exact_rng else "fast", fuse] += 1
+    return outs
+
+
+render_tiles.launches = 0
+render_tiles.launches_by = collections.Counter()
+
+
+GUIDE = 2   # under a sample map an item takes <= 1 / (GUIDE x grid) of the units left
+
+
+def work_items(n_tiles: int, fuse: int, grid: int, sampled: bool) -> list:
+    """The work items of a launch over ``n_tiles`` local pixel blocks on a
+    grid of ``grid`` CUDA blocks, as (lo, hi) ranges of units, a unit being
+    one 256-lane slice of one block (unit u: slice u % SLICES of local block
+    u // SLICES), in the order the kernel's counter hands them out. Without
+    a sample map each item is one unit: a thread traces one pixel and the
+    warps of a CUDA block trace neighbouring rows together. Under one
+    (``sampled``) an item takes at most 1 / (GUIDE x grid) of the units
+    left, at least one, and ends no later than the run of ``fuse`` blocks
+    that holds its first unit (so it stages at most ``fuse`` shortlists):
+    its threads share more pixels than there are threads, and those whose
+    target is 0 are skipped as they are taken. The sizes depend on the
+    counter's value alone: the kernel's items are these in every run."""
+    n_units, run = n_tiles * SLICES, fuse * SLICES
+    items, lo = [], 0
+    while lo < n_units:
+        size = (min(max((n_units - lo) // (GUIDE * grid), 1), run - lo % run)
+                if sampled else 1)
+        items.append((lo, lo + size))
+        lo += size
+    return items
+
+
+def persistent_grid(n_tiles: int, blocks_per_sm: int, n_sms: int) -> int:
+    """CUDA blocks of the persistent grid over ``n_tiles`` local pixel
+    blocks: as many as the card holds at once (``blocks_per_sm`` resident on
+    each of ``n_sms`` SMs), or one per unit where there are fewer units."""
+    if blocks_per_sm < 1:
+        raise ValueError("the kernel instance does not fit on an SM")
+    return min(n_tiles * SLICES, blocks_per_sm * n_sms)
+
+
+_INFO = {}
+
+
+def instance_info(device, split: bool, candidates: bool, fast: bool,
+                  fuse: int, sl_cap: int, probe: bool = False) -> dict:
+    """Registers per thread (``num_regs``), spill bytes per thread
+    (``local_bytes``), static and dynamic shared memory per block, resident
+    blocks per SM (``blocks_per_sm``) and the SM count (``n_sms``) of one
+    kernel instance at ``fuse`` staged shortlists of ``sl_cap`` entries, on
+    CUDA ``device``; asked once per process and key. Builds the kernel on
+    first use."""
     from .build import extension
 
+    index = torch.device(device).index or 0
+    key = (index, split, candidates, fast, probe,
+           fuse if split else 1, sl_cap if split else 0)
+    if key not in _INFO:
+        _INFO[key] = dict(extension().kernel_info(*key))
+    return _INFO[key]
+
+
+def _launch(pscene: KernelScene, cam: CameraState, config: RenderConfig,
+            frame_seed, exact_rng: bool, block_offset: int,
+            sample_offset: int, n_tiles: int, normalize: bool, sl, slmeta,
+            spp_map, fuse: int, probe=None):
+    """One launch of the CUDA kernel on the persistent grid; ``probe`` (an
+    int64 tensor of the extension's ``probe_slots`` zeros) takes the probe
+    instance and receives its clock sums."""
+    from .build import extension
+
+    dev = pscene.sph.device
     ext = extension()
     mode = kernel_mode(pscene, config, sl)
-    fuse = kernel_fuse(pscene, config, sl, n_blocks_local)
+    split, candidates = mode[0] == "split", mode[1] == "candidates"
+    sl_cap = sl.shape[-1] if split else 0
+    info = instance_info(dev, split, candidates, not exact_rng, fuse, sl_cap,
+                         probe is not None)
+    grid = persistent_grid(n_tiles, info["blocks_per_sm"], info["n_sms"])
     nbx, _ = block_grid(config)
     n_lanes = n_tiles * TILE
     cam_row = pack_camera(cam, config).to(dev)
     outs = [torch.empty(n_lanes, dtype=torch.float32, device=dev)
             for _ in range(4)]
-    segs = torch.zeros(1, dtype=torch.int64, device=dev)
+    # [0] the segment count, [1] the work counter the CUDA blocks take items
+    # from: fresh for every launch.
+    counters = torch.zeros(2, dtype=torch.int64, device=dev)
     if sl is None:
         sl = slmeta = torch.empty(0, dtype=torch.float32, device=dev)
     if spp_map is None:
         spp_map = torch.empty(0, dtype=torch.int32, device=dev)
+    if probe is None:
+        probe = torch.empty(0, dtype=torch.int64, device=dev)
     ext.render_tiles(cam_row, pscene.sph, pscene.attr, pscene.gaabb,
                      pscene.tri, pscene.n_tris, sl.contiguous(),
                      slmeta.contiguous(),
-                     spp_map.contiguous(), *outs, segs,
+                     spp_map.contiguous(), *outs, counters,
                      nbx, block_offset, config.width, config.height,
                      config.samples_per_pixel, config.bounces,
                      int(frame_seed) & _M32, int(sample_offset),
                      _inv_spp(config, normalize),
                      config.level, config.defocus,
-                     config.diffuse_sampling == "cosine", mode[0] == "split",
-                     mode[1] == "candidates", pscene.gc, pscene.n_cand,
-                     pscene.cand_off, not exact_rng,
-                     fast_rng.words_per_bounce(), fuse)
-    render_tiles.launches += 1
-    render_tiles.launches_by["exact" if exact_rng else "fast", fuse] += 1
-    return (*outs, segs[0])
+                     config.diffuse_sampling == "cosine", split, candidates,
+                     pscene.gc, pscene.n_cand, pscene.cand_off, not exact_rng,
+                     fast_rng.words_per_bounce(), fuse, grid, probe)
+    return (*outs, counters[0])
 
 
-render_tiles.launches = 0
-render_tiles.launches_by = collections.Counter()
+# The probe's clock sums, in the kernel's ProbeSlot order (megakernel.h).
+PROBE_SLOTS = ("total", "stage", "fetch", "segment", "walk0", "walk",
+               "triangles", "warp_idle", "issues", "segments")
+
+
+def render_tiles_probe(pscene: KernelScene, cam: CameraState,
+                       config: RenderConfig, frame_seed, sample_offset=0,
+                       normalize: bool = True, sl=None, slmeta=None,
+                       spp_map=None):
+    """One launch of the probe instance of the default kernel (the split,
+    the candidate walk, the fast draw path; :func:`kernel_fuse`'s fuse):
+    the kernel with ``clock64()`` reads around its stages, for measurement
+    only. Returns :func:`render_tiles`' outputs, which equal the default
+    instance's, and a dict of the clock sums over all threads
+    (:data:`PROBE_SLOTS`: cycles per stage; ``issues``, the warp-level
+    segment iterations, and ``segments``, the lanes' segments, whose ratio
+    is the mean of active lanes per iteration). Takes CUDA tensors only; it
+    is not counted in ``render_tiles.launches``."""
+    from .build import extension
+
+    dev = pscene.sph.device
+    if dev.type != "cuda":
+        raise ValueError("render_tiles_probe measures the CUDA kernel; it "
+                         f"takes CUDA tensors, not {dev}")
+    n_tiles = local_blocks(config)
+    _check_shortlists(pscene, config, sl, slmeta, n_tiles)
+    _check_accumulation(pscene, sample_offset, spp_map, n_tiles)
+    if kernel_mode(pscene, config, sl) != ("split", "candidates"):
+        raise ValueError("the probe instance runs split/candidates only")
+    probe = torch.zeros(extension().probe_slots, dtype=torch.int64,
+                        device=dev)
+    outs = _launch(pscene, cam, config, frame_seed, False, 0, sample_offset,
+                   n_tiles, normalize, sl, slmeta, spp_map,
+                   kernel_fuse(pscene, config, sl), probe)
+    return outs, dict(zip(PROBE_SLOTS, probe.tolist()))
 
 
 def _inv_spp(config: RenderConfig, normalize: bool) -> float:

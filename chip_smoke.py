@@ -45,6 +45,15 @@ against the exact one, statistically; (e) BASELINE config 5 on both paths
 (kernel ms unfused and at the rule's fuse), the fast kernel against its
 plain version there, and progressive passes under the default.
 
+Phase 8 holds the shard offsets, the sharded frames and the wavefront
+renderer. Phase 9 measures what bounds the kernel on the card: (a) each
+instance's registers, spills, shared memory and resident blocks per SM, and
+the work items of each main-path grid against them; (b) the probe instance
+of the default kernel (``clock64()`` per stage, active lanes per segment
+iteration) at the headline, under the adaptive pass-3 map and at config 5,
+each launch bit-equal to the default instance; (c) the default instance's
+IEEE sqrt in the SASS of the built library (``cuobjdump -sass``).
+
 Each phase prints its lines; the line before the last is the kernel table
 as JSON, and the last line is ``{"ok": true, "device": {...}}``. Any failed
 phase raises and the script exits nonzero without that line. It exits
@@ -53,6 +62,7 @@ nonzero at once when there is no CUDA card or no port beside it.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import subprocess
@@ -468,13 +478,16 @@ def main() -> int:
             # No single PyTorch call computes a path-traced frame.
             "library_ms": None})
 
-    entries.append(accumulation_phase(world, scene, cam, headline, card))
+    map_entry, map_pass = accumulation_phase(world, scene, cam, headline,
+                                             card)
+    entries.append(map_entry)
     entries.append(hybrid_phase(card))
     fast_entries = fast_phase(scene, cam, headline, card)
     entries += fast_entries
     entries.append(shard_phase(scene, cam, headline, card,
                                fast_entries[0]["bound_ms"],
                                fast_entries[0]["bound_by"]))
+    probe_phase(scene, cam, headline, card, map_pass)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -506,7 +519,8 @@ def accumulation_phase(world, scene, cam, headline, card) -> dict:
     """Phase 5: the accumulating path at the headline through
     ``ProgressiveRenderer(backend="pallas")`` and ``AdaptiveRenderer``, and
     the kernel under a real adaptive sample map against its plain version.
-    Returns the kernels-line entry of the map branch."""
+    Returns the kernels-line entry of the map branch, and the map with the
+    share of pixels it samples."""
     import torch
 
     from bevyray_tpu_torch import (AdaptiveRenderer, FusedRenderer,
@@ -686,7 +700,7 @@ def accumulation_phase(world, scene, cam, headline, card) -> dict:
             "replaces": f"{TPU_KERNEL}:1571", "launches": adaptive_launches,
             "max_abs_err": stats["max_abs"], "ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None}
+            "library_ms": None}, (spp_map, share)
 
 
 def hybrid_phase(card) -> dict:
@@ -1365,6 +1379,157 @@ def shard_phase(scene, cam, headline, card, head_bound, head_bound_by) -> dict:
             "launches": shard_launches, "max_abs_err": max_err,
             "ms": shard_ms, "plain_ms": plain_ms, "bound_ms": head_bound,
             "bound_by": head_bound_by, "library_ms": None}
+
+
+def sass_sqrt(library: Path, instance: str) -> dict:
+    """Phase 9(c): the SASS of ``instance`` (a mangled-name fragment) in the
+    built ``library``, by the toolkit's ``cuobjdump -sass``: its MUFU.RSQ
+    (the seed of each IEEE sqrt), the range check that follows each (the
+    inputs outside it leave the fast path), and the subroutines it calls."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    funcs = sass.split("Function : ")
+    body = next(f for f in funcs if instance in f.splitlines()[0])
+    lines = [ln.split("*/")[1].strip().rstrip(";").strip()
+             if "*/" in ln else "" for ln in body.splitlines()]
+    lines = [ln for ln in lines if ln]
+    checks, calls = collections.Counter(), collections.Counter()
+    for i, ln in enumerate(lines):
+        if ln.startswith("MUFU.RSQ"):
+            follow = [x for x in lines[i + 1:i + 4]
+                      if x.startswith(("IADD3", "ISETP", "VIADD"))]
+            checks[" ; ".join(" ".join(x.split()[:1] + x.split()[2:])
+                              for x in follow)] += 1
+        if "CALL" in ln:
+            calls[ln.split()[-1]] += 1
+    return {"instructions": len(lines),
+            "mufu_rsq": sum(ln.startswith("MUFU.RSQ") for ln in lines),
+            "range_checks": dict(checks), "calls": dict(calls)}
+
+
+def probe_phase(scene, cam, headline, card, map_pass) -> None:
+    """Phase 9: what bounds the kernel on this card. (a) Registers, spills,
+    shared memory and resident blocks per SM of every instance (and of the
+    probe) at fuse 1, 4 and 8, and the work items each main-path grid holds
+    against the resident blocks; (b) the probe instance (``clock64()`` per
+    stage) at the headline, under the adaptive pass-3 map and at config 5,
+    its outputs bit-equal to the default instance's; (c) the SASS of the
+    default instance's IEEE sqrt."""
+    import torch
+
+    from bevyray_tpu_torch.kernels.cuda import build
+    from bevyray_tpu_torch.kernels.cuda import megakernel as mk
+    from bevyray_tpu_torch.kernels.cuda.primary import device_shortlists_for
+
+    dev = torch.device("cuda", 0)
+    kscene = mk.prepare_kernel_scene(scene)
+    sl, slmeta = device_shortlists_for(kscene, cam, headline, SPP)
+    sl_cap = sl.shape[-1]
+
+    # (a) Every instance, and the probe, at the headline's shortlist size.
+    infos = {}
+    for split in (False, True):
+        for candidates in (False, True):
+            for fast_rng in (False, True):
+                for probe in (False, True):
+                    if probe and not (split and candidates and fast_rng):
+                        continue
+                    name = (f"{'split' if split else 'off'}/"
+                            f"{'candidates' if candidates else 'grouped'}/"
+                            f"{'fast' if fast_rng else 'exact'}"
+                            + ("/probe" if probe else ""))
+                    by_fuse = {f: mk.instance_info(dev, split, candidates,
+                                                   fast_rng, f, sl_cap, probe)
+                               for f in ((1, 4, 8) if split else (1,))}
+                    first = by_fuse[1]
+                    infos[name] = by_fuse
+                    print(f"phase 9(a) {name}: {first['num_regs']} registers "
+                          f"per thread, {first['local_bytes']} spill bytes, "
+                          f"{first['static_smem']} B static shared, resident "
+                          f"blocks per SM by fuse "
+                          f"{ {f: i['blocks_per_sm'] for f, i in by_fuse.items()} } "
+                          f"(dynamic shared "
+                          f"{ {f: i['dynamic_smem'] for f, i in by_fuse.items()} } "
+                          f"B), {first['n_sms']} SMs | {card}", flush=True)
+    default = infos["split/candidates/fast"]
+    n_sms = default[1]["n_sms"]
+    for what, n_tiles, fuse in (("headline", 510, 4), ("headline fuse 1", 510, 1),
+                                ("config 5", 240, 4), ("(3,1) shard", 170, 4)):
+        per_sm = default[fuse]["blocks_per_sm"]
+        resident = per_sm * n_sms
+        grid = mk.persistent_grid(n_tiles, per_sm, n_sms)
+        sizes = [hi - lo for lo, hi in mk.work_items(n_tiles, fuse, grid,
+                                                     True)]
+        old_grid = -(-n_tiles // fuse) * mk.SLICES
+        print(f"phase 9(a) {what}: {n_tiles} blocks at fuse {fuse}; the grid "
+              f"before the persistent kernel, {old_grid} CUDA blocks of "
+              f"{256 * fuse} pixels, was {old_grid / resident:.3f} waves of "
+              f"{resident} resident blocks; persistent grid {grid}, "
+              f"{n_tiles * mk.SLICES} one-unit work items "
+              f"({n_tiles * mk.SLICES / grid:.3f} a block), under a sample "
+              f"map {len(sizes)} of {max(sizes)} to {min(sizes)} 256-lane "
+              f"units ({len(sizes) / grid:.3f} a block)", flush=True)
+
+    # (b) The probe at three cells, each launch against the default
+    # instance's bits, with both kernels' ms.
+    def shares(clk) -> dict:
+        total = clk["total"]
+        shade = (clk["segment"] - clk["walk0"] - clk["walk"]
+                 - clk["triangles"])
+        parts = {"walk0 (bounce-0 shortlist)": clk["walk0"],
+                 "walk (candidates)": clk["walk"],
+                 "triangles": clk["triangles"],
+                 "shading, draws, raygen, harvest": shade,
+                 "taking pixels": clk["fetch"],
+                 "taking items, staging": clk["stage"],
+                 "lane idle in its warp": clk["warp_idle"]}
+        # The clock reads around the item's barrier may be scheduled across
+        # it, so its wait is counted with the loop's other overhead.
+        parts["item barrier, other"] = total - sum(parts.values())
+        return {k: round(v / total, 4) for k, v in parts.items()}
+
+    world5, config5 = config5_world()
+    cam5 = world5.camera_state(aspect=16 / 9)
+    k5 = mk.prepare_kernel_scene(world5.extract(with_bvh=False))
+    sl5, slmeta5 = device_shortlists_for(k5, cam5, config5, SPP)
+    spp_map, share = map_pass
+    cells = [("headline", kscene, cam, headline, sl, slmeta, {}),
+             (f"adaptive pass-{MAP_PASS} map ({share:.4f} sampled)", kscene,
+              cam, headline, sl, slmeta,
+              dict(spp_map=spp_map, sample_offset=MAP_OFFSET,
+                   normalize=False)),
+             ("config 5", k5, cam5, config5, sl5, slmeta5, {})]
+    for what, ks, cm, cfg, s_l, s_m, extra in cells:
+        want = mk.render_tiles(ks, cm, cfg, 1, exact_rng=False, sl=s_l,
+                               slmeta=s_m, **extra)
+        got, clk = mk.render_tiles_probe(ks, cm, cfg, 1, sl=s_l, slmeta=s_m,
+                                         **extra)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)) or (
+                clk["segments"] != int(want[4])):
+            raise SystemExit(f"phase 9(b) {what}: the probe instance differs "
+                             "from the default instance")
+        ms = cuda_ms(lambda: mk.render_tiles(ks, cm, cfg, 1, exact_rng=False,
+                                             sl=s_l, slmeta=s_m, **extra), 3)
+        probe_ms = cuda_ms(lambda: mk.render_tiles_probe(
+            ks, cm, cfg, 1, sl=s_l, slmeta=s_m, **extra), 3)
+        print(f"phase 9(b) probe {what}, split/candidates fast fuse "
+              f"{mk.kernel_fuse(ks, cfg, s_l)}: bit-equal to the default "
+              f"instance, {clk['segments']} segments; mean active lanes per "
+              f"segment iteration {clk['segments'] / clk['issues']:.2f} of "
+              f"32; cycle shares {json.dumps(shares(clk))}; kernel "
+              f"{ms:.3f} ms, probe {probe_ms:.3f} ms | {card}", flush=True)
+
+    # (c) The IEEE sqrt in the default instance's SASS.
+    library = next(build.BUILD_DIR.glob("*.so"))
+    found = sass_sqrt(library, "render_kernelILb1ELb1ELb1ELb0E")
+    print(f"phase 9(c) SASS of split/candidates/fast ({library.name}): "
+          f"{json.dumps(found)}", flush=True)
+    if not found["mufu_rsq"]:
+        raise SystemExit("phase 9(c): no MUFU.RSQ in the default instance")
 
 
 if __name__ == "__main__":

@@ -559,3 +559,179 @@ def test_cuda_shards_match_plain_version_on_card(exact_rng):
         assert total == int(whole[4])
     finally:
         mk.PHASE_FUSE = old
+
+
+@pytest.mark.parametrize("n_tiles,fuse,grid", [
+    (510, 4, 528), (510, 1, 528), (240, 4, 528), (170, 4, 528), (3, 2, 48),
+    (6, 8, 96), (1, 1, 16)])
+@pytest.mark.parametrize("sampled", [False, True], ids=["dense", "sampled"])
+def test_work_items_partition_the_units(n_tiles, fuse, grid, sampled):
+    """The items of the headline, its unfused grid, BASELINE config 5, a
+    (3,1) shard of the headline and small launches: consecutive unit ranges
+    that cover every unit of the local blocks once (no padded half). Without
+    a sample map each is one unit; under one none crosses a run of ``fuse``
+    blocks, none is larger than 1 / (GUIDE x grid) of the units left but
+    one unit, and the last ones are one unit each."""
+    items = mk.work_items(n_tiles, fuse, grid, sampled)
+    n_units, run = n_tiles * mk.SLICES, fuse * mk.SLICES
+    assert items[0][0] == 0 and items[-1][1] == n_units
+    assert all(a[1] == b[0] for a, b in zip(items, items[1:]))
+    for lo, hi in items:
+        assert 1 <= hi - lo <= max((n_units - lo) // (mk.GUIDE * grid), 1)
+        assert lo // run == (hi - 1) // run
+    assert items[-1][1] - items[-1][0] == 1
+    if not sampled:
+        assert len(items) == n_units
+    elif n_units >= 4 * mk.GUIDE * grid:
+        assert len(items) < n_units
+    assert mk.SLICES * 256 == mk.TILE
+
+
+def test_persistent_grid_fills_the_card_or_the_work():
+    """The grid is the resident blocks the card holds at once, or one block
+    per unit where there are fewer; an instance that fits on no SM
+    raises."""
+    assert mk.persistent_grid(510, 4, 132) == 528
+    assert mk.persistent_grid(3, 4, 132) == 48
+    with pytest.raises(ValueError, match="does not fit"):
+        mk.persistent_grid(510, 0, 132)
+
+
+def test_probe_slots_follow_the_kernel_header():
+    """The wrapper names the probe's sums in the order of the kernel's
+    ``ProbeSlot`` enum (csrc/megakernel.h)."""
+    import re
+    from pathlib import Path
+
+    header = (Path(mk.__file__).parent / "csrc" / "megakernel.h").read_text()
+    body = re.search(r"enum ProbeSlot \{(.*?)\};", header, re.S).group(1)
+    names = [n.strip() for n in body.split(",") if n.strip()]
+    assert names[-1] == "kProbeSlots"
+    snake = [re.sub(r"(?<=[a-z0-9])(?=[A-Z])", "_", n[len("kProbe"):]).lower()
+             for n in names[:-1]]
+    assert tuple(snake) == mk.PROBE_SLOTS
+
+
+def test_probe_takes_cuda_tensors_only():
+    """The probe measures the CUDA kernel: on CPU tensors it raises, and the
+    extension is not built."""
+    _, _, kscene, pcam = _inputs(jrtiow.simple_scene(), 16, 16)
+    cfg = bt.RenderConfig(width=16, height=16, **SLICE)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        mk.render_tiles_probe(kscene, pcam, cfg, 1)
+    assert build._extension is None
+
+
+def _card_scene(world, width, height, spp=4, **options):
+    """A scene, camera, config and shortlists on the card."""
+    dev = torch.device("cuda", 0)
+    cfg = bt.RenderConfig(width=width, height=height, samples_per_pixel=spp,
+                          bounces=4, level=3, pallas_primary="split",
+                          pallas_intersect="candidates", **options)
+    kscene = mk.prepare_kernel_scene(world.extract(with_bvh=False, device=dev))
+    cam = world.camera_state(aspect=width / height, device=dev)
+    sl, slmeta = primary.device_shortlists_for(kscene, cam, cfg, spp)
+    return kscene, cam, cfg, sl, slmeta
+
+
+def _bit_equal(got, want):
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fuse", [1, 2, 4, 8])
+@pytest.mark.parametrize("exact_rng", [True, False], ids=["exact", "fast"])
+def test_cuda_persistent_kernel_every_fuse(fuse, exact_rng):
+    """On the card: the persistent kernel against its plain version at
+    192x128 (6 blocks, so fuses 4 and 8 pad their tail item), bit-equal
+    with equal segments, on both draw paths."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs this check there")
+    kscene, cam, cfg, sl, slmeta = _card_scene(bt.rtiow.final_scene(seed=42),
+                                               192, 128)
+    old = mk.PHASE_FUSE
+    mk.PHASE_FUSE = fuse
+    try:
+        assert mk.kernel_fuse(kscene, cfg, sl) == fuse
+        run = dict(exact_rng=exact_rng, sl=sl, slmeta=slmeta)
+        _bit_equal(mk.render_tiles(kscene, cam, cfg, 7, **run),
+                   mk.render_tiles_reference(kscene, cam, cfg, 7, **run))
+    finally:
+        mk.PHASE_FUSE = old
+
+
+@pytest.mark.cuda
+def test_cuda_shard_with_padded_tail_under_fuse_4():
+    """On the card: 2 shards of 3 blocks of a mesh scene under fuse 4, so
+    each shard's one item pads a half that would be the other shard's
+    block; each shard bit-equal to its plain version, and their segments
+    sum to the whole frame's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs this check there")
+    world = bt.rtiow.simple_scene()
+    world.spawn_mesh(bt.Transform.from_xyz(0.3, 0.4, 1.0), bt.cube_mesh(0.5),
+                     bt.StandardMaterial(base_color=(0.9, 0.6, 0.2),
+                                         metallic=1.0))
+    kscene, cam, cfg, sl, slmeta = _card_scene(world, 128, 192, spp=2)
+    old = mk.PHASE_FUSE
+    mk.PHASE_FUSE = 4
+    try:
+        total = 0
+        for i in range(2):
+            run = dict(exact_rng=False, block_offset=3 * i, n_blocks_local=3,
+                       normalize=False, sl=sl[3 * i:3 * i + 3],
+                       slmeta=slmeta[3 * i:3 * i + 3])
+            assert mk.kernel_fuse(kscene, cfg, sl, 3) == 4
+            got = mk.render_tiles(kscene, cam, cfg, 7, **run)
+            _bit_equal(got, mk.render_tiles_reference(kscene, cam, cfg, 7,
+                                                      **run))
+            total += int(got[4])
+        assert total == int(mk.render_tiles(kscene, cam, cfg, 7, sl=sl,
+                                            slmeta=slmeta)[4])
+    finally:
+        mk.PHASE_FUSE = old
+
+
+@pytest.mark.cuda
+def test_cuda_zero_targets_and_a_partial_block_row():
+    """On the card: 192x100, whose last block row lies partly outside the
+    frame, under a sample map with targets 0-4 at a sample offset: sums
+    bit-equal to the plain version's, and every lane of target 0 or outside
+    the frame written as exact zeros."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs this check there")
+    kscene, cam, cfg, sl, slmeta = _card_scene(bt.rtiow.final_scene(seed=42),
+                                               192, 100)
+    targets = np.random.default_rng(3).integers(0, 5, 192 * 100)
+    spp_map = mk.shuffle_blocks(torch.as_tensor(targets, dtype=torch.int32),
+                                cfg).to(kscene.sph.device)
+    run = dict(exact_rng=False, sl=sl, slmeta=slmeta, spp_map=spp_map,
+               sample_offset=32, normalize=False)
+    got = mk.render_tiles(kscene, cam, cfg, 7, **run)
+    _bit_equal(got, mk.render_tiles_reference(kscene, cam, cfg, 7, **run))
+    idle = spp_map.reshape(-1) == 0
+    assert int(idle.sum()) > 6 * mk.TILE - 192 * 100
+    for out in got[:4]:
+        assert not bool(out[idle].any())
+
+
+@pytest.mark.cuda
+def test_cuda_back_to_back_launches_take_fresh_counters():
+    """On the card: two launches queued back to back, and then the probe
+    instance, each see a fresh work counter: the same bits and segment
+    count as the plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs this check there")
+    kscene, cam, cfg, sl, slmeta = _card_scene(bt.rtiow.final_scene(seed=42),
+                                               192, 128)
+    run = dict(exact_rng=False, sl=sl, slmeta=slmeta)
+    first = mk.render_tiles(kscene, cam, cfg, 7, **run)
+    second = mk.render_tiles(kscene, cam, cfg, 7, **run)
+    probed, clocks = mk.render_tiles_probe(kscene, cam, cfg, 7, sl=sl,
+                                           slmeta=slmeta)
+    want = mk.render_tiles_reference(kscene, cam, cfg, 7, **run)
+    for got in (first, second, probed):
+        _bit_equal(got, want)
+    assert clocks["segments"] == int(want[4])
+    assert 0 < clocks["issues"] <= clocks["segments"]

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Headline frame time of two trees of the port on one CUDA card, in turns.
+"""Frame and kernel times of two trees of the port on one CUDA card, in turns.
 
     python3 tests/torch_headline_ab.py OTHER_TREE [--frames 5] [--exact-rng]
                                       [--phase-fuse N]
@@ -7,17 +7,22 @@
 OTHER_TREE is another checkout of the repository (for example the parent
 commit unpacked with ``git archive`` into a directory that ``.gitignore``
 lists). In separate processes, in the order other, this, this, other, each
-arm builds its tree's CUDA kernel (into that tree's ``build/torch_ext/``),
-renders the default-config headline frame through ``FusedRenderer`` (RTiOW
-final scene, 1920x1080, 16 spp, 4 bounces, level 3) once to warm up, then
-``--frames`` frames with seeds 1, 2, ..., and prints its p50 ms and segments
-per frame as JSON. ``--exact-rng`` passes ``exact_rng=True`` to both trees'
-renderers, which holds the exact PCG path of a tree whose default draws
-from the fast path against an older tree's. ``--phase-fuse N`` sets the
-block fusion ``PHASE_FUSE`` of both trees' kernels (a tree from before its
-port has none and ignores it), which holds the draw path of a tree that
-fuses by default against an older tree's unfused kernel. The last lines
-give the card (name, power limit) and each tree's runs. Needs one CUDA
+arm builds its tree's CUDA kernel (into that tree's ``build/torch_ext/``)
+and runs three cells, each once to warm up and then ``--frames`` frames
+with seeds 1, 2, ...: the default-config headline frame through
+``FusedRenderer`` (RTiOW final scene, 1920x1080, 16 spp, 4 bounces, level
+3); BASELINE config 5 (the final scene with a metallic cube mesh, 1280x720,
+16 spp, 4 bounces, level 2, over the raster layer); and the headline on the
+block-split mesh (3, 1) through ``render_frame_sharded_pallas`` on
+``cuda:0``. Per cell it prints the p50 ms, the segments per frame and the
+kernel's ms (CUDA events, mean of 3 launches of ``render_tiles`` on the
+cell's inputs; for the mesh the sum over its 3 shards) as JSON.
+``--exact-rng`` passes ``exact_rng=True`` to both trees' renderers and
+kernel launches, which holds the exact PCG path of a tree whose default
+draws from the fast path against an older tree's. ``--phase-fuse N`` sets
+the block fusion ``PHASE_FUSE`` of both trees' kernels (a tree from before
+its port has none and ignores it). The last lines give the card (name,
+power limit) and each tree's p50s and kernel ms per cell. Needs one CUDA
 card; the two trees must share the public API.
 """
 
@@ -32,34 +37,92 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 ARM = """
-import json, sys, time
+import dataclasses, json, sys, time
 sys.path.insert(0, ".")
 import torch
-from bevyray_tpu_torch import FusedRenderer, RenderConfig, rtiow
+from bevyray_tpu_torch import (FusedRenderer, RenderConfig, StandardMaterial,
+                               Transform, cube_mesh, rtiow)
+from bevyray_tpu_torch.engine.raster import raster_layer
 from bevyray_tpu_torch.kernels.cuda import build, megakernel
+from bevyray_tpu_torch.kernels.cuda.primary import device_shortlists_for
+from bevyray_tpu_torch.parallel.sharding import (make_mesh,
+                                                 render_frame_sharded_pallas)
 {fuse}
 t0 = time.perf_counter()
 build.extension()
 build_s = time.perf_counter() - t0
+rng = dict({rng})
+
+
+def frames(render):
+    render(0)
+    torch.cuda.synchronize()
+    times, segments = [], []
+    for i in range({frames}):
+        t0 = time.perf_counter()
+        frame = render(i + 1)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        segments.append(int(frame.rays_traced))
+    return {{"p50_ms": sorted(times)[len(times) // 2], "ms": times,
+             "segments": segments}}
+
+
+def kernel_ms(kscene, cam, config, shards=((0, None),)):
+    sl = device_shortlists_for(kscene, cam, config,
+                               config.samples_per_pixel)
+    total = 0.0
+    for lo, n in shards:
+        rows = slice(lo, None if n is None else lo + n)
+        run = dict(rng, block_offset=lo, n_blocks_local=n,
+                   sl=None if sl[0] is None else sl[0][rows],
+                   slmeta=None if sl[1] is None else sl[1][rows])
+        megakernel.render_tiles(kscene, cam, config, 1, **run)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            megakernel.render_tiles(kscene, cam, config, 1, **run)
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end) / 3
+    return total
+
+
 world = rtiow.final_scene(seed=42)
 scene = world.extract(with_bvh=False)
 cam = world.camera_state(aspect=1920 / 1080)
-renderer = FusedRenderer(RenderConfig(1920, 1080, 16, 4, level=3){rng})
-renderer.render(scene, cam, seed=0)
-torch.cuda.synchronize()
-times, segments = [], []
-for i in range({frames}):
-    t0 = time.perf_counter()
-    frame = renderer.render(scene, cam, seed=i + 1)
-    torch.cuda.synchronize()
-    times.append((time.perf_counter() - t0) * 1e3)
-    segments.append(int(frame.rays_traced))
-print(json.dumps({{"p50_ms": sorted(times)[len(times) // 2], "ms": times,
-                  "segments": segments, "mode": renderer.last_mode,
-                  "fuse": getattr(renderer, "last_fuse", 1),
-                  "exact_rng": getattr(renderer, "last_exact_rng",
-                                       renderer.exact_rng),
-                  "build_s": build_s}}))
+headline = RenderConfig(1920, 1080, 16, 4, level=3)
+renderer = FusedRenderer(headline, **rng)
+cells = {{"headline": frames(lambda s: renderer.render(scene, cam, seed=s))}}
+kscene = renderer.prepare(scene)
+cells["headline"].update(mode=renderer.last_mode,
+                         fuse=getattr(renderer, "last_fuse", 1),
+                         exact_rng=getattr(renderer, "last_exact_rng",
+                                           renderer.exact_rng),
+                         kernel_ms=kernel_ms(kscene, cam, headline))
+
+world5 = rtiow.final_scene(seed=42)
+world5.spawn_mesh(Transform.from_xyz(-4.0, 0.6, 1.0), cube_mesh(1.2),
+                  StandardMaterial(base_color=(0.2, 0.5, 0.9), metallic=1.0,
+                                   perceptual_roughness=0.15))
+config5 = RenderConfig(1280, 720, 16, 4, level=2)
+cam5 = world5.camera_state(aspect=16 / 9)
+scene5 = world5.extract(with_bvh=False)
+rc, rd = raster_layer(world5, cam5, config5)
+renderer5 = FusedRenderer(config5, **rng)
+cells["config5"] = frames(lambda s: renderer5.render(
+    scene5, cam5, seed=s, raster_color=rc, raster_depth=rd))
+cells["config5"].update(fuse=getattr(renderer5, "last_fuse", 1),
+                        kernel_ms=kernel_ms(renderer5.prepare(scene5), cam5,
+                                            config5))
+
+mesh = make_mesh(3, 1, devices=["cuda:0"] * 3)
+cells["mesh31"] = frames(lambda s: render_frame_sharded_pallas(
+    mesh, scene, cam, headline, s))
+cells["mesh31"]["kernel_ms"] = kernel_ms(
+    kscene, cam, headline, [(170 * i, 170) for i in range(3)])
+print(json.dumps({{"cells": cells, "build_s": build_s}}))
 """
 
 
@@ -83,7 +146,7 @@ def main() -> int:
                       ("other", other)):
         out = subprocess.run([sys.executable, "-c",
                               ARM.format(frames=args.frames, rng=(
-                                  ", exact_rng=True" if args.exact_rng
+                                  "exact_rng=True" if args.exact_rng
                                   else ""), fuse=(
                                   f"megakernel.PHASE_FUSE = {args.phase_fuse}"
                                   if args.phase_fuse else ""))], cwd=tree,
@@ -95,7 +158,9 @@ def main() -> int:
         runs[arm].append(result)
         print(f"{arm} ({tree}): {json.dumps(result)}", flush=True)
     print(f"card: {card}")
-    print(json.dumps({arm: [r["p50_ms"] for r in rs]
+    print(json.dumps({arm: {cell: {key: [r["cells"][cell][key] for r in rs]
+                                   for key in ("p50_ms", "kernel_ms")}
+                            for cell in rs[0]["cells"]}
                       for arm, rs in runs.items()}))
     return 0
 
