@@ -8,7 +8,9 @@ torch and never jax. Public surface so far:
                                    RenderConfig, World, rtiow, Transform,
                                    StandardMaterial, ...)
 
-Views are in ``engine.views``, sharded frames in ``parallel.sharding``.
+Views are in ``engine.views``, sharded frames in ``parallel.sharding``, the
+BVH in ``bvh``, the denoiser in ``engine.denoise``; the command line is
+``python -m bevyray_tpu_torch.app.cli`` (script ``bevyray-tpu-torch``).
 """
 
 from .core.types import CameraState, RenderConfig, SceneBuffers
@@ -27,7 +29,7 @@ __all__ = [
     "AdaptiveRenderer", "CameraState", "FrameResult", "FusedRenderer",
     "PerspectiveProjection", "ProgressiveRenderer", "RaytracedCamera",
     "RaytracedMesh", "RaytracedSphere", "Raytracing", "RenderConfig",
-    "SceneBuffers", "StandardMaterial", "Transform", "Vec3", "World",
+    "Renderer", "SceneBuffers", "StandardMaterial", "Transform", "Vec3", "World",
     "cube_mesh", "rtiow",
 ]
 

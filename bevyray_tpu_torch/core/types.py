@@ -80,15 +80,38 @@ class Triangles(NamedTuple):
         return self.ax.shape[0]
 
 
+class BvhNodes(NamedTuple):
+    """Flattened BVH2 (reference ``BVHNode``: extract.rs:229-237, wgsl:79-87).
+
+    ``index`` is the first model index when ``count > 0`` (leaf), else the first of
+    two adjacent children. ``n_nodes`` is the live prefix length (arrays are padded).
+    """
+
+    min_x: torch.Tensor
+    min_y: torch.Tensor
+    min_z: torch.Tensor
+    max_x: torch.Tensor
+    max_y: torch.Tensor
+    max_z: torch.Tensor
+    index: torch.Tensor    # i32
+    count: torch.Tensor    # i32
+    n_nodes: torch.Tensor  # 0-d i32
+    # Multi-prim leaves (obvhs model_count, wgsl:311): leaf k's ORIGINAL prim
+    # id is prim_ids[index + k] — an indirection instead of the reference's
+    # model-array reorder, so primitive tables stay in extraction order.
+    # None for 1-prim-leaf trees, where index is the prim id directly.
+    prim_ids: Optional[torch.Tensor] = None  # i32, padded
+
+
 class SceneBuffers(NamedTuple):
-    """The device scene. ``bvh`` and ``tri_bvh`` stay None until the BVH is
-    ported (ROADMAP §A item 8); the fields keep the JAX package's layout."""
+    """The device scene, field for field the JAX package's layout. ``bvh``
+    and ``tri_bvh`` are None for a scene extracted without a BVH."""
 
     spheres: Spheres
     materials: Materials
-    bvh: None = None
+    bvh: Optional[BvhNodes] = None
     triangles: Optional[Triangles] = None
-    tri_bvh: None = None
+    tri_bvh: Optional[BvhNodes] = None
 
 
 class CameraState(NamedTuple):
@@ -258,29 +281,27 @@ def scene_from_numpy(scene, cam, device=None):
     :func:`resolve_device`).
 
     Field names and layouts are the same in both packages, so each leaf is
-    carried over as it is. A scene with a BVH raises: the BVH is not ported yet
-    (ROADMAP §A item 8).
+    carried over as it is, the BVH tables (``n_nodes`` a scalar, ``prim_ids``
+    only for multi-prim leaves) among them.
     """
-    if scene.bvh is not None or scene.tri_bvh is not None:
-        raise NotImplementedError(
-            "BVH tables are not ported yet (ROADMAP §A item 8); extract the "
-            "scene with with_bvh=False")
     device = resolve_device(device)
 
     def t(v):
         return torch.as_tensor(np.array(v), device=device)
 
     def table(cls, src):
-        return cls(*(t(getattr(src, f)) for f in cls._fields))
+        return None if src is None else cls(
+            *(None if getattr(src, f) is None else t(getattr(src, f))
+              for f in cls._fields))
 
     def vec(v):
         return Vec3(t(v.x), t(v.y), t(v.z))
 
-    tris = (None if scene.triangles is None
-            else table(Triangles, scene.triangles))
     buffers = SceneBuffers(spheres=table(Spheres, scene.spheres),
                            materials=table(Materials, scene.materials),
-                           triangles=tris)
+                           bvh=table(BvhNodes, scene.bvh),
+                           triangles=table(Triangles, scene.triangles),
+                           tri_bvh=table(BvhNodes, scene.tri_bvh))
     camera = CameraState(
         position=vec(cam.position), direction=vec(cam.direction),
         up=vec(cam.up),

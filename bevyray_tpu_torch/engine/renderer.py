@@ -4,8 +4,9 @@ Counterpart of ``bevyray_tpu/engine/renderer.py``, the JAX package's public
 default. The reference runs one fragment thread per pixel with a sample loop
 and a bounce loop of per-thread ``break``s (raytrace.wgsl:93-224); here the
 whole frame is one flat batch of rays, one per pixel, and each bounce is a
-handful of dense tensor operations over it: the chunked sphere test
-(:func:`..kernels.intersect.intersect_spheres`), the hit and material
+handful of tensor operations over it: the chunked sphere test
+(:func:`..kernels.intersect.intersect_spheres`) or the BVH walk
+(:mod:`..kernels.traverse`), the hit and material
 gathers, :func:`..kernels.shade.scatter` and the sky. The JAX package wrote
 this step in jnp rather than Pallas, so it runs on PyTorch's own operators
 on either device; the fused CUDA kernel is :class:`.fused_renderer.FusedRenderer`.
@@ -34,6 +35,7 @@ from ..kernels.intersect import (gather_materials, intersect_spheres,
                                  merge_hits, triangle_hit_info)
 from ..kernels.raygen import generate_rays, pixel_uv
 from ..kernels.shade import scatter
+from ..kernels.traverse import intersect_bvh, intersect_bvh_triangles
 from . import slots
 
 _M32 = 0xFFFFFFFF
@@ -84,22 +86,33 @@ def _pixels(color: Vec3, n: int) -> torch.Tensor:
 
 def resolve_intersect_backend(scene: SceneBuffers,
                               config: RenderConfig) -> str:
-    """The sphere test's backend, resolved once per frame. The port never
-    runs on a TPU, so "auto" takes the JAX package's off-TPU rule: the BVH
-    only for a scene that carries one and holds over 4096 primitives. The
-    BVH is not ported (ROADMAP A8) and no scene of the port carries one, so
-    "auto" resolves to "brute", and an explicit "bvh" raises."""
-    if config.intersect_backend == "bvh":
-        raise NotImplementedError(
-            "intersect_backend='bvh' needs the BVH, which is not ported yet "
-            "(ROADMAP A8); use 'auto' or 'brute'")
-    return "brute"
+    """Resolve ``'auto'`` to a concrete backend once per frame, considering
+    all primitive types, so the sphere and triangle paths agree. The port
+    never runs on a TPU, so "auto" takes the JAX package's off-TPU rule: the
+    BVH for a scene that carries one and whose largest table holds over 4096
+    rows, else the dense test."""
+    backend = config.intersect_backend
+    if backend == "auto":
+        cap = scene.spheres.capacity
+        if scene.triangles is not None:
+            cap = max(cap, scene.triangles.capacity)
+        has_bvh = scene.bvh is not None or scene.tri_bvh is not None
+        backend = "bvh" if (has_bvh and cap > 4096) else "brute"
+    return backend
 
 
 def make_intersect_fn(scene: SceneBuffers, config: RenderConfig):
     """``(origin, direction) -> (t, index)`` of the resolved backend: the
-    dense chunked test over the whole sphere table."""
-    resolve_intersect_backend(scene, config)
+    dense chunked test over the whole sphere table ("brute") or the bounded-
+    stack walk of the scene's BVH (:mod:`..kernels.traverse`, "bvh")."""
+    if resolve_intersect_backend(scene, config) == "bvh":
+        if scene.bvh is not None:
+            return lambda o, d: intersect_bvh(
+                o, d, scene.spheres, scene.bvh,
+                max_leaf_size=config.bvh_leaf_size)
+        if config.intersect_backend == "bvh":
+            raise ValueError("bvh backend requested but scene has no BVH")
+        # "auto" chose the BVH for the triangles; the spheres have none.
     return lambda o, d: intersect_spheres(o, d, scene.spheres,
                                           config.sphere_chunk)
 
@@ -141,6 +154,8 @@ def trace_sample(scene: SceneBuffers, cam: CameraState, config: RenderConfig,
     """
     if intersect_fn is None:
         intersect_fn = make_intersect_fn(scene, config)
+    tri_bvh = (scene.tri_bvh
+               if resolve_intersect_backend(scene, config) == "bvh" else None)
     dev = u.device
     n = pixel_ids.shape[0]
     stream = rng.stream_init(pixel_ids, int(sample_index) & _M32,
@@ -170,7 +185,12 @@ def trace_sample(scene: SceneBuffers, cam: CameraState, config: RenderConfig,
         t, idx = intersect_fn(lo, ld)
         hit = make_hit_info(lo, ld, t, idx, scene.spheres)
         if scene.triangles is not None:
-            tt, ti = intersect_triangles(lo, ld, scene.triangles)
+            if tri_bvh is not None:
+                tt, ti = intersect_bvh_triangles(
+                    lo, ld, scene.triangles, tri_bvh,
+                    max_leaf_size=config.bvh_leaf_size)
+            else:
+                tt, ti = intersect_triangles(lo, ld, scene.triangles)
             hit = merge_hits(hit, triangle_hit_info(lo, ld, tt, ti,
                                                     scene.triangles))
         if bounce == 0:                               # wgsl:193-195

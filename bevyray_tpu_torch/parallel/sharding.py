@@ -106,11 +106,10 @@ def _camera_on(cam: CameraState, dev) -> CameraState:
 
 def _scene_on(scene: SceneBuffers, dev) -> SceneBuffers:
     def table(t):
-        return None if t is None else type(t)(*(c.to(dev) for c in t))
+        return None if t is None else type(t)(
+            *(None if c is None else c.to(dev) for c in t))
 
-    return scene._replace(spheres=table(scene.spheres),
-                          materials=table(scene.materials),
-                          triangles=table(scene.triangles))
+    return SceneBuffers(*(table(t) for t in scene))
 
 
 def _psum(parts: list, dev):

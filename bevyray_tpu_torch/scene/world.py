@@ -13,6 +13,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..bvh import build_scene_bvh, build_triangle_bvh
 from ..core.types import (CameraState, SceneBuffers, make_materials_np,
                           make_spheres_np, make_triangles_np, pad_to,
                           resolve_device)
@@ -203,15 +204,13 @@ class World:
         """Build (or fetch cached) scene tables on ``device`` (None: the CUDA
         card; without one it raises, see :func:`resolve_device`).
 
-        ``with_bvh=True`` raises until the BVH is ported (ROADMAP §A item 8);
-        the fused renderer needs none.
+        ``with_bvh``: also build the sphere BVH and, for meshes, the triangle
+        BVH on the host (:mod:`..bvh`). ``bvh_leaf_size``: max prims per BVH
+        leaf (obvhs multi-prim leaves; must match the renderer's
+        ``config.bvh_leaf_size`` when the bvh backend is used).
         """
-        if with_bvh:
-            raise NotImplementedError(
-                "the BVH is not ported yet (ROADMAP §A item 8); call "
-                "extract(with_bvh=False)")
         device = resolve_device(device)
-        key = (self._revision, capacity, bvh_leaf_size, device)
+        key = (self._revision, capacity, with_bvh, bvh_leaf_size, device)
         cached = self._extract_cache.get("scene")
         if cached is not None and cached[0] == key:
             return cached[1]
@@ -221,16 +220,27 @@ class World:
         spheres = make_spheres_np(centers, radii, mat_ids, cap, device=device)
 
         triangles = None
+        tri_bvh = None
         mesh_data = self.extract_meshes_host(first_material_id=len(radii))
         if mesh_data is not None:
             va, vb, vc, tri_mids, tri_mats = mesh_data
             triangles = make_triangles_np(va, vb, vc, tri_mids, device=device)
             mat_table = np.concatenate([mat_table, tri_mats], axis=0)
+            if with_bvh:
+                tri_bvh = build_triangle_bvh(va, vb, vc,
+                                             max_leaf_size=bvh_leaf_size,
+                                             device=device)
 
         materials = make_materials_np(
             mat_table, pad_to(max(mat_table.shape[0], cap, 1)), device=device)
-        scene = SceneBuffers(spheres=spheres, materials=materials,
-                             triangles=triangles)
+
+        bvh = None
+        if with_bvh and len(radii) > 0:
+            bvh = build_scene_bvh(centers, radii, max_leaf_size=bvh_leaf_size,
+                                  device=device)
+
+        scene = SceneBuffers(spheres=spheres, materials=materials, bvh=bvh,
+                             triangles=triangles, tri_bvh=tri_bvh)
         self._extract_cache["scene"] = (key, scene)
         return scene
 

@@ -54,6 +54,17 @@ iteration) at the headline, under the adaptive pass-3 map and at config 5,
 each launch bit-equal to the default instance; (c) the default instance's
 IEEE sqrt in the SASS of the built library (``cuobjdump -sass``).
 
+Phase 10 drives the port's command line in-process (``app.cli.main``) at
+its defaults (final scene, 1280x720, 16 spp, 4 bounces, level 3): (a)
+``render`` with backend auto, which extracts a BVH and resolves to "brute",
+bit-equal to ``Renderer.render``; (b) ``--backend bvh`` within 1e-6 of (a)
+with equal segments; (c) ``--backend pallas``, one launch of the CUDA
+kernel, bit-equal to ``FusedRenderer.render``; (d) ``--denoise 3`` equal to
+``atrous_denoise`` of (a)'s frame; (e) ``accumulate --adaptive-tolerance``
+on a scene that carries a BVH, and ``bench --backend pallas``, whose JSON
+names the card; (f) 4,971 spheres at 640x360, 4 spp, where "auto" walks the
+BVH of the native builder, against "brute".
+
 Each phase prints its lines; the line before the last is the kernel table
 as JSON, and the last line is ``{"ok": true, "device": {...}}``. Any failed
 phase raises and the script exits nonzero without that line. It exits
@@ -134,6 +145,23 @@ SHARD_FRAMES = 3       # timed frames per mesh
 SHARD_TOL, SHARD_DEPTH_RTOL = 1e-6, 1e-5
 WAVE_SIZE = (480, 270)  # the wavefront sharded step and its film
 WAVE_MESHES = ((2, 1, 2), (1, 2, 2))
+# Phase 10. The command line at its defaults (bevyray_tpu_torch/app/cli.py:
+# final scene, scene seed 42, 1280x720, 16 spp, 4 bounces, level 3, seed 1),
+# held against direct calls of the same renderers. CLI_ARGV goes after each
+# subcommand's own arguments (empty: the defaults, on the card).
+CLI_ARGV = []
+CLI_FRAME = dict(width=1280, height=720, samples_per_pixel=16, bounces=4,
+                 level=3)
+CLI_SEED, CLI_SCENE_SEED = 1, 42
+CLI_DENOISE = 3
+CLI_PASSES, CLI_TOLERANCE = 4, 0.05   # tests/test_adaptive.py:81
+CLI_BENCH_FRAMES = 4
+# "bvh" against "brute": the same t from the same operations, the first hit
+# along the walk against the lowest index on an exact tie (tests/test_bvh.py
+# :203's bar).
+BVH_TOL = 1e-6
+# (f): 4,971 spheres, over the 4,096 rows above which "auto" walks the BVH.
+BIG_GRID, BIG_SIZE, BIG_SPP = 35, (640, 360), 4
 
 
 def mesh_scene(copies=1):
@@ -488,6 +516,7 @@ def main() -> int:
                                fast_entries[0]["bound_ms"],
                                fast_entries[0]["bound_by"]))
     probe_phase(scene, cam, headline, card, map_pass)
+    cli_phase(card, dev)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1530,6 +1559,232 @@ def probe_phase(scene, cam, headline, card, map_pass) -> None:
           f"{json.dumps(found)}", flush=True)
     if not found["mufu_rsq"]:
         raise SystemExit("phase 9(c): no MUFU.RSQ in the default instance")
+
+
+def cli_phase(card, dev) -> None:
+    """Phase 10: the port's command line in-process (``app.cli.main``) at
+    its defaults, each run held against a direct call of the renderer it
+    drives: (a) ``render`` (backend auto: a BVH is extracted, 508 spheres
+    resolve to "brute"), bit-equal to ``Renderer.render``; (b) ``--backend
+    bvh`` within BVH_TOL of (a) with equal segments; (c) ``--backend
+    pallas``, which must launch the CUDA kernel, bit-equal to
+    ``FusedRenderer.render``; (d) ``--denoise`` equal to ``atrous_denoise``
+    of (a)'s frame with the CLI's guide; (e) ``accumulate`` with adaptive
+    sampling on a scene that carries a BVH, and ``bench --backend pallas``,
+    whose JSON names the card; (f) through the API, 4,971 spheres, where
+    "auto" walks the BVH built by the native builder, against "brute"."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    from bevyray_tpu_torch import (FusedRenderer, RaytracedCamera,
+                                   Raytracing, RenderConfig, Renderer, rtiow)
+    from bevyray_tpu_torch.app import cli
+    from bevyray_tpu_torch.bvh import build as bvh_build
+    from bevyray_tpu_torch.engine import renderer as renderer_mod
+    from bevyray_tpu_torch.engine.denoise import atrous_denoise
+    from bevyray_tpu_torch.kernels.cuda.megakernel import render_tiles
+    from bevyray_tpu_torch.utils import png
+
+    t_phase = time.perf_counter()
+    frames, written = [], []
+
+    def spy(cls):
+        real = cls.render
+
+        def render(self, scene, cam, seed, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frame = real(self, scene, cam, seed, **kw)
+            torch.cuda.synchronize()
+            frames.append((frame, (time.perf_counter() - t0) * 1e3, scene,
+                           renderer_mod.resolve_intersect_backend(
+                               scene, self.config)))
+            return frame
+        return real, render
+
+    def record_png(path, image):
+        written.append(image)
+        real_png(path, image)
+
+    real_png = png.write_png
+    spies = [(cls, *spy(cls)) for cls in (Renderer, FusedRenderer)]
+    for cls, _, render in spies:
+        cls.render = render
+    png.write_png = record_png
+    tmp = tempfile.TemporaryDirectory()
+
+    def run(*argv) -> str:
+        """``cli.main`` on argv (+ CLI_ARGV); its standard output."""
+        frames.clear()
+        written.clear()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main([*argv, "--out", f"{tmp.name}/{argv[0]}.png",
+                           *CLI_ARGV])
+        if rc != 0:
+            raise SystemExit(f"phase 10: {' '.join(argv)} exited {rc}")
+        return out.getvalue().strip()
+
+    try:
+        w, h = CLI_FRAME["width"], CLI_FRAME["height"]
+        spp = CLI_FRAME["samples_per_pixel"]
+        # (a) the defaults.
+        line = run("render")
+        if f"rendered {w}x{h} spp={spp}" not in line:
+            raise SystemExit(f"phase 10(a): the CLI's defaults are not "
+                             f"{w}x{h} spp={spp}: {line}")
+        frame_a, ms_a, scene_a, backend_a = frames[0]
+        world = rtiow.final_scene(
+            seed=CLI_SCENE_SEED,
+            camera=RaytracedCamera(level=Raytracing(CLI_FRAME["level"]),
+                                   sample_count=spp,
+                                   bounces=CLI_FRAME["bounces"],
+                                   aperture=0.0, focus_distance=3.0))
+        config = RenderConfig(**CLI_FRAME)
+        scene = world.extract(device=dev)
+        cam = world.camera_state(aspect=w / h, device=dev)
+        direct = Renderer(config).render(scene, cam, CLI_SEED)
+        if scene_a.bvh is None or backend_a != "brute" or not torch.equal(
+                frame_a.image, direct.image) or int(
+                    frame_a.rays_traced) != int(direct.rays_traced):
+            raise SystemExit(
+                f"phase 10(a): BVH extracted {scene_a.bvh is not None}, "
+                f"backend {backend_a} (must be brute), image bit-equal to "
+                f"Renderer.render {torch.equal(frame_a.image, direct.image)}")
+        if not torch.equal(torch.as_tensor(written[0]), direct.image.cpu()):
+            raise SystemExit("phase 10(a): the PNG's image is not the frame")
+        print(f"phase 10(a) render (defaults, backend auto -> {backend_a}, "
+              f"{world.n_spheres} spheres, BVH of {int(scene_a.bvh.n_nodes)} "
+              f"nodes extracted): bit-equal to Renderer.render; frame "
+              f"{ms_a:.3f} ms, {int(frame_a.rays_traced)} segments | {line} "
+              f"| {card}", flush=True)
+
+        # (b) the BVH walk.
+        line = run("render", "--backend", "bvh")
+        frame_b, ms_b, _, backend_b = frames[0]
+        diff = float((frame_b.image - frame_a.image).abs().max())
+        segs = (int(frame_b.rays_traced), int(frame_a.rays_traced))
+        print(f"phase 10(b) render --backend bvh ({backend_b}): max |d| "
+              f"{diff:.3g} against (a), segments {segs[0]} / {segs[1]}; frame "
+              f"{ms_b:.3f} ms against brute {ms_a:.3f} ms | {card}",
+              flush=True)
+        if backend_b != "bvh" or diff > BVH_TOL or segs[0] != segs[1]:
+            bad = (frame_b.image - frame_a.image).abs().amax(-1) > BVH_TOL
+            first = bad.nonzero()[:1].tolist()
+            raise SystemExit(f"phase 10(b): {int(bad.sum())} pixels past "
+                             f"{BVH_TOL} (first (y, x) {first}), segments "
+                             f"{segs}")
+
+        # (c) the fused CUDA kernel.
+        render_tiles.launches = 0
+        render_tiles.launches_by.clear()
+        line = run("render", "--backend", "pallas")
+        launches = dict(render_tiles.launches_by)
+        frame_c, ms_c, scene_c, _ = frames[0]
+        fused = FusedRenderer(config).render(
+            world.extract(with_bvh=False, device=dev), cam, CLI_SEED)
+        if render_tiles.launches < 1 or not torch.equal(frame_c.image,
+                                                        fused.image):
+            raise SystemExit(
+                f"phase 10(c): launches {launches}, image bit-equal to "
+                f"FusedRenderer.render {torch.equal(frame_c.image, fused.image)}")
+        print(f"phase 10(c) render --backend pallas: kernel launches "
+              f"{launches}; bit-equal to FusedRenderer.render; frame "
+              f"{ms_c:.3f} ms (the first of the CLI's renderer) | {card}",
+              flush=True)
+
+        # (d) the denoiser, guided by rt_depth (level 3: no raster layer).
+        t0 = time.perf_counter()
+        line = run("render", "--denoise", str(CLI_DENOISE))
+        ms_d = (time.perf_counter() - t0) * 1e3
+        den = atrous_denoise(frame_a.image, frame_a.rt_depth,
+                             iterations=CLI_DENOISE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        atrous_denoise(frame_a.image, frame_a.rt_depth, iterations=CLI_DENOISE)
+        torch.cuda.synchronize()
+        ms_den = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(frames[0][0].image, frame_a.image) or not (
+                torch.equal(torch.as_tensor(written[0]), den.cpu())):
+            raise SystemExit("phase 10(d): the denoised PNG is not "
+                             "atrous_denoise of the frame")
+        print(f"phase 10(d) render --denoise {CLI_DENOISE}: equal to "
+              f"atrous_denoise of (a)'s frame; denoise {ms_den:.3f} ms per "
+              f"call, the whole command {ms_d:.1f} ms | {card}", flush=True)
+
+        # (e) adaptive accumulation on a scene with a BVH, and the bench.
+        render_tiles.launches = 0
+        t0 = time.perf_counter()
+        line = run("accumulate", "--passes", str(CLI_PASSES),
+                   "--adaptive-tolerance", str(CLI_TOLERANCE))
+        ms_e = (time.perf_counter() - t0) * 1e3
+        if render_tiles.launches != CLI_PASSES or not bool(
+                torch.isfinite(torch.as_tensor(written[0])).all()):
+            raise SystemExit(f"phase 10(e): {render_tiles.launches} kernel "
+                             f"launches for {CLI_PASSES} adaptive passes")
+        print(f"phase 10(e) accumulate --passes {CLI_PASSES} "
+              f"--adaptive-tolerance {CLI_TOLERANCE} (scene with a BVH): "
+              f"{render_tiles.launches} kernel launches, {ms_e:.1f} ms in "
+              f"all | {line.splitlines()[0]} | {card}", flush=True)
+        render_tiles.launches = 0
+        line = run("bench", "--backend", "pallas", "--frames",
+                   str(CLI_BENCH_FRAMES))
+        rec = json.loads(line.splitlines()[-1])
+        if rec["device"] != torch.cuda.get_device_name(0) or (
+                render_tiles.launches != CLI_BENCH_FRAMES + 1):
+            raise SystemExit(f"phase 10(e) bench: device {rec['device']!r}, "
+                             f"{render_tiles.launches} launches")
+        print(f"phase 10(e) bench --backend pallas --frames "
+              f"{CLI_BENCH_FRAMES}: {json.dumps(rec)} | {card}", flush=True)
+    finally:
+        for cls, real, _ in spies:
+            cls.render = real
+        png.write_png = real_png
+        tmp.cleanup()
+
+    # (f) 4,971 spheres through the API: "auto" walks the BVH.
+    big = rtiow.final_scene(seed=CLI_SCENE_SEED, grid=BIG_GRID)
+    t0 = time.perf_counter()
+    big_scene = big.extract(device=dev)
+    torch.cuda.synchronize()
+    extract_ms = (time.perf_counter() - t0) * 1e3
+    builder = bvh_build.last_builder
+    centers, radii = big.extract_host()[:2]
+    t0 = time.perf_counter()
+    bvh_build.build_scene_bvh(centers, radii, device=dev)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    big_cam = big.camera_state(aspect=BIG_SIZE[0] / BIG_SIZE[1], device=dev)
+    out = {}
+    for backend in ("auto", "brute"):
+        cfg = RenderConfig(*BIG_SIZE, BIG_SPP, CLI_FRAME["bounces"],
+                           level=CLI_FRAME["level"], intersect_backend=backend)
+        renderer = Renderer(cfg)
+        resolved = renderer_mod.resolve_intersect_backend(big_scene, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame = renderer.render(big_scene, big_cam, CLI_SEED)
+        torch.cuda.synchronize()
+        out[resolved] = frame, (time.perf_counter() - t0) * 1e3
+    (fb, ms_bvh), (fr, ms_brute) = out.get("bvh", (None, 0)), out["brute"]
+    if fb is None or builder != "native":
+        raise SystemExit(f"phase 10(f): auto resolved to {list(out)}, BVH "
+                         f"builder {builder} (must be bvh, native)")
+    diff = float((fb.image - fr.image).abs().max())
+    segs = (int(fb.rays_traced), int(fr.rays_traced))
+    print(f"phase 10(f) {big.n_spheres} spheres {BIG_SIZE[0]}x{BIG_SIZE[1]} "
+          f"{BIG_SPP} spp: extract with BVH {extract_ms:.1f} ms, BVH build "
+          f"{build_ms:.1f} ms ({builder} builder, "
+          f"{int(big_scene.bvh.n_nodes)} nodes); auto -> bvh frame "
+          f"{ms_bvh:.3f} ms, brute {ms_brute:.3f} ms; max |d| {diff:.3g}, "
+          f"segments {segs[0]} / {segs[1]} | {card}", flush=True)
+    if diff > BVH_TOL or segs[0] != segs[1]:
+        raise SystemExit("phase 10(f): bvh against brute past the bar")
+    print(f"phase 10 done in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
 
 
 if __name__ == "__main__":

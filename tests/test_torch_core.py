@@ -175,6 +175,12 @@ def test_port_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None\n"
             "import bevyray_tpu_torch as bt\n"
             "from bevyray_tpu_torch.kernels.cuda import build, megakernel\n"
+            "from bevyray_tpu_torch import bvh\n"
+            "from bevyray_tpu_torch.bvh import native\n"
+            "from bevyray_tpu_torch.kernels import traverse\n"
+            "from bevyray_tpu_torch.engine import denoise\n"
+            "from bevyray_tpu_torch.app import cli, inspector\n"
+            "from bevyray_tpu_torch.utils import png, profiling\n"
             "assert 'bevyray_tpu' not in sys.modules\n"
             "print(bt.FusedRenderer.__name__)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

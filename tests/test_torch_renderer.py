@@ -9,7 +9,8 @@ pieces (``kernels/intersect.py``) against the JAX package's on the CPU.
   against the port's ``FusedRenderer(exact_rng=True)`` (JAX's own
   Pallas-against-Renderer check), at the bars of tests/test_pallas.py:24-28:
   image atol 5e-5, depth atol 1e-3, segment counts equal;
-- ``resolve_intersect_backend``, and "bvh" raising with ROADMAP A8 named.
+- ``resolve_intersect_backend``, and "bvh" raising on a scene without a
+  BVH (the BVH backend itself is in ``test_torch_bvh_renderer.py``).
 """
 
 import dataclasses
@@ -256,9 +257,8 @@ def test_resolve_intersect_backend():
             ps, bt.RenderConfig(**cfg)) == jrenderer.resolve_intersect_backend(
                 js, jb.RenderConfig(**cfg)) == "brute"
     cfg = bt.RenderConfig(**SIZE, intersect_backend="bvh")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        prenderer.resolve_intersect_backend(ps, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    assert prenderer.resolve_intersect_backend(ps, cfg) == "bvh"
+    with pytest.raises(ValueError, match="no BVH"):
         bt.Renderer(cfg).render(ps, _both(_mesh)[3], seed=1)
 
 

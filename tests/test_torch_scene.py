@@ -54,14 +54,21 @@ def test_extract_and_camera_equal(name):
 
 
 def test_extract_cache_and_bvh_guard():
+    """The cache holds per revision, and ``with_bvh`` is part of its key (as
+    in the JAX package): a scene extracted without a BVH is never handed
+    out for one that asks for it, nor the other way round."""
     w = bt.rtiow.simple_scene()
     s1 = w.extract(with_bvh=False, device="cpu")
     assert w.extract(with_bvh=False, device="cpu") is s1
     w.set_translation(1, (0.0, 2.0, 0.0))
     s2 = w.extract(with_bvh=False, device="cpu")
     assert s2 is not s1 and float(s2.spheres.cy[1]) == 2.0
-    with pytest.raises(NotImplementedError, match="§A item 8"):
-        w.extract()
+    assert s2.bvh is None and s2.tri_bvh is None
+    s3 = w.extract(device="cpu")
+    assert s3 is not s2 and s3.bvh is not None
+    assert int(s3.bvh.n_nodes) == 2 * w.n_spheres - 1
+    assert w.extract(device="cpu") is s3
+    assert w.extract(with_bvh=False, device="cpu").bvh is None
 
 
 def test_scene_from_numpy_round_trips():
@@ -77,8 +84,14 @@ def test_scene_from_numpy_round_trips():
         jax.tree.map(lambda t: t.numpy(), pc), device="cpu")
     _assert_tree_equal(back, js)
     _assert_tree_equal(back_cam, jc)
-    with pytest.raises(NotImplementedError, match="§A item 8"):
-        scene_from_numpy(_np(jw.extract()), _np(jc))
+    # A scene with its BVHs (spheres and mesh; multi-prim leaves carry
+    # prim_ids) crosses over table for table.
+    for leaf in (1, 4):
+        jb = jw.extract(bvh_leaf_size=leaf)
+        pb, _ = scene_from_numpy(_np(jb), _np(jc), device="cpu")
+        assert pb.bvh is not None and pb.tri_bvh is not None
+        assert (pb.bvh.prim_ids is None) == (leaf == 1)
+        _assert_tree_equal(pb, jb)
 
 
 def _random_world(seed, n):
