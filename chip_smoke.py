@@ -65,6 +65,17 @@ on a scene that carries a BVH, and ``bench --backend pallas``, whose JSON
 names the card; (f) 4,971 spheres at 640x360, 4 spp, where "auto" walks the
 BVH of the native builder, against "brute".
 
+Phase 11 holds the port on the card to its NumPy oracle
+(``bevyray_tpu_torch/testing/oracle.py``, run on the host from the same
+``World``) on the exact draws, at the bars of the JAX golden tests: (a) the
+final scene (508 spheres) at 192x108, 4 spp, through the kernel in each of
+its four modes; (b) the mesh scene, the kernel and the wavefront
+``Renderer``; (c) hollow glass, the kernel and ``Renderer`` with the dense
+test and the BVH walk; (d) the kitchen sink at level 2 with the raster layer
+on the card, ``FusedRenderer`` and ``Renderer``; (e) the level-1 cube world
+through ``Renderer`` within 2e-5; (f) 4,971 spheres, the BVH walk and the
+kernel's candidate walk.
+
 Each phase prints its lines; the line before the last is the kernel table
 as JSON, and the last line is ``{"ok": true, "device": {...}}``. Any failed
 phase raises and the script exits nonzero without that line. It exits
@@ -162,6 +173,25 @@ CLI_BENCH_FRAMES = 4
 BVH_TOL = 1e-6
 # (f): 4,971 spheres, over the 4,096 rows above which "auto" walks the BVH.
 BIG_GRID, BIG_SIZE, BIG_SPP = 35, (640, 360), 4
+# Phase 11. The port on the card against its NumPy oracle
+# (bevyray_tpu_torch/testing/oracle.py) on the exact draws. The bars are those
+# of the JAX golden tests each check mirrors: image mean |d| under the first
+# number and under the second's share of pixels past ORACLE_OUTLIER
+# (tests/test_golden.py:39-44), the looser pair for the mesh, hollow-glass
+# and kitchen-sink scenes; level 1 within ORACLE_ATOL everywhere
+# (tests/test_raster.py:76).
+ORACLE_OUTLIER, ORACLE_TIGHT, ORACLE_LOOSE = 5e-3, (2e-3, 0.01), (4e-3, 0.02)
+ORACLE_ATOL = 2e-5
+# Frames as (width, height, spp, bounces, level, frame seed). (a): the final
+# scene, all 508 spheres; (f): 4,971 spheres; (b)-(e): the frames of
+# tests/test_golden.py:145-148, :179-186, :227-236 and tests/test_raster.py:
+# 60-69.
+ORACLE_FINAL = (192, 108, 4, 4, 3, 1)
+ORACLE_BIG = (64, 36, 2, 4, 3, 1)
+ORACLE_FRAMES = {"mesh": (40, 40, 2, 4, 3, 6),
+                 "hollow_glass": (32, 32, 2, 6, 3, 4),
+                 "kitchen_sink": (48, 48, 3, 4, 2, 21),
+                 "cube": (32, 32, 2, 3, 1, 5)}
 
 
 def mesh_scene(copies=1):
@@ -190,6 +220,102 @@ def config5_world():
                      StandardMaterial(base_color=(0.2, 0.5, 0.9), metallic=1.0,
                                       perceptual_roughness=0.15))
     return world, RenderConfig(*HYBRID_SIZE, SPP, BOUNCES, level=2)
+
+
+def golden_world(pkg, name):
+    """A scene of the JAX golden tests, built with ``pkg`` (the port, or a
+    package with the same scene API): "mesh" (tests/test_golden.py:133-144),
+    "hollow_glass" (:166-177, an inner shell of negative radius),
+    "kitchen_sink" (:201-225: the raster cube, a traced mesh, an emissive
+    sphere, hollow glass, the thin lens) or "cube" (tests/test_raster.py:
+    14-25: ground, a sphere and the raster cube)."""
+    T, S, M = pkg.Transform, pkg.RaytracedSphere, pkg.StandardMaterial
+    w = pkg.World()
+    ground = (T.from_xyz(0, -1000, 0), S(1000.0), M(base_color=(0.5, 0.5, 0.5)))
+    glass = M(base_color=(1.0, 1.0, 1.0), ior=1.5, specular_transmission=1.0)
+    pure = pkg.RaytracedCamera(level=pkg.Raytracing.PURE)
+    if name == "mesh":
+        w.set_camera(T.from_xyz(0, 0.8, 5).looking_at((0, 0.5, 0)), camera=pure)
+        w.spawn_sphere(*ground)
+        w.spawn_sphere(T.from_xyz(-1.3, 0.5, 0), S(0.5),
+                       M(base_color=(0.8, 0.2, 0.2)))
+        w.spawn_mesh(T.from_xyz(0.9, 0.5, 0), pkg.cube_mesh(1.0),
+                     M(base_color=(0.2, 0.5, 0.9), metallic=1.0,
+                       perceptual_roughness=0.1))
+    elif name == "hollow_glass":
+        w.set_camera(T.from_xyz(0, 0.6, 4).looking_at((0, 0.5, 0)), camera=pure)
+        w.spawn_sphere(*ground)
+        w.spawn_sphere(T.from_xyz(0, 0.5, 0), S(0.5), glass)
+        w.spawn_sphere(T.from_xyz(0, 0.5, 0), S(-0.4), glass)
+        w.spawn_sphere(T.from_xyz(-1.2, 0.5, 0), S(0.5),
+                       M(base_color=(0.9, 0.3, 0.2)))
+    elif name == "kitchen_sink":
+        w.set_camera(T.from_xyz(0, 1.0, 5).looking_at((0, 0.5, 0)),
+                     camera=pkg.RaytracedCamera(
+                         level=pkg.Raytracing.FALLBACK_RAYTRACED,
+                         aperture=0.2, focus_distance=5.0))
+        w.spawn_sphere(*ground)
+        w.spawn_sphere(T.from_xyz(-1.4, 0.5, 0.3), S(0.5), glass)
+        w.spawn_sphere(T.from_xyz(-1.4, 0.5, 0.3), S(-0.4), glass)
+        w.spawn_sphere(T.from_xyz(1.6, 0.7, -1.0), S(0.7),
+                       M(base_color=(0.0, 0.0, 0.0), emissive=(3.0, 1.5, 0.7)))
+        w.spawn_mesh(T.from_xyz(0.8, 0.4, 0.8), pkg.cube_mesh(0.8),
+                     M(base_color=(0.2, 0.5, 0.9), metallic=1.0,
+                       perceptual_roughness=0.05))
+        w.spawn_raster_mesh(T.from_xyz(0.0, 0.5, -0.4), pkg.cube_mesh(1.0),
+                            M(base_color=(0.8, 0.7, 0.6)))
+    elif name == "cube":
+        w.set_camera(T.from_xyz(0.0, 1.0, 4.0).looking_at((0.0, 0.5, 0.0)))
+        w.spawn_sphere(*ground)
+        w.spawn_sphere(T.from_xyz(-1.2, 0.5, 0.0), S(0.5),
+                       M(base_color=(0.1, 0.2, 0.5)))
+        w.spawn_raster_mesh(T.from_xyz(0.0, 0.5, 0.0), pkg.cube_mesh(1.0),
+                            M(base_color=(0.8, 0.7, 0.6)))
+    else:
+        raise ValueError(f"no golden scene {name!r}")
+    return w
+
+
+def oracle_frame(world, frame, raster=None, **options) -> tuple:
+    """The oracle's (image [H, W, 3], depth [H, W]) of ``frame`` = (width,
+    height, spp, bounces, level, seed) for ``world`` on the host, with its
+    meshes as triangles and ``raster`` = (color [H, W, 3], depth [H, W])
+    NumPy buffers, and the host seconds it took."""
+    import numpy as np
+
+    from bevyray_tpu_torch.testing.oracle import (oracle_inputs_from_world,
+                                                  render_oracle_fast)
+
+    centers, radii, mats, camera = oracle_inputs_from_world(world)
+    camera["aspect"] = frame[0] / frame[1]
+    meshes = world.extract_meshes_host(first_material_id=len(radii))
+    if meshes is not None:
+        va, vb, vc, tri_mids, tri_mats = meshes
+        mats = np.concatenate([mats, tri_mats], axis=0)
+        options["triangles"] = (va, vb, vc, tri_mids)
+    if raster is not None:
+        options["raster_color"], options["raster_depth"] = raster
+    t0 = time.perf_counter()
+    image, depth = render_oracle_fast(centers, radii, mats, camera, *frame,
+                                      **options)
+    return image, depth, time.perf_counter() - t0
+
+
+def oracle_stats(image, depth, want, want_depth) -> dict:
+    """How far an image and its depth (NumPy) sit from the oracle's: max and
+    mean |d|, the share of pixels past ORACLE_OUTLIER and the first of them
+    as (y, x), and the depth's max |d|."""
+    import numpy as np
+
+    err = np.abs(image - want)
+    past = err.max(-1) > ORACLE_OUTLIER
+    first = np.argwhere(past)[:1].tolist()
+    return {"max_abs": float(err.max()), "mean_abs": float(err.mean()),
+            "frac_past": float(past.mean()),
+            "first_past": first[0] if first else None,
+            "depth_max_abs": float(np.abs(depth - want_depth).max()),
+            "finite": bool(np.isfinite(image).all()
+                           and np.isfinite(depth).all())}
 
 
 def card_line() -> str:
@@ -517,6 +643,7 @@ def main() -> int:
                                fast_entries[0]["bound_by"]))
     probe_phase(scene, cam, headline, card, map_pass)
     cli_phase(card, dev)
+    oracle_phase(card, dev)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1786,6 +1913,168 @@ def cli_phase(card, dev) -> None:
     print(f"phase 10 done in {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
+
+def oracle_phase(card, dev) -> None:
+    """Phase 11: the port on the card against its NumPy oracle on the host,
+    on the exact draws, each check at the bars of the JAX golden test it
+    mirrors: (a) the final scene, all 508 spheres, through the CUDA kernel in
+    each of its four modes, forced (one oracle frame serves the four); (b)
+    the mesh scene, the kernel in its default mode and the wavefront
+    ``Renderer``; (c) hollow glass, the kernel and ``Renderer`` with the
+    dense test and the BVH walk; (d) the kitchen sink at level 2 with the
+    raster layer on the card, whose buffers the oracle takes:
+    ``FusedRenderer`` and ``Renderer``, and the two within 5e-5 of each
+    other; (e) the level-1 cube world through ``Renderer`` within
+    ORACLE_ATOL; (f) 4,971 spheres, ``Renderer`` walking the BVH and the
+    kernel's candidate walk. Every frame is rendered on ``dev``; the kernel
+    must launch once per fused frame and its plain version never."""
+    import numpy as np
+
+    import bevyray_tpu_torch as port
+    from bevyray_tpu_torch import FusedRenderer, RenderConfig, Renderer, rtiow
+    from bevyray_tpu_torch.engine.raster import raster_layer
+    from bevyray_tpu_torch.kernels.cuda.megakernel import (
+        render_tiles, render_tiles_reference)
+
+    t_phase = time.perf_counter()
+    render_tiles.launches = 0
+    render_tiles_reference.calls = 0
+    fused_frames = 0
+
+    def config(frame, **options):
+        return RenderConfig(*frame[:5], **options)
+
+    def render(renderer, world, frame, buffers=(None, None), with_bvh=False):
+        """``renderer``'s frame of ``world`` on ``dev``, as NumPy."""
+        nonlocal fused_frames
+        scene = world.extract(with_bvh=with_bvh, device=dev)
+        cam = world.camera_state(aspect=frame[0] / frame[1], device=dev)
+        out = renderer.render(scene, cam, frame[5], raster_color=buffers[0],
+                              raster_depth=buffers[1])
+        if out.image.device != scene.spheres.cx.device:
+            raise SystemExit("phase 11: a frame left the scene's device")
+        if isinstance(renderer, FusedRenderer):
+            fused_frames += 1
+            if renderer.last_exact_rng is not True:
+                raise SystemExit("phase 11: a fused frame left the exact "
+                                 "draws")
+        return out.image.cpu().numpy(), out.rt_depth.cpu().numpy()
+
+    def raster(world, cfg):
+        """The raster layer on ``dev``: the renderers' buffers, and the
+        oracle's NumPy [H, W, 3] color and [H, W] depth of the same."""
+        cam = world.camera_state(aspect=cfg.width / cfg.height, device=dev)
+        rc, rd = raster_layer(world, cam, cfg, device=dev)
+        shape = (cfg.height, cfg.width)
+        return (rc, rd), (np.stack([c.cpu().numpy().reshape(shape)
+                                    for c in rc], -1),
+                          rd.cpu().numpy().reshape(shape))
+
+    def check(label, got, want, bars=None, atol=None):
+        stats = oracle_stats(*got, *want[:2])
+        height, width = want[0].shape[:2]
+        print(f"phase 11{label} {width}x{height}: image max |d| "
+              f"{stats['max_abs']:.4g}, mean |d| {stats['mean_abs']:.4g}, "
+              f"{stats['frac_past']:.4%} of pixels past {ORACLE_OUTLIER} "
+              f"(first (y, x) {stats['first_past']}), depth max |d| "
+              f"{stats['depth_max_abs']:.4g}; oracle {want[2]:.2f} s on the "
+              f"host | {card}", flush=True)
+        if atol is not None:
+            ok, bar = stats["max_abs"] <= atol, f"max |d| <= {atol}"
+        else:
+            ok = stats["mean_abs"] < bars[0] and stats["frac_past"] < bars[1]
+            bar = (f"mean |d| < {bars[0]}, under {bars[1]:.0%} of pixels "
+                   f"past {ORACLE_OUTLIER}")
+        if not (ok and stats["finite"]):
+            raise SystemExit(f"phase 11{label}: off the oracle (bar: {bar})")
+
+    # (a) The final scene through the kernel, each mode forced.
+    world = rtiow.final_scene(seed=42)
+    want = oracle_frame(world, ORACLE_FINAL)
+    for mode in MODES:
+        renderer = FusedRenderer(forced(config(ORACLE_FINAL), mode),
+                                 exact_rng=True)
+        got = render(renderer, world, ORACLE_FINAL)
+        if renderer.last_mode != mode:
+            raise SystemExit(f"phase 11(a): ran {renderer.last_mode}, not "
+                             f"{mode}")
+        check(f"(a) final_scene {world.n_spheres} spheres render_tiles "
+              f"{'/'.join(mode)}", got, want, ORACLE_TIGHT)
+
+    # (b) The mesh scene (triangles, B9) and (c) hollow glass: the kernel in
+    # its default mode, and the wavefront renderer.
+    for name, backends in (("mesh", ("brute",)),
+                           ("hollow_glass", ("brute", "bvh"))):
+        frame = ORACLE_FRAMES[name]
+        label = "(b)" if name == "mesh" else "(c)"
+        world = golden_world(port, name)
+        want = oracle_frame(world, frame)
+        renderer = FusedRenderer(config(frame), exact_rng=True)
+        got = render(renderer, world, frame)
+        check(f"{label} {name} render_tiles {'/'.join(renderer.last_mode)}",
+              got, want, ORACLE_LOOSE)
+        for backend in backends:
+            got = render(Renderer(config(frame, intersect_backend=backend)),
+                         world, frame, with_bvh=backend == "bvh")
+            check(f"{label} {name} Renderer {backend}", got, want,
+                  ORACLE_LOOSE)
+
+    # (d) The kitchen sink at level 2, the raster layer on the card.
+    frame = ORACLE_FRAMES["kitchen_sink"]
+    world = golden_world(port, "kitchen_sink")
+    cfg = config(frame, defocus=True, diffuse_sampling="cosine")
+    buffers, buffers_np = raster(world, cfg)
+    want = oracle_frame(world, frame, buffers_np, defocus=True,
+                        diffuse_sampling="cosine")
+    renderer = FusedRenderer(cfg, exact_rng=True)
+    fused = render(renderer, world, frame, buffers)
+    if not renderer.prepare(world.extract(with_bvh=False, device=dev)
+                            ).has_emissive:
+        raise SystemExit("phase 11(d): the kernel tables missed the "
+                         "emissive sphere")
+    check(f"(d) kitchen_sink level 2 FusedRenderer "
+          f"{'/'.join(renderer.last_mode)}, 13 planes", fused, want,
+          ORACLE_LOOSE)
+    wave = render(Renderer(cfg), world, frame, buffers)
+    check("(d) kitchen_sink level 2 Renderer", wave, want, ORACLE_LOOSE)
+    gap = float(np.abs(fused[0] - wave[0]).max())
+    print(f"phase 11(d) FusedRenderer against Renderer: max |d| {gap:.4g}",
+          flush=True)
+    if gap > 5e-5:
+        raise SystemExit("phase 11(d): FusedRenderer and Renderer differ by "
+                         "more than 5e-5 (tests/test_golden.py:250)")
+
+    # (e) Level 1 over the raster cube.
+    frame = ORACLE_FRAMES["cube"]
+    world = golden_world(port, "cube")
+    cfg = config(frame)
+    buffers, buffers_np = raster(world, cfg)
+    want = oracle_frame(world, frame, buffers_np)
+    check("(e) cube level 1 Renderer",
+          render(Renderer(cfg), world, frame, buffers), want, atol=ORACLE_ATOL)
+
+    # (f) 4,971 spheres: the BVH walk and the kernel's candidate walk.
+    world = rtiow.final_scene(seed=42, grid=BIG_GRID)
+    want = oracle_frame(world, ORACLE_BIG)
+    got = render(Renderer(config(ORACLE_BIG, intersect_backend="bvh")), world,
+                 ORACLE_BIG, with_bvh=True)
+    check(f"(f) final_scene {world.n_spheres} spheres Renderer bvh", got, want,
+          ORACLE_TIGHT)
+    renderer = FusedRenderer(config(ORACLE_BIG), exact_rng=True)
+    got = render(renderer, world, ORACLE_BIG)
+    if renderer.last_mode[1] != "candidates":
+        raise SystemExit(f"phase 11(f): ran {renderer.last_mode}, not a "
+                         "candidate walk")
+    check(f"(f) final_scene {world.n_spheres} spheres render_tiles "
+          f"{'/'.join(renderer.last_mode)}", got, want, ORACLE_TIGHT)
+
+    if render_tiles.launches != fused_frames or render_tiles_reference.calls:
+        raise SystemExit(f"phase 11: {render_tiles.launches} kernel launches "
+                         f"and {render_tiles_reference.calls} plain calls for "
+                         f"{fused_frames} fused frames")
+    print(f"phase 11 done in {time.perf_counter() - t_phase:.1f} s: "
+          f"{fused_frames} kernel launches, no plain call | {card}",
+          flush=True)
 
 if __name__ == "__main__":
     sys.exit(main())

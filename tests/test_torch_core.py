@@ -181,6 +181,7 @@ def test_port_imports_without_jax():
             "from bevyray_tpu_torch.engine import denoise\n"
             "from bevyray_tpu_torch.app import cli, inspector\n"
             "from bevyray_tpu_torch.utils import png, profiling\n"
+            "from bevyray_tpu_torch.testing import oracle, rng_np\n"
             "assert 'bevyray_tpu' not in sys.modules\n"
             "print(bt.FusedRenderer.__name__)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
