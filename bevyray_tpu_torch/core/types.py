@@ -207,6 +207,66 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+def upload(array: np.ndarray, device) -> torch.Tensor:
+    """``array`` as a tensor on ``device``; on the CPU it shares the array's
+    memory. On a card the copy is queued from pinned memory: a copy from
+    pageable memory would wait for all the work queued on the card before
+    it, as JAX's transfer of a host array does not. The tensor keeps
+    ``array`` as its host copy (:func:`host_array`), which must not change
+    after."""
+    if device is None or torch.device(device).type != "cuda":
+        return torch.as_tensor(array, device=device)
+    t = torch.from_numpy(np.ascontiguousarray(array)).pin_memory()
+    t = t.to(device, non_blocking=True)
+    t.host_copy = array
+    return t
+
+
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """The values of ``t`` on the host: the array it was uploaded from
+    (:func:`upload`) if it has one, else a copy, which on a card waits for
+    all the work queued there."""
+    host = getattr(t, "host_copy", None)
+    return host if host is not None else t.detach().cpu().numpy()
+
+
+def upload_scalars(values: np.ndarray, device) -> list:
+    """0-d tensors on ``device`` holding ``values`` (a 1-d array), from one
+    :func:`upload`; each keeps its own value as its host copy."""
+    row = upload(values, device)
+    out = [row[i] for i in range(values.shape[0])]
+    if row.device.type == "cuda":
+        for v, host in zip(out, values):
+            v.host_copy = host
+    return out
+
+
+def camera_leaves(cam: "CameraState") -> tuple:
+    """The camera's 0-d tensors in the JAX package's ``jax.tree.leaves``
+    order."""
+    return (*cam.position, *cam.direction, *cam.up, *cam[3:])
+
+
+def camera_key(cam: "CameraState") -> tuple:
+    """Every value of the camera as Python floats, in
+    :func:`camera_leaves` order (the accumulating renderers' reset key, also
+    saved in an adaptive checkpoint): from their host copies where every
+    leaf has one (:func:`upload_scalars`), else from one copy."""
+    leaves = camera_leaves(cam)
+    hosts = [getattr(v, "host_copy", None) for v in leaves]
+    if all(h is not None for h in hosts):
+        return tuple(float(h) for h in hosts)
+    return tuple(torch.stack([torch.as_tensor(v, dtype=torch.float32)
+                              for v in leaves]).cpu().tolist())
+
+
+def host_camera(cam: "CameraState") -> "CameraState":
+    """``cam`` with Python floats for leaves (:func:`camera_key`), for the
+    host code that reads camera values."""
+    k = camera_key(cam)
+    return CameraState(Vec3(*k[0:3]), Vec3(*k[3:6]), Vec3(*k[6:9]), *k[9:])
+
+
 def pad_to(n: int, multiple: int = LANE) -> int:
     return int(-(-n // multiple) * multiple)
 
@@ -224,7 +284,7 @@ def make_spheres_np(centers: np.ndarray, radii: np.ndarray,
     def pad(a, fill, dtype):
         out = np.full((cap,), fill, dtype)
         out[:n] = a.astype(dtype)
-        return torch.as_tensor(out, device=device)
+        return upload(out, device)
 
     valid = np.zeros((cap,), bool)
     valid[:n] = True
@@ -234,7 +294,7 @@ def make_spheres_np(centers: np.ndarray, radii: np.ndarray,
         cz=pad(centers[:, 2], 1e6, np.float32),
         radius=pad(radii, 0.0, np.float32),
         material_id=pad(material_ids, 0, np.int32),
-        valid=torch.as_tensor(valid, device=device),
+        valid=upload(valid, device),
     )
 
 
@@ -250,7 +310,7 @@ def make_triangles_np(verts_a: np.ndarray, verts_b: np.ndarray,
     def pad_f(a):
         out = np.full((cap,), 1e6, np.float32)
         out[:n] = a.astype(np.float32)
-        return torch.as_tensor(out, device=device)
+        return upload(out, device)
 
     mid = np.zeros((cap,), np.int32)
     mid[:n] = material_ids.astype(np.int32)
@@ -258,8 +318,7 @@ def make_triangles_np(verts_a: np.ndarray, verts_b: np.ndarray,
     valid[:n] = True
     return Triangles(
         *(pad_f(v[:, k]) for v in (verts_a, verts_b, verts_c) for k in range(3)),
-        material_id=torch.as_tensor(mid, device=device),
-        valid=torch.as_tensor(valid, device=device))
+        material_id=upload(mid, device), valid=upload(valid, device))
 
 
 def make_materials_np(table: np.ndarray, capacity: Optional[int] = None,
@@ -270,8 +329,7 @@ def make_materials_np(table: np.ndarray, capacity: Optional[int] = None,
     cap = capacity or pad_to(max(m, 1))
     out = np.zeros((cap, 11), np.float32)
     out[:m] = table.astype(np.float32)
-    return Materials(*(torch.as_tensor(out[:, i].copy(), device=device)
-                       for i in range(11)))
+    return Materials(*(upload(out[:, i].copy(), device) for i in range(11)))
 
 
 def scene_from_numpy(scene, cam, device=None):

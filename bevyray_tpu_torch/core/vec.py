@@ -25,7 +25,12 @@ class Vec3(NamedTuple):
     # -- constructors ----------------------------------------------------------
     @staticmethod
     def splat(v: Scalar, device=None) -> "Vec3":
-        v = torch.as_tensor(v, dtype=torch.float32, device=device)
+        # A Python number is filled in on the device: a copy from the host
+        # would wait for the work queued there.
+        if isinstance(v, torch.Tensor):
+            v = v.to(dtype=torch.float32, device=device)
+        else:
+            v = torch.full((), float(v), dtype=torch.float32, device=device)
         return Vec3(v, v, v)
 
     @staticmethod

@@ -28,11 +28,11 @@ import numpy as np
 import torch
 
 from ..core.types import (CameraState, RenderConfig, SceneBuffers,
-                          resolve_device)
+                          camera_key, resolve_device)
 from ..core.vec import Vec3
 from ..kernels.cuda.megakernel import KernelScene, render_tiles, unshuffle_blocks
 from ..kernels.raygen import pixel_uv
-from .fused_renderer import FusedRenderer, camera_key
+from .fused_renderer import FusedRenderer
 from .renderer import FrameResult, frame_result, trace_sample
 
 _M32 = 0xFFFFFFFF

@@ -6,9 +6,8 @@ from __future__ import annotations
 
 from typing import Optional
 
-import torch
-
-from ..core.types import CameraState, RenderConfig, SceneBuffers
+from ..core.types import (CameraState, RenderConfig, SceneBuffers,
+                          camera_key, camera_leaves)
 from ..core.vec import Vec3
 from ..kernels.cuda.megakernel import (KernelScene, kernel_fuse,
                                        kernel_mode, kernel_scene_cache_key,
@@ -80,9 +79,9 @@ class FusedRenderer:
 
     def camera_values(self, cam: CameraState) -> tuple:
         """:func:`camera_key` of ``cam``, remembered for the same camera
-        tensors, so that a frame loop over one camera makes no transfer; new
-        tensors come to the host in one copy."""
-        leaves = _camera_leaves(cam)
+        tensors; new tensors are read from their host copies, or come to the
+        host in one copy."""
+        leaves = camera_leaves(cam)
         ids = tuple(id(v) for v in leaves)
         if self._cam_memo is None or self._cam_memo[0] != ids:
             # ``leaves`` rides along: id() values are unique only among live
@@ -111,16 +110,3 @@ class FusedRenderer:
         r, g, b, depth = (unshuffle_blocks(x, config) for x in (r, g, b, depth))
         return frame_result(config, cam, Vec3(r, g, b), depth, segs,
                             raster_color, raster_depth)
-
-
-def _camera_leaves(cam: CameraState) -> tuple:
-    """The camera's 0-d tensors in ``jax.tree.leaves`` order."""
-    return (*cam.position, *cam.direction, *cam.up, *cam[3:])
-
-
-def camera_key(cam: CameraState) -> tuple:
-    """Every value of the camera as Python floats, in the JAX package's
-    ``jax.tree.leaves(cam)`` order (the accumulating renderers' reset key,
-    also saved in an adaptive checkpoint), from one host copy."""
-    return tuple(torch.stack([torch.as_tensor(v, dtype=torch.float32)
-                              for v in _camera_leaves(cam)]).cpu().tolist())

@@ -16,6 +16,8 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from ...core.types import host_array, upload
+
 __all__ = ["kd_order", "cached_order"]
 
 # Split rule: "median" (the JAX package's shipped rule) or "sah".
@@ -93,8 +95,9 @@ _ORDER_CACHE_MAX = 8
 
 def cached_order(scene, cand_size: int = 0) -> torch.Tensor:
     """The kd permutation of ``scene``'s sphere table as an int64 tensor on
-    the table's device, LRU-cached on the sphere tensors' identities and the
-    group size."""
+    the table's device (with its host copy), built from the table's host
+    copies (:func:`...core.types.host_array`) and LRU-cached on the sphere
+    tensors' identities and the group size."""
     from .megakernel import auto_cand_size
 
     sp = scene.spheres
@@ -104,9 +107,8 @@ def cached_order(scene, cand_size: int = 0) -> torch.Tensor:
         _ORDER_CACHE.move_to_end(key)
         return hit[0]
     gc = cand_size or auto_cand_size(sp.cx.shape[0])
-    host = [x.cpu().numpy() for x in (sp.cx, sp.cy, sp.cz, sp.radius, sp.valid)]
-    order = torch.as_tensor(kd_order(*host, gc).astype(np.int64),
-                            device=sp.cx.device)
+    host = [host_array(x) for x in (sp.cx, sp.cy, sp.cz, sp.radius, sp.valid)]
+    order = upload(kd_order(*host, gc).astype(np.int64), sp.cx.device)
     _ORDER_CACHE[key] = (order, tuple(sp))
     while len(_ORDER_CACHE) > _ORDER_CACHE_MAX:
         _ORDER_CACHE.popitem(last=False)

@@ -67,7 +67,8 @@ import torch
 
 from ...core import rng
 from ...core.constants import INF, T_MIN
-from ...core.types import CameraState, RenderConfig, SceneBuffers, Triangles
+from ...core.types import (CameraState, RenderConfig, SceneBuffers, Triangles,
+                          host_array, upload)
 from ...core.vec import Vec3
 from ...engine import slots
 from ..composite import background_gradient, linear_to_gamma
@@ -195,6 +196,17 @@ def _invert_empty(gmin, gmax):
             torch.where(empty[None, :], -1.0, gmax))
 
 
+def _centers_radii(sp):
+    """Sphere centers (3, S) and |radius| (S,) of a permuted table, padding
+    lanes at sphere 0's center with radius 0."""
+    valid = sp.valid
+    radius = torch.where(valid, torch.abs(sp.radius), 0.0)
+    pad_c = [torch.where(valid[0], c[0], 0.0) for c in (sp.cx, sp.cy, sp.cz)]
+    center = torch.stack([torch.where(valid, c, p)
+                          for c, p in zip((sp.cx, sp.cy, sp.cz), pad_c)])
+    return center, radius
+
+
 def prepare_kernel_scene(scene: SceneBuffers, cand_size: int = 0,
                          order=None) -> KernelScene:
     """Permute the sphere table, resolve the material indirection to per-sphere
@@ -230,10 +242,7 @@ def prepare_kernel_scene(scene: SceneBuffers, cand_size: int = 0,
     # Padding lanes duplicate sphere 0 everywhere (geometry, center and
     # material), so even a padding lane that won a tie would shade as sphere 0.
     mid = torch.where(valid, mid, mid[0])
-    radius = torch.where(valid, torch.abs(sp.radius), 0.0)
-    pad_c = [torch.where(valid[0], c[0], 0.0) for c in (sp.cx, sp.cy, sp.cz)]
-    center = torch.stack([torch.where(valid, c, p)
-                          for c, p in zip((sp.cx, sp.cy, sp.cz), pad_c)])
+    center, radius = _centers_radii(sp)
 
     def mat_rows(ids):
         return torch.stack([mt.base_r[ids], mt.base_g[ids], mt.base_b[ids],
@@ -253,16 +262,26 @@ def prepare_kernel_scene(scene: SceneBuffers, cand_size: int = 0,
                                            mat_rows(tmid)])], dim=1)
         tri = torch.stack([tr.ax, tr.ay, tr.az, tr.bx, tr.by, tr.bz,
                            tr.cx, tr.cy, tr.cz, tr.valid.float()])
-        live = tr.valid.nonzero()
-        n_tris = int(live.max()) + 1 if live.numel() else 0
+        live = np.flatnonzero(host_array(tr.valid))
+        n_tris = int(live[-1]) + 1 if live.size else 0
     else:
         tri = torch.zeros((10, 0), dtype=torch.float32, device=attr.device)
         n_tris = 0
 
-    r2 = radius * radius
-    pad_r2 = torch.where(valid[0], r2[0], -1e30)
-    sph = torch.stack([center[0], center[1], center[2],
-                       torch.where(valid, r2, pad_r2)])
+    # The sphere table is built on the host from the host copies (the same
+    # float32 operations, exact in IEEE arithmetic) and uploaded with its
+    # host copy, which the shortlists read (:mod:`.primary`). Padding lanes
+    # take sphere 0's r² (or -1e30 in an empty scene: every test misses).
+    host_order = torch.from_numpy(host_array(order))
+    host_sp = type(scene.spheres)(
+        *(torch.from_numpy(host_array(leaf))[host_order]
+          for leaf in scene.spheres))
+    host_center, host_radius = _centers_radii(host_sp)
+    r2 = host_radius * host_radius
+    pad_r2 = torch.where(host_sp.valid[0], r2[0], -1e30)
+    sph = upload(torch.stack([*host_center, torch.where(host_sp.valid, r2,
+                                                        pad_r2)]).numpy(),
+                 sp.cx.device)
 
     # Conservative group AABBs over the permuted order: center ± |radius|.
     live = radius > 0.0
@@ -319,10 +338,16 @@ def pack_camera(cam: CameraState, config: RenderConfig) -> torch.Tensor:
         C_NPIX: config.n_pixels,
         C_APERTURE: cam.aperture, C_FOCUS: cam.focus_distance,
     }
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-    return torch.stack([
-        torch.as_tensor(entries[k], dtype=torch.float32, device=dev)
-        if k in entries else zero for k in range(N_CAM)])
+
+    def entry(k):
+        # A Python number is filled in on the device: a copy from the host
+        # would wait for the work queued there.
+        v = entries.get(k, 0.0)
+        if isinstance(v, torch.Tensor):
+            return v.to(dtype=torch.float32, device=dev)
+        return torch.full((), float(v), dtype=torch.float32, device=dev)
+
+    return torch.stack([entry(k) for k in range(N_CAM)])
 
 
 def block_grid(config: RenderConfig):
@@ -368,8 +393,8 @@ def scene_has_emissive(scene: SceneBuffers) -> bool:
     """Whether any material of the table emits (table-wide, as the JAX
     package's probe); it sets the parked-state planes that size the fuse."""
     mt = scene.materials
-    return bool(torch.stack([mt.emissive_r, mt.emissive_g, mt.emissive_b])
-                .ne(0).any())
+    return any(bool(np.any(host_array(c) != 0))
+               for c in (mt.emissive_r, mt.emissive_g, mt.emissive_b))
 
 
 def st_planes(has_emissive: bool) -> int:

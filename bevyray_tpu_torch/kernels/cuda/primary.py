@@ -24,8 +24,8 @@ attributes by the global index in shortlist row 4, so they are not ported.
 from __future__ import annotations
 
 import numpy as np
-import torch
 
+from ...core.types import host_array, host_camera, upload
 from .megakernel import BLOCK_H, BLOCK_W, MAX_SPLIT_SPP, block_grid
 
 SL_CHUNK = 8      # spheres per early-out chunk
@@ -91,13 +91,16 @@ def device_shortlists_for(kscene, cam, config, spp: int, block_lo: int = 0,
                           n_blocks: int | None = None):
     """:func:`shortlists_for` on a prepared ``KernelScene``: ``(sl, slmeta)``
     as float32 tensors on the scene's device, or ``(None, None)`` where the
-    gate declined."""
-    sl, meta = shortlists_for(kscene.sph.cpu().numpy(), cam, config, spp,
-                              block_lo=block_lo, n_blocks=n_blocks)
+    gate declined. The build reads the host copies of the sphere table and
+    the camera (:func:`...core.types.host_array`, ``host_camera``), so on a
+    card it waits for nothing queued there."""
+    sl, meta = shortlists_for(host_array(kscene.sph), host_camera(cam),
+                              config, spp, block_lo=block_lo,
+                              n_blocks=n_blocks)
     if sl is None:
         return None, None
     dev = kscene.sph.device
-    return torch.as_tensor(sl, device=dev), torch.as_tensor(meta, device=dev)
+    return upload(sl, dev), upload(meta, dev)
 
 
 def split_worthwhile(sl: np.ndarray, meta: np.ndarray, sph: np.ndarray,

@@ -36,9 +36,9 @@ import numpy as np
 import torch
 
 from ..core.constants import INF
-from ..core.types import CameraState, RenderConfig, SceneBuffers, Spheres
+from ..core.types import (CameraState, RenderConfig, SceneBuffers, Spheres,
+                          camera_key, host_array, host_camera, upload)
 from ..core.vec import Vec3
-from ..engine.fused_renderer import camera_key
 from ..engine.renderer import FrameResult, frame_result, trace_sample
 from ..kernels.cuda.megakernel import (KernelScene, block_grid,
                                        kernel_scene_cache_key, morton_order,
@@ -297,11 +297,11 @@ def _cached_shortlists(scene: SceneBuffers, kscene: KernelScene,
     if hit is not None:
         _SHARDED_SL_CACHE.move_to_end(key)
         return hit[1]
-    out = shortlists_for(kscene.sph.cpu().numpy(), cam, config,
+    out = shortlists_for(host_array(kscene.sph), host_camera(cam), config,
                          config.samples_per_pixel // dp, block_lo=0,
                          n_blocks=n_blocks_padded)
     if out[0] is not None:
-        out = tuple(torch.as_tensor(x, device=kscene.sph.device) for x in out)
+        out = tuple(upload(x, kscene.sph.device) for x in out)
     _cache_put(_SHARDED_SL_CACHE, key, (leaves, out))
     return out
 

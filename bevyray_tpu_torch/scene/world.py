@@ -11,12 +11,11 @@ from __future__ import annotations
 from typing import Dict, List, Optional
 
 import numpy as np
-import torch
 
 from ..bvh import build_scene_bvh, build_triangle_bvh
 from ..core.types import (CameraState, SceneBuffers, make_materials_np,
                           make_spheres_np, make_triangles_np, pad_to,
-                          resolve_device)
+                          resolve_device, upload_scalars)
 from ..core.vec import Vec3
 from .components import (PerspectiveProjection, RaytracedCamera, RaytracedMesh,
                          RaytracedSphere, StandardMaterial, Transform,
@@ -262,15 +261,11 @@ class World:
                 "parallel to up) — looking_at() a point equal to the camera "
                 "position, or along the up axis, produces no usable basis")
 
-        def f32(v):
-            return torch.tensor(np.float32(v), device=device)
-
-        return CameraState(
-            position=Vec3(*(f32(v) for v in t.translation)),
-            direction=Vec3(*(f32(v) for v in t.forward)),
-            up=Vec3(*(f32(v) for v in t.up)),
-            fov=f32(p.fov), near=f32(p.near), far=f32(p.far),
-            aspect=f32(aspect if aspect is not None else p.aspect_ratio),
-            aperture=f32(self.camera.aperture),
-            focus_distance=f32(self.camera.focus_distance),
-        )
+        # One upload; each leaf keeps its value on the host (camera_key).
+        v = upload_scalars(np.array(
+            [*t.translation, *t.forward, *t.up, p.fov, p.near, p.far,
+             aspect if aspect is not None else p.aspect_ratio,
+             self.camera.aperture, self.camera.focus_distance], np.float32),
+            device)
+        return CameraState(Vec3(*v[0:3]), Vec3(*v[3:6]), Vec3(*v[6:9]),
+                           *v[9:])

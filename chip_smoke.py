@@ -76,6 +76,11 @@ on the card, ``FusedRenderer`` and ``Renderer``; (e) the level-1 cube world
 through ``Renderer`` within 2e-5; (f) 4,971 spheres, the BVH walk and the
 kernel's candidate walk.
 
+Phase 12 runs the bench modules (``bevyray_tpu_torch/bench/``: the
+headline, the BASELINE matrix, the orbit and edit arms, the scaling
+harness) at the JAX scripts' own sizes; their JSON rows come on lines of
+their own.
+
 Each phase prints its lines; the line before the last is the kernel table
 as JSON, and the last line is ``{"ok": true, "device": {...}}``. Any failed
 phase raises and the script exits nonzero without that line. It exits
@@ -644,6 +649,7 @@ def main() -> int:
     probe_phase(scene, cam, headline, card, map_pass)
     cli_phase(card, dev)
     oracle_phase(card, dev)
+    bench_phase(scene, cam, headline, card, dev)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2075,6 +2081,52 @@ def oracle_phase(card, dev) -> None:
     print(f"phase 11 done in {time.perf_counter() - t_phase:.1f} s: "
           f"{fused_frames} kernel launches, no plain call | {card}",
           flush=True)
+
+def bench_phase(scene, cam, headline, card, dev) -> None:
+    """Phase 12: the bench modules (``bevyray_tpu_torch/bench/``) in-process
+    at the JAX scripts' own sizes, each printing its rows: the headline
+    (1080p, 16 spp, 12 timed frames), the matrix (BASELINE configs 1-5 and
+    the orbit at 720p, 16 spp, 12 frames), the orbit (1080p/16 spp and
+    720p/4 spp, 24 frames, five arms each), the edit loop (both sizes, 12
+    edits) and the scaling harness on 1, 2 and 4 shards of the card. Each
+    module raises where one of its rows launched no kernel; the headline's
+    rays at seed 1 must equal a direct ``FusedRenderer`` frame's, and every
+    mesh of the scaling harness the one-shard frame. The pipelined arms'
+    ``host_syncs`` (the host work's waits for the card) are printed."""
+    import torch
+
+    from bevyray_tpu_torch import FusedRenderer
+    from bevyray_tpu_torch.bench import edit, headline as head_bench
+    from bevyray_tpu_torch.bench import matrix, orbit, scaling
+    from bevyray_tpu_torch.kernels.cuda.megakernel import render_tiles
+
+    t_phase = time.perf_counter()
+    render_tiles.launches = 0
+    head = head_bench.main(device=dev)
+    rows = [head, *matrix.main(device=dev), *orbit.main(device=dev),
+            *edit.main(device=dev)]
+    if scaling.main(n_max=4, device=dev) != 0:
+        raise SystemExit("phase 12: a mesh of bench.scaling differs from "
+                         "the one-shard frame")
+    launches = render_tiles.launches
+    if launches == 0 or any(row["launches"] < 1 for row in rows):
+        raise SystemExit(f"phase 12: {launches} kernel launches in all; a "
+                         "row launched none")
+    frame = FusedRenderer(headline).render(scene, cam, seed=1)
+    torch.cuda.synchronize()
+    if int(frame.rays_traced) != head["timed_rays"][0]:
+        raise SystemExit(f"phase 12: the headline bench read "
+                         f"{head['timed_rays'][0]} segments at seed 1, a "
+                         f"direct frame {int(frame.rays_traced)}")
+    waits = sorted({site for row in rows
+                    for site in row.get("host_syncs", ())})
+    print(f"phase 12 pipelined arms' host waits for the card: "
+          f"{', '.join(waits) or 'none'}", flush=True)
+    print(f"phase 12 done in {time.perf_counter() - t_phase:.1f} s: "
+          f"{len(rows)} rows, {launches} kernel launches, headline p50 "
+          f"{head['p50_frame_ms']} ms, seed 1 {head['timed_rays'][0]} "
+          f"segments as a direct frame | {card}", flush=True)
+
 
 if __name__ == "__main__":
     sys.exit(main())
