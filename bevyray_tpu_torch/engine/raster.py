@@ -25,7 +25,7 @@ import torch
 
 from ..core.constants import INF
 from ..core.types import (CameraState, RenderConfig, Triangles,
-                          make_triangles_np, resolve_device)
+                          make_triangles_np, resolve_device, upload)
 from ..core.vec import Vec3
 from ..kernels.intersect import intersect_triangles
 from ..kernels.raygen import generate_rays, pixel_uv
@@ -122,6 +122,6 @@ def raster_layer(world, cam: CameraState, config: RenderConfig,
     # goes with the table's rows (the JAX package pads to 128 lanes).
     tris = make_triangles_np(va, vb, vc, np.zeros(va.shape[0], np.int32),
                              capacity=va.shape[0], device=device)
-    return rasterize_impl(tris, torch.as_tensor(colors, device=device),
+    return rasterize_impl(tris, upload(colors, device),
                           _camera_on(cam, device), config,
                           tuple(float(x) for x in clear_color))

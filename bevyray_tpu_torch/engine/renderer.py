@@ -4,17 +4,18 @@ Counterpart of ``bevyray_tpu/engine/renderer.py``, the JAX package's public
 default. The reference runs one fragment thread per pixel with a sample loop
 and a bounce loop of per-thread ``break``s (raytrace.wgsl:93-224); here the
 whole frame is one flat batch of rays, one per pixel, and each bounce is a
-handful of tensor operations over it: the chunked sphere test
+handful of tensor operations over it: the sphere test
 (:func:`..kernels.intersect.intersect_spheres`) or the BVH walk
-(:mod:`..kernels.traverse`), the hit and material
-gathers, :func:`..kernels.shade.scatter` and the sky. The JAX package wrote
-this step in jnp rather than Pallas, so it runs on PyTorch's own operators
-on either device; the fused CUDA kernel is :class:`.fused_renderer.FusedRenderer`.
+(:mod:`..kernels.traverse`), which on a CUDA card are the hand-written
+kernels of ``kernels/cuda/csrc/wavefront.cu``, then the hit and material
+gathers, :func:`..kernels.shade.scatter` and the sky in PyTorch's own
+operators. The fused CUDA kernel is :class:`.fused_renderer.FusedRenderer`.
 
-Each bounce works on the rays still active only (a dead ray adds nothing,
-so that changes no value), and the bounce loop ends once no ray is active,
-as JAX's ``while_loop`` does, unless ``fixed_trip_count`` asks for every
-bounce.
+The bounce loop is JAX's ``while_loop`` body run masked: every lane, every
+one of the ``bounces + 1`` iterations, with each update under the lane's
+``active`` flag (a dead lane adds nothing and its ray tests return at
+once). Nothing in a frame reads a value back to the host, so the host
+queues a whole frame without waiting for the card.
 """
 
 from __future__ import annotations
@@ -102,34 +103,26 @@ def resolve_intersect_backend(scene: SceneBuffers,
 
 
 def make_intersect_fn(scene: SceneBuffers, config: RenderConfig):
-    """``(origin, direction) -> (t, index)`` of the resolved backend: the
-    dense chunked test over the whole sphere table ("brute") or the bounded-
-    stack walk of the scene's BVH (:mod:`..kernels.traverse`, "bvh")."""
+    """``(origin, direction, active) -> (t, index)`` of the resolved
+    backend: the dense test over the whole sphere table ("brute") or the
+    bounded-stack walk of the scene's BVH (:mod:`..kernels.traverse`,
+    "bvh"); INF / -1 where ``active`` is False."""
     if resolve_intersect_backend(scene, config) == "bvh":
         if scene.bvh is not None:
-            return lambda o, d: intersect_bvh(
+            return lambda o, d, active: intersect_bvh(
                 o, d, scene.spheres, scene.bvh,
-                max_leaf_size=config.bvh_leaf_size)
+                max_leaf_size=config.bvh_leaf_size, active=active)
         if config.intersect_backend == "bvh":
             raise ValueError("bvh backend requested but scene has no BVH")
         # "auto" chose the BVH for the triangles; the spheres have none.
-    return lambda o, d: intersect_spheres(o, d, scene.spheres,
-                                          config.sphere_chunk)
+    return lambda o, d, active: intersect_spheres(
+        o, d, scene.spheres, config.sphere_chunk, active=active)
 
 
 def _draw_ball(stream, base: int, first_slot: int) -> Vec3:
     return rng.unit_ball_from_uniforms(
         *(rng.draw(stream, base + first_slot + k)
           for k in range(rng.BALL_DRAWS)))
-
-
-def _at(v: Vec3, lanes) -> Vec3:
-    return Vec3(v.x[lanes], v.y[lanes], v.z[lanes])
-
-
-def _put(dst: Vec3, lanes, src: Vec3) -> None:
-    for d, s in zip(dst, src):
-        d[lanes] = s
 
 
 def trace_sample(scene: SceneBuffers, cam: CameraState, config: RenderConfig,
@@ -146,12 +139,17 @@ def trace_sample(scene: SceneBuffers, cam: CameraState, config: RenderConfig,
     and ``far - 1`` otherwise, radiance from the sky and emissive hits
     weighted by the throughput, gamma per sample.
 
-    ``intersect_fn``: ``(origin, direction) -> (t, index)`` in place of
-    :func:`make_intersect_fn`'s (the sphere-sharded step passes its own).
-    ``fixed_trip_count``: run every bounce even when no ray is active (the
-    JAX package needs it where the test holds collectives; it changes no
-    value).
+    ``intersect_fn``: ``(origin, direction, active) -> (t, index)`` in
+    place of :func:`make_intersect_fn`'s (the sphere-sharded step passes its
+    own). ``fixed_trip_count``: kept for the callers of the JAX package's
+    signature (the sharded step passes it); every bounce runs either way,
+    so it changes nothing.
+
+    The loop is the JAX body (bevyray_tpu/engine/renderer.py:149-200) over
+    every lane with updates under ``active``; the segment count is summed on
+    the device, so nothing here waits for the card.
     """
+    del fixed_trip_count
     if intersect_fn is None:
         intersect_fn = make_intersect_fn(scene, config)
     tri_bvh = (scene.tri_bvh
@@ -177,44 +175,42 @@ def trace_sample(scene: SceneBuffers, cam: CameraState, config: RenderConfig,
     active = torch.ones(n, dtype=torch.bool, device=dev)
     segments = torch.zeros((), dtype=torch.int64, device=dev)
     for bounce in range(config.bounces + 1):          # wgsl:189
-        lanes = active.nonzero()[:, 0]
-        if lanes.numel() == 0 and not fixed_trip_count:
-            break
-        segments = segments + lanes.numel()
-        lo, ld, lc = _at(o, lanes), _at(d, lanes), _at(ray_color, lanes)
-        t, idx = intersect_fn(lo, ld)
-        hit = make_hit_info(lo, ld, t, idx, scene.spheres)
+        segments = segments + active.sum()
+        t, idx = intersect_fn(o, d, active)
+        hit = make_hit_info(o, d, t, idx, scene.spheres)
         if scene.triangles is not None:
             if tri_bvh is not None:
                 tt, ti = intersect_bvh_triangles(
-                    lo, ld, scene.triangles, tri_bvh,
-                    max_leaf_size=config.bvh_leaf_size)
+                    o, d, scene.triangles, tri_bvh,
+                    max_leaf_size=config.bvh_leaf_size, active=active)
             else:
-                tt, ti = intersect_triangles(lo, ld, scene.triangles)
-            hit = merge_hits(hit, triangle_hit_info(lo, ld, tt, ti,
+                tt, ti = intersect_triangles(o, d, scene.triangles,
+                                             active=active)
+            hit = merge_hits(hit, triangle_hit_info(o, d, tt, ti,
                                                     scene.triangles))
         if bounce == 0:                               # wgsl:193-195
             first_depth = hit.t
         # A miss picks up the sky and ends the path (wgsl:198-201); a hit
         # adds its emission (an extension: 0 in the reference's scenes).
-        sky = lc * background_gradient(ld)
+        radiance = Vec3.where(active & hit.miss,
+                              radiance + ray_color * background_gradient(d),
+                              radiance)
+        active_hit = active & ~hit.miss
         mat = gather_materials(scene.materials, hit.material_id)
-        glow = lc * mat.emissive
-        lr = _at(radiance, lanes)
-        _put(radiance, lanes, Vec3.where(hit.miss, lr + sky, lr + glow))
+        radiance = Vec3.where(active_hit, radiance + ray_color * mat.emissive,
+                              radiance)
         base = slots.bounce_base(bounce)
-        ls = stream[lanes]
-        sc = scatter(ld, hit, mat, rng.draw(ls, base + slots.S_METAL),
-                     rng.draw(ls, base + slots.S_TRANS),
-                     rng.draw(ls, base + slots.S_REFLECT),
-                     _draw_ball(ls, base, slots.S_BALL1),
-                     _draw_ball(ls, base, slots.S_BALL2),
+        sc = scatter(d, hit, mat, rng.draw(stream, base + slots.S_METAL),
+                     rng.draw(stream, base + slots.S_TRANS),
+                     rng.draw(stream, base + slots.S_REFLECT),
+                     _draw_ball(stream, base, slots.S_BALL1),
+                     _draw_ball(stream, base, slots.S_BALL2),
                      diffuse_mode=config.diffuse_sampling)   # wgsl:203-211
-        cont = ~hit.miss & ~sc.absorbed
-        _put(ray_color, lanes, Vec3.where(cont, lc * sc.attenuation, lc))
-        _put(o, lanes, Vec3.where(hit.miss, lo, hit.position))
-        _put(d, lanes, Vec3.where(hit.miss, ld, sc.direction))
-        active[lanes] = cont
+        cont = active_hit & ~sc.absorbed
+        ray_color = Vec3.where(cont, ray_color * sc.attenuation, ray_color)
+        o = Vec3.where(active_hit, hit.position, o)
+        d = Vec3.where(active_hit, sc.direction, d)
+        active = cont
     # Paths that ran out of bounces or were absorbed keep only the light
     # they gathered (wgsl:215-217). Gamma is per sample, before the average
     # (wgsl:165, 223).

@@ -1,10 +1,12 @@
-// Python binding of the fused path-tracing kernel (megakernel.cu). The one
-// source that includes PyTorch's headers: it checks the tensors, launches on
-// PyTorch's current stream and checks the launch.
+// Python binding of the fused path-tracing kernel (megakernel.cu) and the
+// wavefront kernels (wavefront.cu). The one source that includes PyTorch's
+// headers: it checks the tensors, launches on PyTorch's current stream and
+// checks the launch.
 
 #include <torch/extension.h>
 
 #include <map>
+#include <vector>
 #include <string>
 
 #include <c10/cuda/CUDAException.h>
@@ -12,6 +14,7 @@
 #include <c10/cuda/CUDAStream.h>
 
 #include "megakernel.h"
+#include "wavefront.h"
 
 namespace {
 
@@ -191,6 +194,160 @@ std::map<std::string, int64_t> instance_info(int64_t device, bool split, bool ca
           {"blocks_per_sm", info.blocks_per_sm}, {"n_sms", info.n_sms}};
 }
 
+// ---- the wavefront kernels ---------------------------------------------------
+
+const float* column(const torch::Tensor& t, int64_t n, const torch::Tensor& like,
+                    const char* name) {
+  check_f32(t, like, name);
+  TORCH_CHECK(t.dim() == 1 && t.numel() == n, name, " must hold ", n, " floats");
+  return t.data_ptr<float>();
+}
+
+const bool* flags(const torch::Tensor& t, int64_t n, const torch::Tensor& like,
+                  const char* name) {
+  TORCH_CHECK(t.is_cuda() && t.device() == like.device() &&
+                  t.scalar_type() == torch::kBool && t.is_contiguous() && t.numel() == n,
+              name, " must be a contiguous bool tensor of ", n, " lanes on the rays' device");
+  return t.data_ptr<bool>();
+}
+
+const int* ints(const torch::Tensor& t, int64_t n, const torch::Tensor& like,
+                const char* name) {
+  TORCH_CHECK(t.is_cuda() && t.device() == like.device() &&
+                  t.scalar_type() == torch::kInt32 && t.is_contiguous() && t.numel() == n,
+              name, " must be a contiguous int32 tensor of ", n, " rows on the rays' device");
+  return t.data_ptr<int32_t>();
+}
+
+int32_t rows(int64_t n, const char* name) {
+  TORCH_CHECK(n >= 0 && n < (int64_t{1} << 31), name, " must have fewer than 2^31 rows");
+  return static_cast<int32_t>(n);
+}
+
+// `rays`: ox, oy, oz, dx, dy, dz (float32, n lanes each); `active`: n bools
+// or an empty tensor (every lane); `out_t`/`out_i`: float32 / int64, n each.
+RayBatch ray_batch(const std::vector<torch::Tensor>& rays, const torch::Tensor& active,
+                   const torch::Tensor& out_t, const torch::Tensor& out_i) {
+  TORCH_CHECK(rays.size() == 6, "rays must be ox, oy, oz, dx, dy, dz");
+  const torch::Tensor& like = rays[0];
+  const int64_t n = like.numel();
+  RayBatch b{};
+  b.n = rows(n, "rays");
+  b.ox = column(rays[0], n, like, "ox");
+  b.oy = column(rays[1], n, like, "oy");
+  b.oz = column(rays[2], n, like, "oz");
+  b.dx = column(rays[3], n, like, "dx");
+  b.dy = column(rays[4], n, like, "dy");
+  b.dz = column(rays[5], n, like, "dz");
+  b.active = active.numel() == 0 ? nullptr : flags(active, n, like, "active");
+  column(out_t, n, like, "out_t");
+  TORCH_CHECK(out_i.is_cuda() && out_i.device() == like.device() &&
+                  out_i.scalar_type() == torch::kInt64 && out_i.is_contiguous() &&
+                  out_i.numel() == n,
+              "out_i must be a contiguous int64 tensor of one lane per ray");
+  return b;
+}
+
+// `spheres`: cx, cy, cz, radius (float32), valid (bool), S rows each.
+SphereTable sphere_table(const std::vector<torch::Tensor>& spheres, const torch::Tensor& like) {
+  TORCH_CHECK(spheres.size() == 5, "spheres must be cx, cy, cz, radius, valid");
+  const int64_t n = spheres[0].numel();
+  TORCH_CHECK(n > 0, "the sphere table must have rows");
+  return {column(spheres[0], n, like, "cx"), column(spheres[1], n, like, "cy"),
+          column(spheres[2], n, like, "cz"), column(spheres[3], n, like, "radius"),
+          flags(spheres[4], n, like, "valid"), rows(n, "spheres")};
+}
+
+// `tris`: ax, ay, az, bx, by, bz, cx, cy, cz (float32), valid (bool).
+TriangleTable triangle_table(const std::vector<torch::Tensor>& tris, const torch::Tensor& like) {
+  TORCH_CHECK(tris.size() == 10, "triangles must be ax, ay, az, bx, by, bz, cx, cy, cz, valid");
+  const int64_t n = tris[0].numel();
+  TORCH_CHECK(n > 0, "the triangle table must have rows");
+  const float* c[9];
+  for (int k = 0; k < 9; ++k) c[k] = column(tris[k], n, like, "triangle corners");
+  return {c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7], c[8],
+          flags(tris[9], n, like, "valid"), rows(n, "triangles")};
+}
+
+// `bvh`: min xyz, max xyz (float32), index, count (int32), N rows each,
+// then prim_ids (int32) or an empty tensor.
+BvhTable bvh_table(const std::vector<torch::Tensor>& bvh, int64_t stack_size,
+                   int64_t max_leaf_size, const torch::Tensor& like) {
+  TORCH_CHECK(bvh.size() == 9, "bvh must be min xyz, max xyz, index, count, prim_ids");
+  TORCH_CHECK(stack_size >= 1 && stack_size <= kMaxStack, "stack_size must lie in [1, ",
+              kMaxStack, "]");
+  TORCH_CHECK(max_leaf_size >= 1 && max_leaf_size < (int64_t{1} << 31),
+              "max_leaf_size must be a positive int32");
+  const int64_t n = bvh[0].numel();
+  TORCH_CHECK(n > 0, "the BVH must have nodes");
+  BvhTable b{};
+  b.min_x = column(bvh[0], n, like, "min_x");
+  b.min_y = column(bvh[1], n, like, "min_y");
+  b.min_z = column(bvh[2], n, like, "min_z");
+  b.max_x = column(bvh[3], n, like, "max_x");
+  b.max_y = column(bvh[4], n, like, "max_y");
+  b.max_z = column(bvh[5], n, like, "max_z");
+  b.index = ints(bvh[6], n, like, "index");
+  b.count = ints(bvh[7], n, like, "count");
+  b.n_nodes = rows(n, "bvh");
+  const int64_t n_ids = bvh[8].numel();
+  b.prim_ids = n_ids == 0 ? nullptr : ints(bvh[8], n_ids, like, "prim_ids");
+  b.n_prim_ids = rows(n_ids, "prim_ids");
+  b.stack_size = static_cast<int>(stack_size);
+  b.max_leaf_size = static_cast<int>(max_leaf_size);
+  return b;
+}
+
+void intersect_spheres(const std::vector<torch::Tensor>& rays, const torch::Tensor& active,
+                       const std::vector<torch::Tensor>& spheres, torch::Tensor out_t,
+                       torch::Tensor out_i) {
+  const RayBatch b = ray_batch(rays, active, out_t, out_i);
+  const SphereTable tab = sphere_table(spheres, rays[0]);
+  const c10::cuda::CUDAGuard guard(rays[0].device());
+  launch_intersect_spheres(b, tab, out_t.data_ptr<float>(), out_i.data_ptr<int64_t>(),
+                           c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void intersect_triangles(const std::vector<torch::Tensor>& rays, const torch::Tensor& active,
+                         const std::vector<torch::Tensor>& tris, torch::Tensor out_t,
+                         torch::Tensor out_i) {
+  const RayBatch b = ray_batch(rays, active, out_t, out_i);
+  const TriangleTable tab = triangle_table(tris, rays[0]);
+  const c10::cuda::CUDAGuard guard(rays[0].device());
+  launch_intersect_triangles(b, tab, out_t.data_ptr<float>(), out_i.data_ptr<int64_t>(),
+                             c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void intersect_bvh(const std::vector<torch::Tensor>& rays, const torch::Tensor& active,
+                   const std::vector<torch::Tensor>& bvh, int64_t stack_size,
+                   int64_t max_leaf_size, const std::vector<torch::Tensor>& spheres,
+                   torch::Tensor out_t, torch::Tensor out_i) {
+  const RayBatch b = ray_batch(rays, active, out_t, out_i);
+  const BvhTable tree = bvh_table(bvh, stack_size, max_leaf_size, rays[0]);
+  const SphereTable tab = sphere_table(spheres, rays[0]);
+  const c10::cuda::CUDAGuard guard(rays[0].device());
+  launch_intersect_bvh(b, tree, tab, out_t.data_ptr<float>(), out_i.data_ptr<int64_t>(),
+                       c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void intersect_bvh_triangles(const std::vector<torch::Tensor>& rays,
+                             const torch::Tensor& active, const std::vector<torch::Tensor>& bvh,
+                             int64_t stack_size, int64_t max_leaf_size,
+                             const std::vector<torch::Tensor>& tris, torch::Tensor out_t,
+                             torch::Tensor out_i) {
+  const RayBatch b = ray_batch(rays, active, out_t, out_i);
+  const BvhTable tree = bvh_table(bvh, stack_size, max_leaf_size, rays[0]);
+  const TriangleTable tab = triangle_table(tris, rays[0]);
+  const c10::cuda::CUDAGuard guard(rays[0].device());
+  launch_intersect_bvh_triangles(b, tree, tab, out_t.data_ptr<float>(),
+                                 out_i.data_ptr<int64_t>(),
+                                 c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -199,4 +356,11 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("kernel_info", &instance_info,
         "Registers, spills, shared memory and occupancy of one kernel instance");
   m.attr("probe_slots") = static_cast<int>(kProbeSlots);
+  m.def("intersect_spheres", &intersect_spheres,
+        "Nearest sphere hit of each ray over the whole table (t, index)");
+  m.def("intersect_triangles", &intersect_triangles,
+        "Nearest triangle hit of each ray over the whole table (t, index)");
+  m.def("intersect_bvh", &intersect_bvh, "Nearest sphere hit of each ray by the BVH walk");
+  m.def("intersect_bvh_triangles", &intersect_bvh_triangles,
+        "Nearest triangle hit of each ray by the BVH walk");
 }

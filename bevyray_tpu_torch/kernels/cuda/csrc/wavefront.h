@@ -1,0 +1,84 @@
+// The launch interface of the wavefront kernels (wavefront.cu), shared with
+// their Python binding (binding.cpp). Plain C types only, so the .cu file
+// needs none of PyTorch's headers.
+
+#pragma once
+
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+// One ray per lane: origin and direction components, n floats each, and an
+// optional active mask (null: every lane is active).
+struct RayBatch {
+  const float* ox;
+  const float* oy;
+  const float* oz;
+  const float* dx;
+  const float* dy;
+  const float* dz;
+  const bool* active;
+  int n;
+};
+
+// The sphere table's columns (n rows); `valid` false on padding rows.
+struct SphereTable {
+  const float* cx;
+  const float* cy;
+  const float* cz;
+  const float* radius;
+  const bool* valid;
+  int n;
+};
+
+// The triangle table's corner columns (n rows); `valid` false on padding.
+struct TriangleTable {
+  const float* ax;
+  const float* ay;
+  const float* az;
+  const float* bx;
+  const float* by;
+  const float* bz;
+  const float* cx;
+  const float* cy;
+  const float* cz;
+  const bool* valid;
+  int n;
+};
+
+// A flattened BVH2 (core/types.py BvhNodes): n_nodes rows of boxes, the
+// first prim (leaf) or first child (inner) and the prim count (0: inner);
+// `prim_ids` (n_prim_ids rows, or null) maps a leaf's slots to prims. The
+// walk keeps `stack_size` entries (at most kMaxStack) and tests at most
+// `max_leaf_size` prims a leaf.
+struct BvhTable {
+  const float* min_x;
+  const float* min_y;
+  const float* min_z;
+  const float* max_x;
+  const float* max_y;
+  const float* max_z;
+  const int* index;
+  const int* count;
+  const int* prim_ids;
+  int n_nodes;
+  int n_prim_ids;
+  int stack_size;
+  int max_leaf_size;
+};
+
+constexpr int kMaxStack = 32;   // raytrace.wgsl:310
+
+// Each launch writes every lane's nearest hit: `out_t` (f32 max on a miss
+// and on an inactive lane) and `out_i` (the row, -1 there). They launch on
+// `stream` and allocate nothing; the caller checks the launch.
+void launch_intersect_spheres(const RayBatch& rays, const SphereTable& spheres,
+                              float* out_t, int64_t* out_i, cudaStream_t stream);
+void launch_intersect_triangles(const RayBatch& rays, const TriangleTable& tris,
+                                float* out_t, int64_t* out_i, cudaStream_t stream);
+void launch_intersect_bvh(const RayBatch& rays, const BvhTable& bvh,
+                          const SphereTable& spheres, float* out_t, int64_t* out_i,
+                          cudaStream_t stream);
+void launch_intersect_bvh_triangles(const RayBatch& rays, const BvhTable& bvh,
+                                    const TriangleTable& tris, float* out_t,
+                                    int64_t* out_i, cudaStream_t stream);

@@ -73,7 +73,7 @@ from ...core.vec import Vec3
 from ...engine import slots
 from ..composite import background_gradient, linear_to_gamma
 from ..intersect import (DENSE_ELEMS, HitInfo, MaterialLanes,
-                         intersect_triangles)
+                         intersect_triangles_reference)
 from ..shade import scatter
 from . import fast_rng
 
@@ -869,8 +869,8 @@ def _merge_triangles(o: Vec3, d: Vec3, t, idx, pscene: KernelScene,
     every live row for every lane."""
     n = pscene.n_tris
     rows = pscene.tri[:, :n]
-    tt, ti = intersect_triangles(o, d, Triangles(*rows[:9], material_id=None,
-                                                 valid=rows[9] > 0.0))
+    tt, ti = intersect_triangles_reference(
+        o, d, Triangles(*rows[:9], material_id=None, valid=rows[9] > 0.0))
     better = tt < t
     work["triangle_tests"] += t.shape[0] * n
     return (torch.where(better, tt, t),

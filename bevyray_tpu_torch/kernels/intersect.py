@@ -6,12 +6,18 @@ acceptance rules (raytrace.wgsl:348-383): the near root only, ``disc >= 0 &&
 t > 0.001 && t < closest``, normals always outward, ``front_face =
 dot(dir, normal) < 0``. The wavefront renderer (:mod:`..engine.renderer`)
 runs these per bounce; ``intersect_triangles`` also serves the raster layer
-(:mod:`..engine.raster`) and the fused kernel's plain version
-(:mod:`.cuda.megakernel`), whose CUDA kernel has its own per-thread copies.
+(:mod:`..engine.raster`). The fused kernel (:mod:`.cuda.megakernel`) has
+its own per-thread copies.
 
-The tests are dense [rays x table chunk] blocks, as in the JAX package. Rays
-go in steps that bound the temporaries (:func:`dense_rows`); each ray's
-result depends on its own row only, so the step changes no value.
+:func:`intersect_spheres` and :func:`intersect_triangles` are wrappers: on
+CUDA tensors they launch the hand-written kernels of
+``cuda/csrc/wavefront.cu`` (one thread per ray over the whole table), on CPU
+tensors they run the plain versions :func:`intersect_spheres_reference` and
+:func:`intersect_triangles_reference`. Those are dense [rays x table chunk]
+blocks, as in the JAX package; rays go in steps that bound the temporaries
+(:func:`dense_rows`), and each ray's result depends on its own row only, so
+the step changes no value. The fused kernel's plain version calls the
+plain triangle test, so that it launches no kernel.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import torch
 from ..core.constants import INF, T_MIN
 from ..core.types import Materials, Spheres
 from ..core.vec import Vec3
+from .cuda import wavefront
 
 # Lanes per step times table columns of a dense [lanes x columns] test (here
 # and in the fused kernel's plain version): its temporaries stay near 16 MB
@@ -91,8 +98,8 @@ def _chunk_hits(o: Vec3, d: Vec3, ax, ay, az, bx, by, bz, cx, cy, cz, valid):
     return torch.where(ok, t, float("inf"))
 
 
-def intersect_triangles(origin: Vec3, direction: Vec3, tris,
-                        chunk: int = 512):
+def intersect_triangles_reference(origin: Vec3, direction: Vec3, tris,
+                                  chunk: int = 512):
     """Nearest triangle hit of each ray (Möller–Trumbore) as ``(t, index)``,
     INF / -1 on a miss. Accepts ``t > T_MIN`` like the sphere test and hits
     back faces too.
@@ -126,8 +133,8 @@ def intersect_triangles(origin: Vec3, direction: Vec3, tris,
     return best_t, best_i
 
 
-def intersect_spheres(origin: Vec3, direction: Vec3, spheres: Spheres,
-                      chunk: int = 512):
+def intersect_spheres_reference(origin: Vec3, direction: Vec3,
+                                spheres: Spheres, chunk: int = 512):
     """Nearest hit of each ray over the whole (padded) sphere table as
     ``(t, index)``, INF / -1 on a miss (``hit_sphere`` +
     ``raycast_against_range``, wgsl:348-383).
@@ -179,6 +186,79 @@ def intersect_spheres(origin: Vec3, direction: Vec3, spheres: Spheres,
             best_i[span] = torch.where(take, base + ci, best_i[span])
             best_t[span] = torch.where(take, ct, best_t[span])
     return best_t, best_i
+
+
+def on_active(reference, active, origin: Vec3, direction: Vec3, *args,
+              **kwargs):
+    """``reference(origin, direction, *args, **kwargs)`` (a plain ray test
+    returning ``(t, index)``) on the lanes where ``active`` holds, INF / -1
+    on the others; every lane without a mask. Each lane's result depends on
+    its own ray only, so the other lanes change no value. Reads the mask on
+    the host."""
+    if active is None:
+        return reference(origin, direction, *args, **kwargs)
+    n, dev = origin.x.shape[0], origin.x.device
+    lanes = active.nonzero()[:, 0]
+    t = torch.full((n,), INF, dtype=torch.float32, device=dev)
+    index = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    if lanes.numel():
+        t[lanes], index[lanes] = reference(
+            Vec3(*(c[lanes] for c in origin)),
+            Vec3(*(c[lanes] for c in direction)), *args, **kwargs)
+    return t, index
+
+
+def intersect_spheres(origin: Vec3, direction: Vec3, spheres: Spheres,
+                      chunk: int = 512, active=None):
+    """Nearest hit of each ray over the whole (padded) sphere table as
+    ``(t, index)``, INF / -1 on a miss and where the bool mask ``active``
+    is False: the values of :func:`intersect_spheres_reference`.
+
+    On CPU tensors this runs the plain version (on the active lanes). On
+    CUDA tensors it launches the K1 kernel of ``cuda/csrc/wavefront.cu``
+    (``chunk`` changes no value there and is not read) or raises; it never
+    falls back. ``intersect_spheres.launches`` counts the launches.
+    """
+    dev = origin.x.device
+    if dev.type == "cpu":
+        return on_active(intersect_spheres_reference, active, origin,
+                         direction, spheres, chunk)
+    _check_cuda(dev, "intersect_spheres")
+    out = wavefront.launch("intersect_spheres", origin, direction, active,
+                           wavefront.sphere_columns(spheres))
+    intersect_spheres.launches += 1
+    return out
+
+
+def intersect_triangles(origin: Vec3, direction: Vec3, tris,
+                        chunk: int = 512, active=None):
+    """Nearest triangle hit of each ray (Möller–Trumbore, two-sided) as
+    ``(t, index)``, INF / -1 on a miss and where ``active`` is False: the
+    values of :func:`intersect_triangles_reference`.
+
+    On CPU tensors this runs the plain version (on the active lanes). On
+    CUDA tensors it launches the K2 kernel of ``cuda/csrc/wavefront.cu``
+    (``chunk`` is not read there) or raises; it never falls back.
+    ``intersect_triangles.launches`` counts the launches.
+    """
+    dev = origin.x.device
+    if dev.type == "cpu":
+        return on_active(intersect_triangles_reference, active, origin,
+                         direction, tris, chunk)
+    _check_cuda(dev, "intersect_triangles")
+    out = wavefront.launch("intersect_triangles", origin, direction, active,
+                           wavefront.triangle_columns(tris))
+    intersect_triangles.launches += 1
+    return out
+
+
+intersect_spheres.launches = 0
+intersect_triangles.launches = 0
+
+
+def _check_cuda(dev: torch.device, name: str) -> None:
+    if dev.type != "cuda":
+        raise ValueError(f"{name} takes CPU or CUDA tensors, not {dev}")
 
 
 def make_hit_info(origin: Vec3, direction: Vec3, t: torch.Tensor,

@@ -20,8 +20,9 @@ def _f32(value, device) -> torch.Tensor:
     """``value`` as a 0-d float32 tensor on ``device``, for a divisor: on a
     CUDA tensor torch divides by a Python float as a multiply by its
     reciprocal, which rounds twice, where the kernel and the JAX package
-    divide once."""
-    return torch.tensor(float(value), dtype=torch.float32, device=device)
+    divide once. Filled on the device: a copy from the host would wait for
+    the work queued on the card."""
+    return torch.full((), float(value), dtype=torch.float32, device=device)
 
 
 def pixel_uv(width: int, height: int, device=None):

@@ -1,7 +1,14 @@
 """Flattened-BVH traversal — batched twin of ``raycast`` (raytrace.wgsl:313-346).
 
-Counterpart of ``bevyray_tpu/kernels/traverse.py`` in torch operators, on
-either device. Each ray walks the flattened BVH with a bounded per-lane
+Counterpart of ``bevyray_tpu/kernels/traverse.py``. :func:`intersect_bvh`
+and :func:`intersect_bvh_triangles` are wrappers: on CUDA tensors they
+launch the walk of ``cuda/csrc/wavefront.cu`` (K3/K4: one thread per ray,
+its stack in the thread), on CPU tensors they run the plain versions
+:func:`intersect_bvh_reference` and
+:func:`intersect_bvh_triangles_reference`, torch operators on either
+device, described below.
+
+Each ray walks the flattened BVH with a bounded per-lane
 stack (the reference uses a fixed 32-entry stack, wgsl:310; overflow
 silently truncates traversal — SURVEY.md quirk #9 — reproduced here: a push
 past the top lands in one extra sink column that is never read, and a lane
@@ -30,6 +37,8 @@ import torch
 from ..core.constants import INF, T_MIN
 from ..core.types import BvhNodes, Spheres
 from ..core.vec import Vec3
+from .cuda import wavefront
+from .intersect import _check_cuda, on_active
 
 STACK_SIZE = 32  # raytrace.wgsl:310
 CHECK_EVERY = 8  # loop iterations between the tests for a lane still walking
@@ -98,22 +107,28 @@ def _tri_leaf_t(origin: Vec3, direction: Vec3, tris, prim):
     return torch.where(ok, t, INF)
 
 
-def intersect_bvh_triangles(origin: Vec3, direction: Vec3, tris, bvh: BvhNodes,
-                            stack_size: int = STACK_SIZE,
-                            max_leaf_size: int = 1):
+def intersect_bvh_triangles_reference(origin: Vec3, direction: Vec3, tris,
+                                      bvh: BvhNodes,
+                                      stack_size: int = STACK_SIZE,
+                                      max_leaf_size: int = 1, work=None):
     """Nearest triangle hit via BVH traversal (the reference's planned ModelBVH,
     extract.rs:239-248) — same bounded-stack walk as the sphere version with a
-    Möller–Trumbore leaf test."""
+    Möller–Trumbore leaf test. ``work``: see :func:`intersect_bvh_reference`."""
     return _intersect_bvh_generic(
         (origin, direction), bvh, stack_size, max_leaf_size,
         capacity=tris.capacity,
-        leaf_t=lambda rays, prim: _tri_leaf_t(rays[0], rays[1], tris, prim))
+        leaf_t=lambda rays, prim: _tri_leaf_t(rays[0], rays[1], tris, prim),
+        work=work)
 
 
-def intersect_bvh(origin: Vec3, direction: Vec3, spheres: Spheres, bvh: BvhNodes,
-                  stack_size: int = STACK_SIZE, max_leaf_size: int = 1):
+def intersect_bvh_reference(origin: Vec3, direction: Vec3, spheres: Spheres,
+                            bvh: BvhNodes, stack_size: int = STACK_SIZE,
+                            max_leaf_size: int = 1, work=None):
     """Nearest hit via BVH traversal. Returns (t, index) like
-    :func:`..kernels.intersect.intersect_spheres`: INF / -1 on a miss."""
+    :func:`..kernels.intersect.intersect_spheres`: INF / -1 on a miss.
+    ``work``: a dict that gets the walk's box tests (``slab_tests``, two per
+    inner node visited) and prim tests (``leaf_tests``) added, read on the
+    host."""
     a = direction.dot(direction)
 
     def leaf_t(rays, prim):
@@ -123,7 +138,56 @@ def intersect_bvh(origin: Vec3, direction: Vec3, spheres: Spheres, bvh: BvhNodes
 
     return _intersect_bvh_generic((origin, direction, a, 1.0 / a), bvh,
                                   stack_size, max_leaf_size,
-                                  capacity=spheres.capacity, leaf_t=leaf_t)
+                                  capacity=spheres.capacity, leaf_t=leaf_t,
+                                  work=work)
+
+
+def intersect_bvh(origin: Vec3, direction: Vec3, spheres: Spheres,
+                  bvh: BvhNodes, stack_size: int = STACK_SIZE,
+                  max_leaf_size: int = 1, active=None):
+    """Nearest sphere hit of each ray by the walk, as ``(t, index)``, INF /
+    -1 on a miss and where the bool mask ``active`` is False: the values of
+    :func:`intersect_bvh_reference`.
+
+    On CPU tensors this runs the plain walk (on the active lanes). On CUDA
+    tensors it launches the K3 walk of ``cuda/csrc/wavefront.cu`` (a stack
+    of at most 32 entries) or raises; it never falls back.
+    ``intersect_bvh.launches`` counts the launches.
+    """
+    dev = origin.x.device
+    if dev.type == "cpu":
+        return on_active(intersect_bvh_reference, active, origin, direction,
+                         spheres, bvh, stack_size, max_leaf_size)
+    _check_cuda(dev, "intersect_bvh")
+    out = wavefront.launch("intersect_bvh", origin, direction, active,
+                           wavefront.bvh_columns(bvh), stack_size,
+                           max_leaf_size, wavefront.sphere_columns(spheres))
+    intersect_bvh.launches += 1
+    return out
+
+
+def intersect_bvh_triangles(origin: Vec3, direction: Vec3, tris,
+                            bvh: BvhNodes, stack_size: int = STACK_SIZE,
+                            max_leaf_size: int = 1, active=None):
+    """Nearest triangle hit of each ray by the walk, as ``(t, index)``, INF
+    / -1 on a miss and where ``active`` is False: the values of
+    :func:`intersect_bvh_triangles_reference`. On CPU tensors the plain
+    walk; on CUDA tensors the K4 walk of ``cuda/csrc/wavefront.cu`` or an
+    error. ``intersect_bvh_triangles.launches`` counts the launches."""
+    dev = origin.x.device
+    if dev.type == "cpu":
+        return on_active(intersect_bvh_triangles_reference, active, origin,
+                         direction, tris, bvh, stack_size, max_leaf_size)
+    _check_cuda(dev, "intersect_bvh_triangles")
+    out = wavefront.launch("intersect_bvh_triangles", origin, direction,
+                           active, wavefront.bvh_columns(bvh), stack_size,
+                           max_leaf_size, wavefront.triangle_columns(tris))
+    intersect_bvh_triangles.launches += 1
+    return out
+
+
+intersect_bvh.launches = 0
+intersect_bvh_triangles.launches = 0
 
 
 def _take(x, rows):
@@ -131,11 +195,12 @@ def _take(x, rows):
 
 
 def _intersect_bvh_generic(rays: tuple, bvh: BvhNodes, stack_size: int,
-                           max_leaf_size: int, capacity: int, leaf_t):
+                           max_leaf_size: int, capacity: int, leaf_t,
+                           work=None):
     """Shared bounded-stack BVH walk. ``rays``: per-lane data, origin and
     direction first (Vec3s or tensors, each compacted with the lanes);
     ``leaf_t(rays, prim)`` returns the per-lane hit distance for one
-    primitive (INF on miss)."""
+    primitive (INF on miss); ``work`` counts the tests when given."""
     origin, direction = rays[0], rays[1]
     dev = origin.x.device
     n = origin.x.shape[0]
@@ -192,11 +257,17 @@ def _intersect_bvh_generic(rays: tuple, bvh: BvhNodes, stack_size: int,
                 prim = torch.clamp(prim_ids[slot].long(), 0, capacity - 1)
             t = leaf_t(rays, prim)
             ok = is_leaf & (k < count) & (t < new_t)
+            if work is not None:
+                work["leaf_tests"] = work.get("leaf_tests", 0) + int(
+                    (is_leaf & (k < count)).sum())
             new_i = torch.where(ok, prim, new_i)
             new_t = torch.where(ok, t, new_t)
 
         # --- inner: push children whose slab distance beats best (wgsl:328-341)
         is_inner = active & (count == 0)
+        if work is not None:
+            work["slab_tests"] = work.get("slab_tests", 0) + 2 * int(
+                is_inner.sum())
         c1 = torch.clamp(first, 0, n_nodes - 1)
         c2 = torch.clamp(first + 1, 0, n_nodes - 1)
 

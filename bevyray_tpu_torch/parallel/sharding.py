@@ -152,11 +152,12 @@ def _tp_intersect_fn(scene: SceneBuffers, config: RenderConfig, mesh: Mesh,
               for k in range(tp)]
     chunk = min(config.sphere_chunk, chunk_len)
 
-    def fn(o: Vec3, d: Vec3):
+    def fn(o: Vec3, d: Vec3, active=None):
         hits = []
         for dev, offset, local in pieces:
-            t, i = intersect_spheres(_vec_on(o, dev), _vec_on(d, dev), local,
-                                     chunk)
+            t, i = intersect_spheres(
+                _vec_on(o, dev), _vec_on(d, dev), local, chunk,
+                active=None if active is None else active.to(dev))
             hits.append((t, torch.where(i >= 0, i + offset, -1)))
         hits = [(t.to(home), i.to(home)) for t, i in hits]
         t_min = hits[0][0]

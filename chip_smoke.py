@@ -81,6 +81,22 @@ headline, the BASELINE matrix, the orbit and edit arms, the scaling
 harness) at the JAX scripts' own sizes; their JSON rows come on lines of
 their own.
 
+Phase 13 holds the wavefront renderer's ray tests, the hand-written
+kernels of ``kernels/cuda/csrc/wavefront.cu`` (K1 ``intersect_spheres``, K2
+``intersect_triangles``, K3 ``intersect_bvh``, K4
+``intersect_bvh_triangles``, which replace XLA loops of the JAX package):
+(a) the main path with the counts zeroed just before each run and read
+just after, timed: the wavefront headline (K1), config 5's mesh through
+``Renderer`` dense (K1, K2) and by the BVH (K3, K4), and 10(f)'s 4,971
+spheres walking the BVH (K3); the headline frame equal (image, depth,
+segments) to the one with the plain versions patched in; (b) each kernel
+against its plain version on the same CUDA tensors, t max |d| 0 and index
+equal on every lane, at bounces 0 and 2 of real frames with their active
+masks, on the leaf-4 BVH, a 4-entry stack and axis-aligned rays on box
+planes, with its time beside its bound; (c) ``host_syncs`` over
+``Renderer`` frames (brute, bvh, mesh) and a config-5 round, which must be
+empty; (d) the launches of one wavefront frame (torch's profiler).
+
 Each phase prints its lines; the line before the last is the kernel table
 as JSON, and the last line is ``{"ok": true, "device": {...}}``. Any failed
 phase raises and the script exits nonzero without that line. It exits
@@ -198,6 +214,26 @@ ORACLE_FRAMES = {"mesh": (40, 40, 2, 4, 3, 6),
                  "kitchen_sink": (48, 48, 3, 4, 2, 21),
                  "cube": (32, 32, 2, 3, 1, 5)}
 
+# Phase 13. The wavefront renderer's ray tests (csrc/wavefront.cu), each held
+# against its plain version on the same CUDA tensors (t max |d| 0, index
+# equal on every lane). They replace XLA loops of the JAX package, not a
+# pallas_call: the scan of the dense sphere and triangle tests and the
+# while_loop of the BVH walk.
+WAVE_SOURCE = "bevyray_tpu_torch/kernels/cuda/csrc/wavefront.cu"
+WAVE_REPLACES = {
+    "intersect_spheres": "bevyray_tpu/kernels/intersect.py:41",
+    "intersect_triangles": "bevyray_tpu/kernels/intersect.py:116",
+    "intersect_bvh": "bevyray_tpu/kernels/traverse.py:125",
+    "intersect_bvh_triangles": "bevyray_tpu/kernels/traverse.py:125",
+}
+WAVE_BOUNCES = (0, 2)   # the captured bounces the kernels are held on
+WAVE_REPS = 20          # launches per CUDA-event timing
+AXIS_RAYS = 1 << 16     # axis-aligned rays, origins on box and face planes
+# Bytes per lane a ray test reads (origin, direction, active) and writes
+# (t, index); bytes per row of its table.
+RAY_BYTES = 6 * 4 + 1 + 4 + 8
+ROW_BYTES = {"intersect_spheres": 4 * 4 + 1, "intersect_triangles": 9 * 4 + 1,
+             "bvh_node": 6 * 4 + 2 * 4}
 
 def mesh_scene(copies=1):
     """The simple scene with a metallic cube mesh in front of a sphere,
@@ -650,6 +686,7 @@ def main() -> int:
     cli_phase(card, dev)
     oracle_phase(card, dev)
     bench_phase(scene, cam, headline, card, dev)
+    entries += wavefront_phase(scene, cam, headline, card, dev)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2126,6 +2163,397 @@ def bench_phase(scene, cam, headline, card, dev) -> None:
           f"{len(rows)} rows, {launches} kernel launches, headline p50 "
           f"{head['p50_frame_ms']} ms, seed 1 {head['timed_rays'][0]} "
           f"segments as a direct frame | {card}", flush=True)
+
+
+def capture_rays(scene, cam, config, dev, seed=1) -> list:
+    """The (origin, direction, active) that each bounce of sample 0 of a
+    wavefront frame hands its sphere test, through the frame's own test."""
+    import torch
+
+    from bevyray_tpu_torch.core.vec import Vec3
+    from bevyray_tpu_torch.engine import renderer as renderer_mod
+    from bevyray_tpu_torch.kernels.raygen import pixel_uv
+
+    real = renderer_mod.make_intersect_fn(scene, config)
+    captured = []
+
+    def record(o, d, active):
+        captured.append((Vec3(*(c.clone() for c in o)),
+                         Vec3(*(c.clone() for c in d)), active.clone()))
+        return real(o, d, active)
+
+    u, v = pixel_uv(config.width, config.height, device=dev)
+    ids = torch.arange(config.n_pixels, device=dev)
+    renderer_mod.trace_sample(scene, cam, config, ids, u, v, 0, seed,
+                              intersect_fn=record)
+    return captured
+
+
+def axis_rays(lo, hi, planes, n, seed, dev) -> tuple:
+    """``n`` rays along +-x, +-y or +-z from origins uniform in the box
+    [lo, hi], one coordinate of each moved onto a value of ``planes`` (a
+    (3, k) array of box faces: min or max x, y, z of BVH nodes), so that a
+    slab of a face through the origin meets a zero direction (0 * inf)."""
+    import numpy as np
+    import torch
+
+    from bevyray_tpu_torch.core.vec import Vec3
+
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(lo, hi, size=(n, 3)).astype(np.float32)
+    axis = rng.integers(0, 3, n)
+    flat = (axis + rng.integers(1, 3, n)) % 3   # another axis than the ray's
+    o[np.arange(n), flat] = planes[flat, rng.integers(0, planes.shape[1], n)]
+    d = np.zeros((n, 3), np.float32)
+    d[np.arange(n), axis] = rng.choice(np.float32([-1.0, 1.0]), n)
+    return tuple(Vec3(*(torch.as_tensor(a[:, k].copy(), device=dev)
+                        for k in range(3))) for a in (o, d))
+
+
+def box_planes(bvh) -> "np.ndarray":
+    """(3, 2 x nodes) float32: every node's min and max per axis."""
+    import numpy as np
+
+    cols = [np.asarray(c.cpu()) for c in (bvh.min_x, bvh.min_y, bvh.min_z,
+                                           bvh.max_x, bvh.max_y, bvh.max_z)]
+    return np.stack([np.concatenate([cols[k], cols[k + 3]])
+                     for k in range(3)])
+
+
+def wavefront_phase(scene, cam, headline, card, dev) -> list:
+    """Phase 13: the wavefront renderer's ray tests, the kernels of
+    ``csrc/wavefront.cu`` (K1 ``intersect_spheres``, K2
+    ``intersect_triangles``, K3 ``intersect_bvh``, K4
+    ``intersect_bvh_triangles``). (a) The main path: the wavefront headline
+    frame (K1), BASELINE config 5's mesh through ``Renderer`` with the
+    dense tests (K1, K2) and with the BVH walks (K3, K4), and 10(f)'s 4,971
+    spheres walking the BVH (K3), each with the counts zeroed just before
+    and read just after, timed; the headline frame again with the plain
+    versions patched in: image, depth and segments equal. (b) Each kernel
+    against its plain version on the same CUDA tensors at bounces 0 and 2
+    of a real frame (the bounce's own active mask): the headline (K1),
+    config 5 (K1, K2; K3, K4 on its BVHs), the 4,971-sphere BVH at leaf 1
+    and 4 and with a 4-entry stack (K3), and axis-aligned rays on box
+    planes (K1-K4); t max |d| 0 and index equal on every lane. Each
+    kernel's time by CUDA events beside its bound and its plain version's
+    time. (c) ``host_syncs`` over ``Renderer.render`` (brute, bvh, mesh)
+    and over a config-5 round (``raster_layer`` + ``FusedRenderer``): the
+    sites, which must be none. (d) The launches of one frame (torch's
+    profiler). Returns the kernels-line entries."""
+    import numpy as np
+    import torch
+
+    from bevyray_tpu_torch import FusedRenderer, RenderConfig, Renderer, rtiow
+    from bevyray_tpu_torch.bench.timing import host_syncs
+    from bevyray_tpu_torch.bvh import build as bvh_build
+    from bevyray_tpu_torch.engine import renderer as renderer_mod
+    from bevyray_tpu_torch.engine.raster import raster_layer
+    from bevyray_tpu_torch.kernels import intersect, traverse
+    from bevyray_tpu_torch.kernels.intersect import on_active
+
+    t_phase = time.perf_counter()
+    kernels = {"intersect_spheres": intersect.intersect_spheres,
+               "intersect_triangles": intersect.intersect_triangles,
+               "intersect_bvh": traverse.intersect_bvh,
+               "intersect_bvh_triangles": traverse.intersect_bvh_triangles}
+    plain = {"intersect_spheres": intersect.intersect_spheres_reference,
+             "intersect_triangles": intersect.intersect_triangles_reference,
+             "intersect_bvh": traverse.intersect_bvh_reference,
+             "intersect_bvh_triangles":
+                 traverse.intersect_bvh_triangles_reference}
+
+    def zero():
+        for fn in kernels.values():
+            fn.launches = 0
+
+    def counts():
+        return {name: fn.launches for name, fn in kernels.items()}
+
+    def timed_frame(renderer, scn, camera, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame = renderer.render(scn, camera, seed=1, **kw)
+        torch.cuda.synchronize()
+        return frame, (time.perf_counter() - t0) * 1e3
+
+    world5, config5 = config5_world()
+    cam5 = world5.camera_state(aspect=HYBRID_SIZE[0] / HYBRID_SIZE[1],
+                               device=dev)
+    scene5 = world5.extract(device=dev)
+    rc, rd = raster_layer(world5, cam5, config5, device=dev)
+    big = rtiow.final_scene(seed=CLI_SCENE_SEED, grid=BIG_GRID)
+    big_scene = big.extract(device=dev)
+    big_cam = big.camera_state(aspect=BIG_SIZE[0] / BIG_SIZE[1], device=dev)
+    big_cfg = RenderConfig(*BIG_SIZE, BIG_SPP, BOUNCES, level=3)
+    brute5 = dataclasses.replace(config5, intersect_backend="brute")
+    bvh5 = dataclasses.replace(config5, intersect_backend="bvh")
+
+    # (a) The main path, each run between a zeroing and a reading.
+    main_runs = [
+        ("headline", Renderer(headline), scene, cam, {}),
+        ("config 5 brute", Renderer(brute5), scene5, cam5,
+         dict(raster_color=rc, raster_depth=rd)),
+        ("config 5 bvh", Renderer(bvh5), scene5, cam5,
+         dict(raster_color=rc, raster_depth=rd)),
+        (f"{big.n_spheres} spheres auto", Renderer(big_cfg), big_scene,
+         big_cam, {}),
+    ]
+    launches = collections.Counter()
+    frames = {}
+    for name, renderer, scn, camera, kw in main_runs:
+        renderer.render(scn, camera, seed=0, **kw)   # warm-up
+        zero()
+        frame, ms = timed_frame(renderer, scn, camera, **kw)
+        got = counts()
+        launches.update(got)
+        frames[name] = frame
+        image = frame.image
+        if not (bool(torch.isfinite(image).all())
+                and bool(torch.isfinite(frame.rt_depth).all())
+                and int(frame.rays_traced) > 0):
+            raise SystemExit(f"phase 13 {name}: not a finite frame")
+        print(f"phase 13(a) {name} {renderer.config.width}x"
+              f"{renderer.config.height} {renderer.config.samples_per_pixel}"
+              f" spp ({renderer_mod.resolve_intersect_backend(scn, renderer.config)}):"
+              f" frame {ms:.3f} ms, {int(frame.rays_traced)} segments, "
+              f"launches {got} | {card}", flush=True)
+    if min(launches[name] for name in kernels) < 1:
+        raise SystemExit(f"phase 13(a): a kernel of the path launched no "
+                         f"time: {dict(launches)}")
+
+    # The headline frame with the plain versions patched in.
+    patched = {
+        "intersect_spheres": lambda o, d, sph, chunk=512, active=None:
+            on_active(plain["intersect_spheres"], active, o, d, sph, chunk),
+        "intersect_triangles": lambda o, d, tris, chunk=512, active=None:
+            on_active(plain["intersect_triangles"], active, o, d, tris,
+                      chunk),
+        "intersect_bvh": lambda o, d, sph, bvh, stack_size=32,
+        max_leaf_size=1, active=None: on_active(
+            plain["intersect_bvh"], active, o, d, sph, bvh, stack_size,
+            max_leaf_size),
+        "intersect_bvh_triangles": lambda o, d, tris, bvh, stack_size=32,
+        max_leaf_size=1, active=None: on_active(
+            plain["intersect_bvh_triangles"], active, o, d, tris, bvh,
+            stack_size, max_leaf_size),
+    }
+    saved = {name: getattr(renderer_mod, name) for name in patched}
+    try:
+        for name, fn in patched.items():
+            setattr(renderer_mod, name, fn)
+        zero()
+        ref, ref_ms = timed_frame(Renderer(headline), scene, cam)
+        stray = counts()
+    finally:
+        for name, fn in saved.items():
+            setattr(renderer_mod, name, fn)
+    head = frames["headline"]
+    same = (torch.equal(head.image, ref.image)
+            and torch.equal(head.rt_depth, ref.rt_depth)
+            and int(head.rays_traced) == int(ref.rays_traced))
+    print(f"phase 13(a) headline frame against the frame with the plain "
+          f"versions ({ref_ms:.1f} ms): image max |d| "
+          f"{float((head.image - ref.image).abs().max()):.3g}, depth max |d| "
+          f"{float((head.rt_depth - ref.rt_depth).abs().max()):.3g}, segments "
+          f"{int(head.rays_traced)} / {int(ref.rays_traced)} | {card}",
+          flush=True)
+    if not same or any(stray.values()):
+        raise SystemExit(f"phase 13(a): the kernels' frame differs from the "
+                         f"plain versions' (launches in the plain frame "
+                         f"{stray})")
+
+    # (b) Each kernel against its plain version on the same CUDA tensors.
+    max_err = collections.defaultdict(float)
+    timing = {}
+
+    def hold(case, name, args, o, d, active, time_it=False, **kw):
+        got = kernels[name](o, d, *args, **kw, active=active)
+        work = {}
+        extra = dict(kw, work=work) if name.startswith("intersect_bvh") else kw
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = on_active(plain[name], active, o, d, *args, **extra)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = float((got[0] - want[0]).abs().max())
+        same_i = torch.equal(got[1], want[1])
+        n_act = int(active.sum()) if active is not None else o.x.shape[0]
+        max_err[name] = max(max_err[name], err)
+        line = (f"phase 13(b) {name} {case}: {o.x.shape[0]} lanes, {n_act} "
+                f"active, t max |d| {err:.3g}, index equal {same_i}, hits "
+                f"{int((got[1] >= 0).sum())}")
+        if time_it:   # the first timed case of a kernel is its entry's
+            ms = cuda_ms(lambda: kernels[name](o, d, *args, **kw,
+                                               active=active), WAVE_REPS)
+            bound = wave_bound(name, args, o, n_act, work)
+            timing.setdefault(name, (ms, plain_ms, bound, case))
+            line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+                     f"{bound[0]:.4f} ms ({bound[1]})")
+        print(line + f" | {card}", flush=True)
+        if err != 0.0 or not same_i:
+            raise SystemExit(f"phase 13(b) {name} {case}: the kernel differs "
+                             "from its plain version")
+
+    tris5 = scene5.triangles
+    big_leaf4 = big.extract(bvh_leaf_size=4, device=dev)
+    rays = {key: capture_rays(*args, dev) for key, args in (
+        ("headline", (scene, cam, headline)),
+        ("config 5", (scene5, cam5, brute5)),
+        ("big", (big_scene, big_cam, big_cfg)))}
+    for b in WAVE_BOUNCES:
+        first = b == WAVE_BOUNCES[0]
+        o, d, act = rays["headline"][b]
+        hold(f"headline bounce {b}", "intersect_spheres", (scene.spheres,),
+             o, d, act, time_it=first)
+        o, d, act = rays["config 5"][b]
+        hold(f"config 5 bounce {b}", "intersect_spheres", (scene5.spheres,),
+             o, d, act)
+        hold(f"config 5 bounce {b}", "intersect_triangles", (tris5,), o, d,
+             act, time_it=first)
+        hold(f"config 5 mesh BVH bounce {b}", "intersect_bvh_triangles",
+             (tris5, scene5.tri_bvh), o, d, act, time_it=first)
+        hold(f"config 5 sphere BVH bounce {b}", "intersect_bvh",
+             (scene5.spheres, scene5.bvh), o, d, act)
+        o, d, act = rays["big"][b]
+        hold(f"{big.n_spheres} spheres leaf 1 bounce {b}", "intersect_bvh",
+             (big_scene.spheres, big_scene.bvh), o, d, act, time_it=first)
+        hold(f"{big.n_spheres} spheres leaf 4 bounce {b}", "intersect_bvh",
+             (big_leaf4.spheres, big_leaf4.bvh), o, d, act,
+             max_leaf_size=4)
+        hold(f"{big.n_spheres} spheres 4-entry stack bounce {b}",
+             "intersect_bvh", (big_scene.spheres, big_scene.bvh), o, d, act,
+             stack_size=4)
+        hold(f"{big.n_spheres} spheres dense bounce {b}",
+             "intersect_spheres", (big_scene.spheres,), o, d, act,
+             time_it=first)
+    centers, radii = big.extract_host()[:2]
+    lo, hi = centers.min(0) - radii.max(), centers.max(0) + radii.max()
+    o, d = axis_rays(lo, hi, box_planes(big_scene.bvh), AXIS_RAYS, 5, dev)
+    for case, sph, tree, leaf in (("leaf 1", big_scene.spheres,
+                                   big_scene.bvh, 1),
+                                  ("leaf 4", big_leaf4.spheres,
+                                   big_leaf4.bvh, 4)):
+        hold(f"axis-aligned rays, {big.n_spheres} spheres {case}",
+             "intersect_bvh", (sph, tree), o, d, None, max_leaf_size=leaf)
+    hold(f"axis-aligned rays, {big.n_spheres} spheres", "intersect_spheres",
+         (big_scene.spheres,), o, d, None)
+    live = np.asarray(tris5.valid.cpu())
+    corners = np.stack([np.asarray(c.cpu())[live] for c in tris5[:9]])
+    corners = corners.reshape(3, 3, -1)   # corner, axis, live row
+    lo, hi = corners.min((0, 2)) - 1.0, corners.max((0, 2)) + 1.0
+    o, d = axis_rays(lo, hi, box_planes(scene5.tri_bvh), AXIS_RAYS, 6, dev)
+    hold("axis-aligned rays, config 5 mesh BVH", "intersect_bvh_triangles",
+         (tris5, scene5.tri_bvh), o, d, None)
+    hold("axis-aligned rays, config 5 mesh", "intersect_triangles",
+         (tris5,), o, d, None)
+
+    # (c) Host waits for the card over each frame's work.
+    rounds = [
+        ("Renderer brute (headline, 1 spp)", lambda: Renderer(
+            dataclasses.replace(headline, samples_per_pixel=1)).render(
+                scene, cam, seed=2)),
+        (f"Renderer bvh ({big.n_spheres} spheres)",
+         lambda: Renderer(big_cfg).render(big_scene, big_cam, seed=2)),
+        ("Renderer mesh brute (config 5)", lambda: Renderer(brute5).render(
+            scene5, cam5, seed=2, raster_color=rc, raster_depth=rd)),
+        ("Renderer mesh bvh (config 5)", lambda: Renderer(bvh5).render(
+            scene5, cam5, seed=2, raster_color=rc, raster_depth=rd)),
+    ]
+    fused5 = FusedRenderer(config5)
+    fused5.render(scene5, cam5, seed=0, raster_color=rc, raster_depth=rd)
+
+    def config5_round():
+        rc2, rd2 = raster_layer(world5, cam5, config5, device=dev)
+        return fused5.render(scene5, cam5, seed=2, raster_color=rc2,
+                             raster_depth=rd2)
+
+    rounds.append(("config 5 round (raster_layer + FusedRenderer)",
+                   config5_round))
+    waits = {}
+    for name, fn in rounds:
+        torch.cuda.synchronize()
+        sites = []
+        with host_syncs(dev, sites):
+            fn()
+        torch.cuda.synchronize()
+        waits[name] = sorted(set(sites))
+        print(f"phase 13(c) host waits for the card, {name}: "
+              f"{', '.join(waits[name]) or 'none'}", flush=True)
+    if any(waits.values()):
+        raise SystemExit("phase 13(c): a frame's host work waited for the "
+                         "card")
+
+    # (d) Kernel launches of one wavefront frame, by torch's profiler.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    # The card's busy time (the kernels' summed durations) against the
+    # frame's time unprofiled: the rest is the card waiting for launches.
+    one = Renderer(dataclasses.replace(headline, samples_per_pixel=1))
+    one.render(scene, cam, seed=3)
+    _, one_ms = timed_frame(one, scene, cam)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        one.render(scene, cam, seed=3)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    n_kernels = sum(e.count for e in device)
+    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+    n_launch_calls = sum(e.count for e in events
+                         if e.key.startswith(("cudaLaunchKernel",
+                                              "cuLaunchKernel")))
+    print(f"phase 13(d) one headline sample (1 spp, {BOUNCES} bounces): "
+          f"{n_kernels} kernels on the card, {n_launch_calls} launch calls "
+          f"on the host (x {SPP} for the {SPP} spp frame); the card busy "
+          f"{busy_ms:.3f} ms of the unprofiled frame's {one_ms:.3f} ms "
+          f"(idle share {1 - busy_ms / one_ms:.1%}) | {card}", flush=True)
+
+    entries = []
+    for name, fn in kernels.items():
+        ms, plain_ms, (b_ms, b_by), case = timing[name]
+        print(f"phase 13 {name}: {case}, kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}), launches "
+              f"on the main path {launches[name]} | {card}", flush=True)
+        entries.append({
+            "name": name, "route": "cuda", "source": WAVE_SOURCE,
+            "replaces": WAVE_REPLACES[name], "launches": launches[name],
+            "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by,
+            # No single PyTorch call computes a nearest-hit ray test.
+            "library_ms": None})
+    print(f"phase 13 done in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return entries
+
+
+def wave_bound(name, args, o, n_active, work) -> tuple:
+    """(ms, "operations" | "bytes"): the least time the card could take for
+    one call of kernel ``name``: the tests this call's active rays need (the
+    dense tests: every valid row; the walks: the box and prim tests that
+    the plain walk counted) over the fp32 peak, or its bytes (each ray and
+    table row read once, each (t, index) written once) over the memory
+    rate."""
+    n = o.x.shape[0]
+    table = args[0]
+    rows = table.valid.numel()
+    if name == "intersect_spheres":
+        ops = SPHERE_TEST_OPS * n_active * int(table.valid.sum())
+    elif name == "intersect_triangles":
+        ops = TRIANGLE_TEST_OPS * n_active * int(table.valid.sum())
+    else:
+        leaf = (SPHERE_TEST_OPS if name == "intersect_bvh"
+                else TRIANGLE_TEST_OPS)
+        ops = SLAB_TEST_OPS * work["slab_tests"] + leaf * work["leaf_tests"]
+    table_key = ("intersect_spheres" if name in ("intersect_spheres",
+                                                 "intersect_bvh")
+                 else "intersect_triangles")
+    n_bytes = n * RAY_BYTES + rows * ROW_BYTES[table_key]
+    if name.startswith("intersect_bvh"):
+        n_bytes += args[1].min_x.numel() * ROW_BYTES["bvh_node"]
+    by_ops, by_bytes = ops / PEAK_FP32 * 1e3, n_bytes / PEAK_BYTES * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes,
+                                                              "bytes")
 
 
 if __name__ == "__main__":

@@ -174,7 +174,7 @@ def test_composite_levels(level):
 def test_port_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None\n"
             "import bevyray_tpu_torch as bt\n"
-            "from bevyray_tpu_torch.kernels.cuda import build, megakernel\n"
+            "from bevyray_tpu_torch.kernels.cuda import build, megakernel, wavefront\n"
             "from bevyray_tpu_torch import bvh\n"
             "from bevyray_tpu_torch.bvh import native\n"
             "from bevyray_tpu_torch.kernels import traverse\n"

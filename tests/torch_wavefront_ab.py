@@ -1,0 +1,192 @@
+#!/usr/bin/env python3
+"""The wavefront path of two trees of the port on one CUDA card, in turns.
+
+    python3 tests/torch_wavefront_ab.py OTHER_TREE [--frames 2]
+
+OTHER_TREE is another checkout of the repository (for example the parent
+commit unpacked with ``git archive`` into a directory that ``.gitignore``
+lists). In separate processes, in the order other, this, this, other, each
+arm builds its tree's CUDA extension and runs the wavefront ``Renderer``
+(seed 1, 2, ... after a warm-up frame at seed 0) on five cells: the
+headline (RTiOW final scene, 1920x1080, 16 spp, 4 bounces, level 3); the
+CLI's default ``render`` (1280x720, 16 spp, backend auto: "brute"); 4,971
+spheres (``final_scene(seed=42, grid=35)``, 640x360, 4 spp) walking the
+BVH and with the dense test; and BASELINE config 5 (the final scene with a
+metallic cube mesh, 1280x720, 16 spp, level 2) over its raster layer. It
+times the raster layer (p50 of 5 calls after a first) and takes the census
+of host waits for the card (``bench/timing.py`` ``host_syncs``) over one
+headline frame at 1 spp, one 4,971-sphere "bvh" frame and one config-5
+round (``raster_layer`` + ``FusedRenderer.render``). The first arm of each
+tree saves its seed-1 frames and raster buffers; the last lines give the
+card (name, power limit), each tree's p50s and census, and each cell's
+max |d| between the trees. Needs one CUDA card; the two trees must share
+the public API.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+ARM = """
+import dataclasses, json, sys, time
+sys.path.insert(0, ".")
+import torch
+from bevyray_tpu_torch import (FusedRenderer, RenderConfig, Renderer,
+                               StandardMaterial, Transform, cube_mesh, rtiow)
+from bevyray_tpu_torch.bench.timing import host_syncs
+from bevyray_tpu_torch.engine.raster import raster_layer
+from bevyray_tpu_torch.kernels.cuda import build
+
+dev = torch.device("cuda", 0)
+t0 = time.perf_counter()
+build.extension()
+build_s = time.perf_counter() - t0
+saved = {{}}
+
+
+def frames(name, render):
+    render(0)
+    torch.cuda.synchronize()
+    times = []
+    for i in range({frames}):
+        t0 = time.perf_counter()
+        frame = render(i + 1)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            saved[name] = (frame.image.cpu(), frame.rt_depth.cpu(),
+                           int(frame.rays_traced))
+    return {{"p50_ms": sorted(times)[len(times) // 2], "ms": times,
+             "segments": saved[name][2]}}
+
+
+def census(fn):
+    torch.cuda.synchronize()
+    sites = []
+    with host_syncs(dev, sites):
+        fn()
+    torch.cuda.synchronize()
+    return sorted(set(sites))
+
+
+world = rtiow.final_scene(seed=42)
+scene = world.extract(with_bvh=False)
+cam = world.camera_state(aspect=1920 / 1080)
+headline = RenderConfig(1920, 1080, 16, 4, level=3)
+cells = {{"headline": frames("headline", lambda s: Renderer(headline).render(
+    scene, cam, seed=s))}}
+
+cli_scene = world.extract()
+cli_cam = world.camera_state(aspect=1280 / 720)
+cli_cfg = RenderConfig(1280, 720, 16, 4, level=3)
+cells["cli_render"] = frames("cli_render", lambda s: Renderer(cli_cfg).render(
+    cli_scene, cli_cam, seed=s))
+
+big = rtiow.final_scene(seed=42, grid=35)
+big_scene = big.extract()
+big_cam = big.camera_state(aspect=640 / 360)
+for backend in ("bvh", "brute"):
+    cfg = RenderConfig(640, 360, 4, 4, level=3, intersect_backend=backend)
+    cells["big_" + backend] = frames("big_" + backend, lambda s: Renderer(
+        cfg).render(big_scene, big_cam, seed=s))
+
+world5 = rtiow.final_scene(seed=42)
+world5.spawn_mesh(Transform.from_xyz(-4.0, 0.6, 1.0), cube_mesh(1.2),
+                  StandardMaterial(base_color=(0.2, 0.5, 0.9), metallic=1.0,
+                                   perceptual_roughness=0.15))
+config5 = RenderConfig(1280, 720, 16, 4, level=2)
+cam5 = world5.camera_state(aspect=16 / 9)
+scene5 = world5.extract(with_bvh=False)
+raster_ms = []
+for _ in range(6):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc, rd = raster_layer(world5, cam5, config5)
+    torch.cuda.synchronize()
+    raster_ms.append((time.perf_counter() - t0) * 1e3)
+saved["raster"] = (torch.stack(list(rc), -1).cpu(), rd.cpu(), 0)
+cells["config5"] = frames("config5", lambda s: Renderer(config5).render(
+    scene5, cam5, seed=s, raster_color=rc, raster_depth=rd))
+fused5 = FusedRenderer(config5)
+fused5.render(scene5, cam5, seed=0, raster_color=rc, raster_depth=rd)
+
+
+def config5_round():
+    rc2, rd2 = raster_layer(world5, cam5, config5)
+    fused5.render(scene5, cam5, seed=2, raster_color=rc2, raster_depth=rd2)
+
+
+one = dataclasses.replace(headline, samples_per_pixel=1)
+syncs = {{
+    "Renderer headline 1 spp": census(
+        lambda: Renderer(one).render(scene, cam, seed=2)),
+    "Renderer 4,971 spheres bvh": census(
+        lambda: Renderer(RenderConfig(640, 360, 4, 4, level=3,
+                                      intersect_backend="bvh")).render(
+            big_scene, big_cam, seed=2)),
+    "config 5 round": census(config5_round),
+}}
+if {save!r}:
+    torch.save(saved, {save!r})
+print(json.dumps({{"cells": cells, "raster_p50_ms": sorted(raster_ms[1:])[2],
+                   "host_syncs": syncs, "build_s": build_s}}))
+"""
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("other", type=Path)
+    parser.add_argument("--frames", type=int, default=2)
+    args = parser.parse_args()
+    other = args.other.resolve()
+    if not (other / "bevyray_tpu_torch").is_dir():
+        print(f"torch_wavefront_ab: no port in {other}", file=sys.stderr)
+        return 2
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    out_dir = ROOT / "build" / "wavefront_ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    runs = {"other": [], "this": []}
+    for arm, tree in (("other", other), ("this", ROOT), ("this", ROOT),
+                      ("other", other)):
+        save = str(out_dir / f"{arm}.pt") if not runs[arm] else ""
+        out = subprocess.run([sys.executable, "-c",
+                              ARM.format(frames=args.frames, save=save)],
+                             cwd=tree, capture_output=True, text=True,
+                             timeout=1200)
+        if out.returncode:
+            print(out.stdout + out.stderr, file=sys.stderr)
+            return out.returncode
+        result = json.loads(out.stdout.strip().splitlines()[-1])
+        runs[arm].append(result)
+        print(f"{arm} ({tree}): {json.dumps(result)}", flush=True)
+
+    import torch
+
+    got, want = (torch.load(out_dir / f"{arm}.pt") for arm in ("this",
+                                                               "other"))
+    diffs = {cell: {"image": float((got[cell][0] - want[cell][0]).abs().max()),
+                    "depth": float((got[cell][1] - want[cell][1]).abs().max()),
+                    "segments": [got[cell][2], want[cell][2]]}
+             for cell in got}
+    print(f"card: {card}")
+    print(json.dumps({arm: {"p50_ms": {cell: [r["cells"][cell]["p50_ms"]
+                                              for r in rs]
+                                       for cell in rs[0]["cells"]},
+                            "raster_p50_ms": [r["raster_p50_ms"] for r in rs],
+                            "host_syncs": rs[0]["host_syncs"]}
+                      for arm, rs in runs.items()}))
+    print(json.dumps({"max_abs_diff_this_vs_other": diffs}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
