@@ -320,15 +320,42 @@ void intersect_triangles(const std::vector<torch::Tensor>& rays, const torch::Te
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// `walk`: the paired-child record of `bvh` over `spheres` (wavefront.py
+// `walk_record`): nodes (int32, 16 a node), rows (float32, 4 a slot) and
+// prims (int32, one a slot), one slot a prim_ids row, or a sphere without
+// prim_ids.
+SphereWalk sphere_walk(const std::vector<torch::Tensor>& walk, const BvhTable& tree,
+                       const SphereTable& tab, const torch::Tensor& like) {
+  TORCH_CHECK(walk.size() == 3, "walk must be nodes, rows, prims");
+  const int64_t n_slots = tree.prim_ids != nullptr ? tree.n_prim_ids : tab.n;
+  SphereWalk w{};
+  w.nodes = reinterpret_cast<const int4*>(ints(walk[0], 16 * int64_t{tree.n_nodes}, like,
+                                               "walk nodes"));
+  TORCH_CHECK(walk[1].dim() == 2 && walk[1].size(1) == 4, "walk rows must be (slots, 4)");
+  w.rows = reinterpret_cast<const float4*>(
+      column(walk[1].view({-1}), 4 * n_slots, like, "walk rows"));
+  w.prims = ints(walk[2], n_slots, like, "walk prims");
+  TORCH_CHECK(reinterpret_cast<uintptr_t>(w.nodes) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(w.rows) % 16 == 0,
+              "walk nodes and rows must be 16-byte aligned");
+  w.n_nodes = tree.n_nodes;
+  w.n_slots = static_cast<int>(n_slots);
+  w.stack_size = tree.stack_size;
+  w.max_leaf_size = tree.max_leaf_size;
+  return w;
+}
+
 void intersect_bvh(const std::vector<torch::Tensor>& rays, const torch::Tensor& active,
                    const std::vector<torch::Tensor>& bvh, int64_t stack_size,
                    int64_t max_leaf_size, const std::vector<torch::Tensor>& spheres,
-                   torch::Tensor out_t, torch::Tensor out_i) {
+                   const std::vector<torch::Tensor>& walk, torch::Tensor out_t,
+                   torch::Tensor out_i) {
   const RayBatch b = ray_batch(rays, active, out_t, out_i);
   const BvhTable tree = bvh_table(bvh, stack_size, max_leaf_size, rays[0]);
   const SphereTable tab = sphere_table(spheres, rays[0]);
+  const SphereWalk w = sphere_walk(walk, tree, tab, rays[0]);
   const c10::cuda::CUDAGuard guard(rays[0].device());
-  launch_intersect_bvh(b, tree, tab, out_t.data_ptr<float>(), out_i.data_ptr<int64_t>(),
+  launch_intersect_bvh(b, w, out_t.data_ptr<float>(), out_i.data_ptr<int64_t>(),
                        c10::cuda::getCurrentCUDAStream().stream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
@@ -348,6 +375,27 @@ void intersect_bvh_triangles(const std::vector<torch::Tensor>& rays,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// Registers, spills, shared memory and resident blocks per SM of K1 (over
+// a table of `rows` rows) and K3, on CUDA device `device`.
+std::map<std::string, std::map<std::string, int64_t>> wavefront_info(int64_t device,
+                                                                     int64_t rows) {
+  TORCH_CHECK(rows >= 1 && rows < (int64_t{1} << 31), "rows must be a positive int32");
+  const c10::cuda::CUDAGuard guard(static_cast<c10::DeviceIndex>(device));
+  std::map<std::string, std::map<std::string, int64_t>> out;
+  const char* names[] = {"intersect_spheres", "intersect_bvh"};
+  for (int which = 0; which < 2; ++which) {
+    WaveKernelInfo info{};
+    C10_CUDA_CHECK(::wavefront_kernel_info(which, static_cast<int>(rows), &info));
+    out[names[which]] = {{"num_regs", info.num_regs},
+                         {"local_bytes", info.local_bytes},
+                         {"static_smem", info.static_smem},
+                         {"dynamic_smem", info.dynamic_smem},
+                         {"blocks_per_sm", info.blocks_per_sm}};
+  }
+  out["intersect_spheres"]["rays_per_thread"] = kK1Rays;
+  return out;
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -360,7 +408,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "Nearest sphere hit of each ray over the whole table (t, index)");
   m.def("intersect_triangles", &intersect_triangles,
         "Nearest triangle hit of each ray over the whole table (t, index)");
-  m.def("intersect_bvh", &intersect_bvh, "Nearest sphere hit of each ray by the BVH walk");
+  m.def("intersect_bvh", &intersect_bvh,
+        "Nearest sphere hit of each ray by the BVH walk over its paired-child record");
+  m.def("wavefront_info", &wavefront_info,
+        "Registers, spills, shared memory and occupancy of the K1 and K3 kernels");
   m.def("intersect_bvh_triangles", &intersect_bvh_triangles,
         "Nearest triangle hit of each ray by the BVH walk");
 }

@@ -1,5 +1,5 @@
 // The wavefront renderer's ray tests for Hopper (sm_90a): the dense sphere
-// and triangle tests and the BVH walk, one thread per ray.
+// and triangle tests and the BVH walk.
 //
 // They replace XLA loops of the JAX package, not a `pl.pallas_call`:
 //
@@ -22,29 +22,57 @@
 // triangle test 60 with one IEEE division, a BVH box test 27. Each ray
 // reads 25 bytes and writes 12, and the tables are a few KB to a few
 // hundred KB, so at the headline (2 M rays x 512 spheres) the operations
-// take ~14 times as long as the bytes (K1: 1.36 ms against a 0.33 ms
-// bound, PERF.md). The walk's node and prim reads differ across a warp
-// after bounce 0, so its time goes to their latency (K3: 0.18 ms against
-// 0.006 at 4,971 spheres). What the design does about it:
+// take ~14 times as long as the bytes. Without contraction each operation
+// is one issued instruction, so K1's floor is the issue rate (0.66 ms at
+// the headline's bounce 0, PERF.md; 17 of the 21 operations come before
+// the discriminant's sign, so ~0.54 ms where few pairs pass it), and
+// what stands above it is every other instruction a (ray, sphere) pair
+// pays. The walk's node and prim reads differ across a warp after bounce
+// 0, so K3's time goes to the latency of its dependent loads, not to
+// arithmetic. What the design does about it:
 //
-// - the dense tests keep no [rays x table] temporaries: the table goes
-//   through shared memory in tiles (512 rows: 10 KB of spheres, 20 KB of
-//   triangles with their edges computed once per tile), read by all the
-//   threads of a block at the same address (a broadcast), and each thread
-//   keeps its running (t, index) in registers. A strict t < best in
-//   ascending row order gives the lowest index on every tie, as the plain
-//   version's chunk rule does;
-// - a negative discriminant returns before the sqrt, whose IEEE path calls
-//   a slow subroutine for inputs with the sign bit set (megakernel.cu);
-// - an inactive lane returns at once, and a block with no active lane
-//   skips the table (the bounce loop runs masked over every lane);
-// - the walk keeps its 32-entry stack in the thread and visits the nodes
-//   in the plain version's order (the first child pushed first, so popped
-//   second), so the first hit found along that order wins a tie, as in
-//   the reference; a push past the top is dropped and stops the walk (the
-//   reference's silent truncation), and the slab test keeps the NaN of a
-//   face plane through the ray's origin (min2_nan/max2_nan).
+// - K1 gives each thread up to kK1Rays rays, so that one 16-byte row
+//   (cx, cy, cz, r * r) read from shared memory feeds that many pairs. An
+//   invalid row is staged with r * r = NaN: c and so the discriminant are
+//   NaN, `disc >= 0` fails and the row never wins, with no load of a valid
+//   flag and no branch on it. Each pair pays its 17 operations to the
+//   discriminant and one compare; one branch a row, taken where any of the
+//   thread's rays has `disc >= 0`, guards the sqrt and the acceptance, so
+//   a negative discriminant never reaches the sqrt (whose IEEE path calls
+//   a slow subroutine for inputs with the sign bit set, megakernel.cu).
+//   The table is staged once a block, in tiles of kRowsK1 rows (32 KB)
+//   where it is larger;
+// - K1 compacts each block's active lanes first (the bounce loop launches
+//   it masked over every lane): the live rays go to the first threads,
+//   each thread takes as many rays as the block's count needs, a warp with
+//   none skips the rows, and a block with no active lane returns before
+//   staging anything. Where the batch fills the card's resident blocks at
+//   kK1Rays rays a thread, whole waves of blocks take that many and the
+//   lanes left go in blocks of one ray a thread, so that the last wave,
+//   which part of the card runs alone, is short; a smaller batch takes
+//   fewer rays a thread, so that every resident slot gets a block;
+// - the dense tests keep a strict t < best in ascending row order, which
+//   gives the lowest index on every tie, as the plain version's chunk rule
+//   does; K2 keeps one ray a thread and stages its rows (corner and edges
+//   computed once a tile);
+// - K3 walks a paired-child record built once per (sphere table, BVH)
+//   (kernels/cuda/wavefront.py `walk_record`): a popped node is one round
+//   of four independent 16-byte loads, which hold an inner node's two
+//   children's boxes, or a leaf's first sphere row and prim id, beside the
+//   node's count and index (the columns took two dependent rounds, and a
+//   leaf a third). The stack of node ids stays in the thread's local
+//   memory, which L1 holds: in shared memory (32 entries x 256 threads)
+//   it ran no faster and took L1's room from the record (PERF.md). Each
+//   ray visits the nodes in the plain version's order (the first child
+//   pushed first, so popped second, each pruned by d < best_t), so the
+//   first hit found along that order wins a tie, as in the reference; a
+//   push past the top is dropped and stops the walk (the reference's
+//   silent truncation), and the slab test keeps the NaN of a face plane
+//   through the ray's origin (min2_nan/max2_nan);
+// - K4 walks the BvhNodes columns themselves, one thread per ray, its
+//   stack in the thread.
 
+#include <algorithm>
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -55,7 +83,13 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTile = 512;   // table rows per shared-memory tile
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 512;      // K2: table rows per shared-memory tile
+constexpr int kRowsK1 = 2048;   // K1: sphere rows per staged tile (32 KB)
+
+constexpr int kMaxDevices = 64;
+
+static_assert(kK1Rays >= 1 && kK1Rays <= 8, "WAVEFRONT_K1_RAYS must lie in [1, 8]");
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) { return min(max(x, lo), hi); }
 
@@ -67,19 +101,31 @@ __device__ __forceinline__ bool lane_ray(const RayBatch& r, int i, V3& o, V3& d)
   return true;
 }
 
-// Near-root sphere distance (hit_sphere, wgsl:371-383; intersect.py
-// intersect_spheres_reference): f32 max unless disc >= 0 and t > T_MIN.
-// `a` = d.d and `inv_a` = 1 / a; `r2` = r * r.
-__device__ __forceinline__ float sphere_t(V3 o, V3 d, float a, float inv_a, float cx, float cy,
-                                          float cz, float r2) {
+// The near-root sphere test (hit_sphere, wgsl:371-383; intersect.py
+// intersect_spheres_reference) in two steps: the discriminant, with `h` =
+// d.(c - o), then the root. `a` = d.d, `inv_a` = 1 / a, `r2` = r * r.
+__device__ __forceinline__ float sphere_disc(V3 o, V3 d, float a, float cx, float cy, float cz,
+                                             float r2, float& h) {
   const float ocx = cx - o.x;
   const float ocy = cy - o.y;
   const float ocz = cz - o.z;
-  const float h = d.x * ocx + d.y * ocy + d.z * ocz;
+  h = d.x * ocx + d.y * ocy + d.z * ocz;
   const float c = ocx * ocx + ocy * ocy + ocz * ocz - r2;
-  const float disc = h * h - a * c;
+  return h * h - a * c;
+}
+
+// The root where disc >= 0: accepted where t > T_MIN.
+__device__ __forceinline__ float sphere_root(float h, float disc, float inv_a) {
+  return (h - sqrtf(disc)) * inv_a;
+}
+
+// Near-root sphere distance: f32 max unless disc >= 0 and t > T_MIN.
+__device__ __forceinline__ float sphere_t(V3 o, V3 d, float a, float inv_a, float cx, float cy,
+                                          float cz, float r2) {
+  float h;
+  const float disc = sphere_disc(o, d, a, cx, cy, cz, r2, h);
   if (!(disc >= 0.0f)) return kInf;
-  const float t = (h - sqrtf(disc)) * inv_a;
+  const float t = sphere_root(h, disc, inv_a);
   return t > kTMin ? t : kInf;
 }
 
@@ -107,49 +153,152 @@ __device__ __forceinline__ float triangle_t(V3 o, V3 d, float ax, float ay, floa
   return ok ? t : kInf;
 }
 
-// K1: every active ray against every valid sphere of the table.
-__global__ void __launch_bounds__(kThreads)
-    spheres_kernel(RayBatch rays, SphereTable tab, float* __restrict__ out_t,
-                   int64_t* __restrict__ out_i) {
-  __shared__ float s_cx[kTile], s_cy[kTile], s_cz[kTile], s_r2[kTile];
-  __shared__ bool s_valid[kTile];
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  V3 o = {0.0f, 0.0f, 0.0f}, d = {0.0f, 0.0f, 0.0f};
-  const bool live = lane_ray(rays, i, o, d);
-  float best_t = kInf;
-  int best_i = -1;
-  if (__syncthreads_or(live)) {
-    const float a = dot(d, d);
-    const float inv_a = 1.0f / a;
-    for (int base = 0; base < tab.n; base += kTile) {
-      const int rows = min(kTile, tab.n - base);
-      for (int k = threadIdx.x; k < rows; k += kThreads) {
-        const float r = tab.radius[base + k];
-        s_cx[k] = tab.cx[base + k];
-        s_cy[k] = tab.cy[base + k];
-        s_cz[k] = tab.cz[base + k];
-        s_r2[k] = r * r;
-        s_valid[k] = tab.valid[base + k];
+// ---- K1 ----------------------------------------------------------------------
+
+// K1's rows against the Q rays of each thread: lanes `s_lane[threadIdx.x +
+// j * kThreads]` for the slots below `m` (the block's active lanes, in
+// lane order). A dead slot carries a NaN origin: its discriminants are
+// NaN and it never enters the sqrt branch.
+template <int Q>
+__device__ __forceinline__ void spheres_scan(const RayBatch& rays, const SphereTable& tab,
+                                             const int* s_lane, int m, float4* s_row,
+                                             float* __restrict__ out_t,
+                                             int64_t* __restrict__ out_i) {
+  V3 o[Q], d[Q];
+  float a[Q], inv_a[Q], best_t[Q];
+  int best_i[Q];
+#pragma unroll
+  for (int j = 0; j < Q; ++j) {
+    const int slot = threadIdx.x + j * kThreads;
+    const int i = slot < m ? s_lane[slot] : -1;
+    if (i >= 0) {
+      o[j] = {rays.ox[i], rays.oy[i], rays.oz[i]};
+      d[j] = {rays.dx[i], rays.dy[i], rays.dz[i]};
+    } else {
+      const float nan = __int_as_float(0x7fc00000);
+      o[j] = {nan, nan, nan};
+      d[j] = {0.0f, 0.0f, 0.0f};
+    }
+    a[j] = dot(d[j], d[j]);
+    inv_a[j] = 1.0f / a[j];
+    best_t[j] = kInf;
+    best_i[j] = -1;
+  }
+  const bool warp_live = (threadIdx.x & ~31) < m;   // slot 0 is the warp's lowest
+  for (int base = 0; base < tab.n; base += kRowsK1) {
+    const int rows = min(kRowsK1, tab.n - base);
+    if (base > 0) __syncthreads();   // every warp is done with the last tile
+    for (int k = threadIdx.x; k < rows; k += kThreads) {
+      const int s = base + k;
+      const float r = tab.radius[s];
+      s_row[k] = make_float4(tab.cx[s], tab.cy[s], tab.cz[s],
+                             tab.valid[s] ? r * r : __int_as_float(0x7fc00000));
+    }
+    __syncthreads();
+    if (!warp_live) continue;
+#pragma unroll 4
+    for (int k = 0; k < rows; ++k) {
+      const float4 row = s_row[k];
+      float h[Q], disc[Q];
+      bool any = false;
+#pragma unroll
+      for (int j = 0; j < Q; ++j) {
+        disc[j] = sphere_disc(o[j], d[j], a[j], row.x, row.y, row.z, row.w, h[j]);
+        any |= disc[j] >= 0.0f;
       }
-      __syncthreads();
-      if (live) {
-        for (int k = 0; k < rows; ++k) {
-          if (!s_valid[k]) continue;
-          const float t = sphere_t(o, d, a, inv_a, s_cx[k], s_cy[k], s_cz[k], s_r2[k]);
-          if (t < best_t) {
-            best_t = t;
-            best_i = base + k;
+      if (any) {
+#pragma unroll
+        for (int j = 0; j < Q; ++j) {
+          if (disc[j] >= 0.0f) {
+            const float t = sphere_root(h[j], disc[j], inv_a[j]);
+            if (t > kTMin && t < best_t[j]) {
+              best_t[j] = t;
+              best_i[j] = base + k;
+            }
           }
         }
       }
-      __syncthreads();
     }
   }
-  if (i < rays.n) {
-    out_t[i] = best_t;
-    out_i[i] = best_i;
+#pragma unroll
+  for (int j = 0; j < Q; ++j) {
+    const int slot = threadIdx.x + j * kThreads;
+    if (slot < m) {
+      const int i = s_lane[slot];
+      out_t[i] = best_t[j];
+      out_i[i] = best_i[j];
+    }
   }
 }
+
+// The scan at the block's ray count: q rays a thread (1 <= q <= Q).
+template <int Q>
+__device__ void spheres_dispatch(int q, const RayBatch& rays, const SphereTable& tab,
+                                 const int* s_lane, int m, float4* s_row,
+                                 float* __restrict__ out_t, int64_t* __restrict__ out_i) {
+  if constexpr (Q > 1) {
+    if (q < Q) {
+      spheres_dispatch<Q - 1>(q, rays, tab, s_lane, m, s_row, out_t, out_i);
+      return;
+    }
+  }
+  spheres_scan<Q>(rays, tab, s_lane, m, s_row, out_t, out_i);
+}
+
+// K1: every active ray against every valid sphere of the table. A block
+// takes kThreads x `per_thread` consecutive lanes and compacts its active
+// ones: kK1Rays a thread in the first `wide` blocks, `tail` in the others.
+__global__ void __launch_bounds__(kThreads, kK1MinBlocks)
+    spheres_kernel(RayBatch rays, SphereTable tab, int wide, int tail,
+                   float* __restrict__ out_t, int64_t* __restrict__ out_i) {
+  const int block = static_cast<int>(blockIdx.x);
+  const int per_thread = block < wide ? kK1Rays : tail;
+  const int first = block < wide ? block * (kThreads * kK1Rays)
+                                 : wide * (kThreads * kK1Rays) + (block - wide) * (kThreads * tail);
+  extern __shared__ float4 s_row[];
+  __shared__ int s_lane[kThreads * kK1Rays];
+  __shared__ int s_start[kK1Rays * kWarps + 1];   // each (chunk, warp)'s first slot
+  const int warp = threadIdx.x / 32;
+  const unsigned below = (1u << (threadIdx.x % 32)) - 1u;
+  bool live[kK1Rays];
+#pragma unroll
+  for (int c = 0; c < kK1Rays; ++c) {
+    const int i = first + c * kThreads + threadIdx.x;
+    live[c] = c < per_thread && i < rays.n && (rays.active == nullptr || rays.active[i]);
+    const unsigned ballot = __ballot_sync(0xffffffffu, live[c]);
+    if (threadIdx.x % 32 == 0) s_start[c * kWarps + warp] = __popc(ballot);
+    if (c < per_thread && i < rays.n && !live[c]) {
+      out_t[i] = kInf;
+      out_i[i] = -1;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {   // exclusive scan of the counts; the total last
+    int sum = 0;
+    for (int k = 0; k < kK1Rays * kWarps; ++k) {
+      const int n = s_start[k];
+      s_start[k] = sum;
+      sum += n;
+    }
+    s_start[kK1Rays * kWarps] = sum;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < kK1Rays; ++c) {
+    const unsigned ballot = __ballot_sync(0xffffffffu, live[c]);
+    if (live[c]) {
+      s_lane[s_start[c * kWarps + warp] + __popc(ballot & below)] =
+          first + c * kThreads + threadIdx.x;
+    }
+  }
+  const int m = s_start[kK1Rays * kWarps];
+  __syncthreads();
+  if (m == 0) return;   // the whole block: skip the table
+  spheres_dispatch<kK1Rays>((m + kThreads - 1) / kThreads, rays, tab, s_lane, m, s_row, out_t,
+                            out_i);
+}
+
+// ---- K2 ----------------------------------------------------------------------
 
 // K2: every active ray against every valid triangle; each tile holds the
 // corner a and the edges, computed once per row.
@@ -202,44 +351,18 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The walk's leaf tests: one prim's distance, f32 max on a miss.
-struct SphereLeaf {
-  SphereTable tab;
-  float a, inv_a;
+// ---- the walks ---------------------------------------------------------------
 
-  __device__ void begin(V3 d) {
-    a = dot(d, d);
-    inv_a = 1.0f / a;
-  }
-  __device__ float t(V3 o, V3 d, int prim) const {
-    const float r = __ldg(tab.radius + prim);
-    return sphere_t(o, d, a, inv_a, __ldg(tab.cx + prim), __ldg(tab.cy + prim),
-                    __ldg(tab.cz + prim), r * r);
-  }
-};
-
-struct TriangleLeaf {
-  TriangleTable tab;
-
-  __device__ void begin(V3) {}
-  __device__ float t(V3 o, V3 d, int prim) const {
-    if (!tab.valid[prim]) return kInf;
-    const float ax = __ldg(tab.ax + prim), ay = __ldg(tab.ay + prim), az = __ldg(tab.az + prim);
-    return triangle_t(o, d, ax, ay, az, __ldg(tab.bx + prim) - ax, __ldg(tab.by + prim) - ay,
-                      __ldg(tab.bz + prim) - az, __ldg(tab.cx + prim) - ax,
-                      __ldg(tab.cy + prim) - ay, __ldg(tab.cz + prim) - az);
-  }
-};
-
-// Entry distance of the ray into node c's box (ray_bounding_dst,
-// wgsl:387-398): 0 from inside, f32 max on a miss; a NaN slab fails.
-__device__ __forceinline__ float slab(const BvhTable& b, int c, V3 o, V3 inv) {
-  const float tx1 = (__ldg(b.min_x + c) - o.x) * inv.x;
-  const float tx2 = (__ldg(b.max_x + c) - o.x) * inv.x;
-  const float ty1 = (__ldg(b.min_y + c) - o.y) * inv.y;
-  const float ty2 = (__ldg(b.max_y + c) - o.y) * inv.y;
-  const float tz1 = (__ldg(b.min_z + c) - o.z) * inv.z;
-  const float tz2 = (__ldg(b.max_z + c) - o.z) * inv.z;
+// Entry distance of the ray into a box (ray_bounding_dst, wgsl:387-398): 0
+// from inside, f32 max on a miss; a NaN slab fails.
+__device__ __forceinline__ float slab(float min_x, float min_y, float min_z, float max_x,
+                                      float max_y, float max_z, V3 o, V3 inv) {
+  const float tx1 = (min_x - o.x) * inv.x;
+  const float tx2 = (max_x - o.x) * inv.x;
+  const float ty1 = (min_y - o.y) * inv.y;
+  const float ty2 = (max_y - o.y) * inv.y;
+  const float tz1 = (min_z - o.z) * inv.z;
+  const float tz2 = (max_z - o.z) * inv.z;
   const float t_near =
       max2_nan(max2_nan(min2_nan(tx1, tx2), min2_nan(ty1, ty2)), min2_nan(tz1, tz2));
   const float t_far =
@@ -248,20 +371,90 @@ __device__ __forceinline__ float slab(const BvhTable& b, int c, V3 o, V3 inv) {
   return kInf;
 }
 
-// K3/K4: the bounded-stack walk (raycast, wgsl:313-346; traverse.py
-// _intersect_bvh_reference). `capacity` is the prim table's row count.
-template <class Leaf>
-__global__ void __launch_bounds__(kThreads)
-    bvh_kernel(RayBatch rays, BvhTable bvh, Leaf leaf, int capacity, float* __restrict__ out_t,
-               int64_t* __restrict__ out_i) {
+// Node c's box from the BvhNodes columns.
+__device__ __forceinline__ float slab(const BvhTable& b, int c, V3 o, V3 inv) {
+  return slab(__ldg(b.min_x + c), __ldg(b.min_y + c), __ldg(b.min_z + c), __ldg(b.max_x + c),
+              __ldg(b.max_y + c), __ldg(b.max_z + c), o, inv);
+}
+
+__device__ __forceinline__ float bits(int x) { return __int_as_float(x); }
+
+// K3: the bounded-stack walk (raycast, wgsl:313-346; traverse.py
+// _intersect_bvh_reference) over the paired-child record.
+__global__ void __launch_bounds__(kThreads, kK3MinBlocks)
+    walk_spheres_kernel(RayBatch rays, SphereWalk w, float* __restrict__ out_t,
+                        int64_t* __restrict__ out_i) {
+#if WAVEFRONT_K3_SHARED_STACK
+  __shared__ int s_stack[kMaxStack * kThreads];   // entry k of thread x at k * kThreads + x
+  constexpr int kStride = kThreads;
+#else
+  int s_stack[kMaxStack];   // in the thread's local memory
+  constexpr int kStride = 1;
+#endif
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= rays.n) return;
   V3 o, d;
   float best_t = kInf;
   int best_i = -1;
   if (lane_ray(rays, i, o, d)) {
-    Leaf lf = leaf;
-    lf.begin(d);
+    const float a = dot(d, d);
+    const float inv_a = 1.0f / a;
+    const V3 inv = {1.0f / d.x, 1.0f / d.y, 1.0f / d.z};
+    int* stack = kStride == 1 ? s_stack : s_stack + threadIdx.x;
+    stack[0] = 0;   // the root; stack index 1 (wgsl:316-318)
+    int sp = 1;
+    while (sp > 0 && sp < w.stack_size) {   // wgsl:320
+      const int4* rec = w.nodes + 4 * static_cast<int64_t>(stack[--sp * kStride]);
+      const int4 q0 = __ldg(rec), q1 = __ldg(rec + 1), q2 = __ldg(rec + 2), q3 = __ldg(rec + 3);
+      const int count = q3.x;
+      const int first = q3.y;
+      if (count > 0) {   // leaf: prims of slots [first, first + count) (wgsl:348-362)
+        const float r = bits(q0.w);
+        float t = sphere_t(o, d, a, inv_a, bits(q0.x), bits(q0.y), bits(q0.z), r * r);
+        if (t < best_t) {
+          best_t = t;
+          best_i = q3.z;
+        }
+        for (int k = 1; k < w.max_leaf_size && k < count; ++k) {
+          const int s = clampi(first + k, 0, w.n_slots - 1);
+          const float4 row = __ldg(w.rows + s);
+          t = sphere_t(o, d, a, inv_a, row.x, row.y, row.z, row.w * row.w);
+          if (t < best_t) {
+            best_t = t;
+            best_i = __ldg(w.prims + s);
+          }
+        }
+      } else if (count == 0) {   // inner: push the children ahead of the best hit
+        const float d1 = slab(bits(q0.x), bits(q0.y), bits(q0.z), bits(q0.w), bits(q1.x),
+                              bits(q1.y), o, inv);
+        const float d2 = slab(bits(q1.z), bits(q1.w), bits(q2.x), bits(q2.y), bits(q2.z),
+                              bits(q2.w), o, inv);
+        if (d1 < kInf && d1 < best_t) {
+          if (sp < w.stack_size) stack[sp * kStride] = clampi(first, 0, w.n_nodes - 1);
+          ++sp;
+        }
+        if (d2 < kInf && d2 < best_t) {
+          if (sp < w.stack_size) stack[sp * kStride] = clampi(first + 1, 0, w.n_nodes - 1);
+          ++sp;
+        }
+      }
+    }
+  }
+  out_t[i] = best_t;
+  out_i[i] = best_i;
+}
+
+// K4: the same walk over the BvhNodes columns with a triangle leaf.
+// `capacity` is the triangle table's row count.
+__global__ void __launch_bounds__(kThreads)
+    walk_triangles_kernel(RayBatch rays, BvhTable bvh, TriangleTable tab, int capacity,
+                          float* __restrict__ out_t, int64_t* __restrict__ out_i) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= rays.n) return;
+  V3 o, d;
+  float best_t = kInf;
+  int best_i = -1;
+  if (lane_ray(rays, i, o, d)) {
     const V3 inv = {1.0f / d.x, 1.0f / d.y, 1.0f / d.z};
     int stack[kMaxStack];
     stack[0] = 0;   // the root; stack index 1 (wgsl:316-318)
@@ -277,7 +470,13 @@ __global__ void __launch_bounds__(kThreads)
                   ? clampi(__ldg(bvh.prim_ids + clampi(first + k, 0, bvh.n_prim_ids - 1)), 0,
                            capacity - 1)
                   : clampi(first + k, 0, capacity - 1);
-          const float t = lf.t(o, d, prim);
+          if (!tab.valid[prim]) continue;
+          const float ax = __ldg(tab.ax + prim), ay = __ldg(tab.ay + prim),
+                      az = __ldg(tab.az + prim);
+          const float t =
+              triangle_t(o, d, ax, ay, az, __ldg(tab.bx + prim) - ax, __ldg(tab.by + prim) - ay,
+                         __ldg(tab.bz + prim) - az, __ldg(tab.cx + prim) - ax,
+                         __ldg(tab.cy + prim) - ay, __ldg(tab.cz + prim) - az);
           if (t < best_t) {
             best_t = t;
             best_i = prim;
@@ -303,33 +502,82 @@ __global__ void __launch_bounds__(kThreads)
   out_i[i] = best_i;
 }
 
-int grid_for(int n) { return (n + kThreads - 1) / kThreads; }
+int grid_for(int n, int per_block) { return (n + per_block - 1) / per_block; }
+
+size_t k1_smem(int rows) {
+  return static_cast<size_t>(rows < kRowsK1 ? rows : kRowsK1) * sizeof(float4);
+}
+
+template <class Kernel>
+cudaError_t facts(Kernel kernel, size_t smem, WaveKernelInfo* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  int blocks = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem);
+  }
+  if (err != cudaSuccess) return err;
+  *out = {attr.numRegs, static_cast<int>(attr.localSizeBytes),
+          static_cast<int>(attr.sharedSizeBytes), static_cast<int>(smem), blocks};
+  return cudaSuccess;
+}
 
 }  // namespace
 
 void launch_intersect_spheres(const RayBatch& rays, const SphereTable& spheres, float* out_t,
                               int64_t* out_i, cudaStream_t stream) {
   if (rays.n == 0) return;
-  spheres_kernel<<<grid_for(rays.n), kThreads, 0, stream>>>(rays, spheres, out_t, out_i);
+  // The grid: whole waves of blocks of kK1Rays rays a thread (one block on
+  // each resident slot of the card), then the lanes left in blocks of one
+  // ray a thread, so that the last wave is short. Lanes too few for one
+  // such wave take one width in every block, the most that keeps a block
+  // on every slot (a build may take that rule for every batch).
+  static int slots[kMaxDevices] = {};
+  int device = 0;
+  cudaGetDevice(&device);
+  int resident = 0;
+  if (device < kMaxDevices) resident = slots[device];
+  if (resident == 0) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, spheres_kernel, kThreads,
+                                                  k1_smem(kRowsK1));
+    resident = sms * per_sm > 0 ? sms * per_sm : 1;
+    if (device < kMaxDevices) slots[device] = resident;
+  }
+  const int wave = kThreads * kK1Rays * resident;   // lanes of a whole wide wave
+  int wide = kK1SplitTail ? rays.n / wave * resident : 0, tail = 1;
+  if (wide == 0) tail = std::min(std::max(rays.n / (kThreads * resident), 1), kK1Rays);
+  const int left = rays.n - wide * kThreads * kK1Rays;
+  const int grid = wide + grid_for(left, kThreads * tail);
+  spheres_kernel<<<grid, kThreads, k1_smem(spheres.n), stream>>>(rays, spheres, wide, tail,
+                                                                 out_t, out_i);
 }
 
 void launch_intersect_triangles(const RayBatch& rays, const TriangleTable& tris, float* out_t,
                                 int64_t* out_i, cudaStream_t stream) {
   if (rays.n == 0) return;
-  triangles_kernel<<<grid_for(rays.n), kThreads, 0, stream>>>(rays, tris, out_t, out_i);
+  triangles_kernel<<<grid_for(rays.n, kThreads), kThreads, 0, stream>>>(rays, tris, out_t,
+                                                                        out_i);
 }
 
-void launch_intersect_bvh(const RayBatch& rays, const BvhTable& bvh, const SphereTable& spheres,
-                          float* out_t, int64_t* out_i, cudaStream_t stream) {
+void launch_intersect_bvh(const RayBatch& rays, const SphereWalk& walk, float* out_t,
+                          int64_t* out_i, cudaStream_t stream) {
   if (rays.n == 0) return;
-  bvh_kernel<SphereLeaf><<<grid_for(rays.n), kThreads, 0, stream>>>(
-      rays, bvh, SphereLeaf{spheres, 0.0f, 0.0f}, spheres.n, out_t, out_i);
+  walk_spheres_kernel<<<grid_for(rays.n, kThreads), kThreads, 0, stream>>>(rays, walk, out_t,
+                                                                           out_i);
 }
 
 void launch_intersect_bvh_triangles(const RayBatch& rays, const BvhTable& bvh,
                                     const TriangleTable& tris, float* out_t, int64_t* out_i,
                                     cudaStream_t stream) {
   if (rays.n == 0) return;
-  bvh_kernel<TriangleLeaf><<<grid_for(rays.n), kThreads, 0, stream>>>(
-      rays, bvh, TriangleLeaf{tris}, tris.n, out_t, out_i);
+  walk_triangles_kernel<<<grid_for(rays.n, kThreads), kThreads, 0, stream>>>(
+      rays, bvh, tris, tris.n, out_t, out_i);
+}
+
+cudaError_t wavefront_kernel_info(int which, int rows, WaveKernelInfo* out) {
+  if (which == 0 && rows >= 1) return facts(spheres_kernel, k1_smem(rows), out);
+  if (which == 1) return facts(walk_spheres_kernel, 0, out);
+  return cudaErrorInvalidValue;
 }

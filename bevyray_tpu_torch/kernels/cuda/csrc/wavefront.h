@@ -69,6 +69,35 @@ struct BvhTable {
 
 constexpr int kMaxStack = 32;   // raytrace.wgsl:310
 
+// The paired-child record of a sphere BVH (kernels/cuda/wavefront.py
+// `walk_record`), the table K3 walks. `nodes`: 4 int4 a node. An inner node
+// (count 0) holds the boxes of its children clamp(index) and clamp(index +
+// 1) (min xyz, max xyz of the first, then of the second: 12 floats' bits);
+// a leaf (count > 0) holds its first prim's row (cx, cy, cz, r) and 8 zero
+// words. The fourth int4 is (count, index, the first prim's id, 0). `rows`
+// and `prims` give each leaf slot's sphere row and prim id (slot s:
+// prim_ids[s] clamped to the sphere table, or s without prim_ids).
+struct SphereWalk {
+  const int4* nodes;
+  const float4* rows;
+  const int* prims;
+  int n_nodes;
+  int n_slots;
+  int stack_size;
+  int max_leaf_size;
+};
+
+// Registers, spill bytes (local memory) and static shared memory a thread
+// or block of one wavefront kernel instance, and its resident blocks per SM
+// at the dynamic shared memory it launches with.
+struct WaveKernelInfo {
+  int num_regs;
+  int local_bytes;
+  int static_smem;
+  int dynamic_smem;
+  int blocks_per_sm;
+};
+
 // Each launch writes every lane's nearest hit: `out_t` (f32 max on a miss
 // and on an inactive lane) and `out_i` (the row, -1 there). They launch on
 // `stream` and allocate nothing; the caller checks the launch.
@@ -76,9 +105,39 @@ void launch_intersect_spheres(const RayBatch& rays, const SphereTable& spheres,
                               float* out_t, int64_t* out_i, cudaStream_t stream);
 void launch_intersect_triangles(const RayBatch& rays, const TriangleTable& tris,
                                 float* out_t, int64_t* out_i, cudaStream_t stream);
-void launch_intersect_bvh(const RayBatch& rays, const BvhTable& bvh,
-                          const SphereTable& spheres, float* out_t, int64_t* out_i,
-                          cudaStream_t stream);
+void launch_intersect_bvh(const RayBatch& rays, const SphereWalk& walk, float* out_t,
+                          int64_t* out_i, cudaStream_t stream);
 void launch_intersect_bvh_triangles(const RayBatch& rays, const BvhTable& bvh,
                                     const TriangleTable& tris, float* out_t,
                                     int64_t* out_i, cudaStream_t stream);
+
+// Build-time choices, each set here to the one kept; a build may set them
+// to compare others (tests/torch_wavefront_kernels.py): K1 takes up to
+// kK1Rays rays a thread (1 to 8) under __launch_bounds__(256,
+// kK1MinBlocks), and with kK1SplitTail ends a grid of whole waves in
+// blocks of one ray a thread; K3 keeps its stack in local memory, or with
+// WAVEFRONT_K3_SHARED_STACK in shared memory, under
+// __launch_bounds__(256, kK3MinBlocks).
+#ifndef WAVEFRONT_K1_RAYS
+#define WAVEFRONT_K1_RAYS 4
+#endif
+#ifndef WAVEFRONT_K1_MIN_BLOCKS
+#define WAVEFRONT_K1_MIN_BLOCKS 3
+#endif
+#ifndef WAVEFRONT_K1_SPLIT_TAIL
+#define WAVEFRONT_K1_SPLIT_TAIL 1
+#endif
+#ifndef WAVEFRONT_K3_SHARED_STACK
+#define WAVEFRONT_K3_SHARED_STACK 0
+#endif
+#ifndef WAVEFRONT_K3_MIN_BLOCKS
+#define WAVEFRONT_K3_MIN_BLOCKS 1
+#endif
+constexpr int kK1Rays = WAVEFRONT_K1_RAYS;
+constexpr int kK1MinBlocks = WAVEFRONT_K1_MIN_BLOCKS;
+constexpr bool kK1SplitTail = WAVEFRONT_K1_SPLIT_TAIL != 0;
+constexpr int kK3MinBlocks = WAVEFRONT_K3_MIN_BLOCKS;
+
+// The facts of kernel `which` (0: K1 over a sphere table of `rows` rows,
+// which sets its staged tile; 1: K3).
+cudaError_t wavefront_kernel_info(int which, int rows, WaveKernelInfo* out);

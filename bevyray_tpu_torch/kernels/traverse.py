@@ -2,8 +2,9 @@
 
 Counterpart of ``bevyray_tpu/kernels/traverse.py``. :func:`intersect_bvh`
 and :func:`intersect_bvh_triangles` are wrappers: on CUDA tensors they
-launch the walk of ``cuda/csrc/wavefront.cu`` (K3/K4: one thread per ray,
-its stack in the thread), on CPU tensors they run the plain versions
+launch the walks of ``cuda/csrc/wavefront.cu`` (K3/K4: one thread per ray;
+K3 over a paired-child record, :func:`.cuda.wavefront.walk_record`), on
+CPU tensors they run the plain versions
 :func:`intersect_bvh_reference` and
 :func:`intersect_bvh_triangles_reference`, torch operators on either
 device, described below.
@@ -151,7 +152,9 @@ def intersect_bvh(origin: Vec3, direction: Vec3, spheres: Spheres,
 
     On CPU tensors this runs the plain walk (on the active lanes). On CUDA
     tensors it launches the K3 walk of ``cuda/csrc/wavefront.cu`` (a stack
-    of at most 32 entries) or raises; it never falls back.
+    of at most 32 entries) over the tables' paired-child record
+    (:func:`.cuda.wavefront.walk_record`, built at the first launch on a
+    pair of tables) or raises; it never falls back.
     ``intersect_bvh.launches`` counts the launches.
     """
     dev = origin.x.device
@@ -161,7 +164,8 @@ def intersect_bvh(origin: Vec3, direction: Vec3, spheres: Spheres,
     _check_cuda(dev, "intersect_bvh")
     out = wavefront.launch("intersect_bvh", origin, direction, active,
                            wavefront.bvh_columns(bvh), stack_size,
-                           max_leaf_size, wavefront.sphere_columns(spheres))
+                           max_leaf_size, wavefront.sphere_columns(spheres),
+                           list(wavefront.walk_record(spheres, bvh)))
     intersect_bvh.launches += 1
     return out
 

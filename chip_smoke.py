@@ -229,6 +229,8 @@ WAVE_REPLACES = {
 WAVE_BOUNCES = (0, 2)   # the captured bounces the kernels are held on
 WAVE_REPS = 20          # launches per CUDA-event timing
 AXIS_RAYS = 1 << 16     # axis-aligned rays, origins on box and face planes
+ODD_LANES = 100_003     # a lane count off every block's multiple
+SPARSE_FIRST, SPARSE_STEP = 17, 4099   # the active lanes of a sparse mask
 # Bytes per lane a ray test reads (origin, direction, active) and writes
 # (t, index); bytes per row of its table.
 RAY_BYTES = 6 * 4 + 1 + 4 + 8
@@ -2248,7 +2250,10 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
     from bevyray_tpu_torch.bvh import build as bvh_build
     from bevyray_tpu_torch.engine import renderer as renderer_mod
     from bevyray_tpu_torch.engine.raster import raster_layer
+    from bevyray_tpu_torch.core.types import make_spheres_np
+    from bevyray_tpu_torch.core.vec import Vec3
     from bevyray_tpu_torch.kernels import intersect, traverse
+    from bevyray_tpu_torch.kernels.cuda import wavefront as wavefront_mod
     from bevyray_tpu_torch.kernels.intersect import on_active
 
     t_phase = time.perf_counter()
@@ -2404,7 +2409,7 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
         first = b == WAVE_BOUNCES[0]
         o, d, act = rays["headline"][b]
         hold(f"headline bounce {b}", "intersect_spheres", (scene.spheres,),
-             o, d, act, time_it=first)
+             o, d, act, time_it=True)
         o, d, act = rays["config 5"][b]
         hold(f"config 5 bounce {b}", "intersect_spheres", (scene5.spheres,),
              o, d, act)
@@ -2416,16 +2421,16 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
              (scene5.spheres, scene5.bvh), o, d, act)
         o, d, act = rays["big"][b]
         hold(f"{big.n_spheres} spheres leaf 1 bounce {b}", "intersect_bvh",
-             (big_scene.spheres, big_scene.bvh), o, d, act, time_it=first)
+             (big_scene.spheres, big_scene.bvh), o, d, act, time_it=True)
         hold(f"{big.n_spheres} spheres leaf 4 bounce {b}", "intersect_bvh",
              (big_leaf4.spheres, big_leaf4.bvh), o, d, act,
-             max_leaf_size=4)
+             max_leaf_size=4, time_it=True)
         hold(f"{big.n_spheres} spheres 4-entry stack bounce {b}",
              "intersect_bvh", (big_scene.spheres, big_scene.bvh), o, d, act,
              stack_size=4)
         hold(f"{big.n_spheres} spheres dense bounce {b}",
              "intersect_spheres", (big_scene.spheres,), o, d, act,
-             time_it=first)
+             time_it=True)
     centers, radii = big.extract_host()[:2]
     lo, hi = centers.min(0) - radii.max(), centers.max(0) + radii.max()
     o, d = axis_rays(lo, hi, box_planes(big_scene.bvh), AXIS_RAYS, 5, dev)
@@ -2446,6 +2451,60 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
          (tris5, scene5.tri_bvh), o, d, None)
     hold("axis-aligned rays, config 5 mesh", "intersect_triangles",
          (tris5,), o, d, None)
+
+    # The cases that reach K1's and K3's layouts: a lane count off K1's
+    # block of 256 x rays a thread, a few active lanes scattered over many
+    # blocks (K1 compacts each block's), and every sphere twice in a row
+    # (exact ties: the dense test keeps the lower index, the walk the
+    # first found), K1's table then past one staged tile.
+    facts = {rows: wavefront_mod.kernel_info(dev, rows)
+             for rows in (scene.spheres.capacity, 2 * big_scene.spheres.capacity)}
+    for rows, info in facts.items():
+        print(f"phase 13(b) K1 and K3 instances, K1 over {rows} rows: "
+              f"{json.dumps(info)} | {card}", flush=True)
+
+    def cut(v, n):
+        return Vec3(*(c[:n] for c in v))
+
+    def sparse(act):
+        few = torch.zeros_like(act)
+        few[SPARSE_FIRST::SPARSE_STEP] = act[SPARSE_FIRST::SPARSE_STEP]
+        return few
+
+    def twice(spheres):
+        return type(spheres)(*(torch.repeat_interleave(c, 2)
+                               for c in spheres))
+
+    o, d, act = rays["headline"][0]
+    hold(f"headline bounce 0, first {ODD_LANES} lanes", "intersect_spheres",
+         (scene.spheres,), cut(o, ODD_LANES), cut(d, ODD_LANES),
+         act[:ODD_LANES], time_it=True)
+    hold(f"headline bounce 0, every {SPARSE_STEP}th lane", "intersect_spheres",
+         (scene.spheres,), o, d, sparse(act), time_it=True)
+    hold("headline bounce 0, every sphere twice", "intersect_spheres",
+         (twice(scene.spheres),), o, d, act, time_it=True)
+    o, d, act = rays["big"][0]
+    hold(f"{big.n_spheres} spheres leaf 1 bounce 0, first {ODD_LANES} lanes",
+         "intersect_bvh", (big_scene.spheres, big_scene.bvh),
+         cut(o, ODD_LANES), cut(d, ODD_LANES), act[:ODD_LANES], time_it=True)
+    hold(f"{big.n_spheres} spheres leaf 1 bounce 0, every {SPARSE_STEP}th "
+         "lane", "intersect_bvh", (big_scene.spheres, big_scene.bvh), o, d,
+         sparse(act), time_it=True)
+    hold(f"{big.n_spheres} spheres dense bounce 0, every {SPARSE_STEP}th "
+         "lane", "intersect_spheres", (big_scene.spheres,), o, d,
+         sparse(act))
+    hold(f"{big.n_spheres} spheres twice, dense bounce 0",
+         "intersect_spheres", (twice(big_scene.spheres),), o, d, act,
+         time_it=True)
+    centers2, radii2 = np.repeat(centers, 2, axis=0), np.repeat(radii, 2)
+    spheres2 = make_spheres_np(centers2, radii2, np.arange(radii2.shape[0]),
+                               device=dev)
+    for leaf in (1, 4):
+        tree = bvh_build.build_scene_bvh(centers2, radii2, max_leaf_size=leaf,
+                                         device=dev)
+        hold(f"{big.n_spheres} spheres twice, leaf {leaf} bounce 0",
+             "intersect_bvh", (spheres2, tree), o, d, act,
+             max_leaf_size=leaf)
 
     # (c) Host waits for the card over each frame's work.
     rounds = [
