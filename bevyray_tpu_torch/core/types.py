@@ -103,15 +103,42 @@ class BvhNodes(NamedTuple):
     prim_ids: Optional[torch.Tensor] = None  # i32, padded
 
 
+class SphereWalk(NamedTuple):
+    """The sphere BVH laid out for the CUDA walk (``kernels/cuda/csrc/
+    wavefront.cu`` K3), built from ``bvh`` and ``spheres`` by
+    :func:`make_sphere_walk`; the port's own, with no JAX counterpart.
+
+    ``nodes`` is int32 ``[n_nodes, 16]``: for an inner node (count 0) the
+    float32 bits of its children's boxes, ``clamp(index, 0, n - 1)`` then
+    ``clamp(index + 1, 0, n - 1)`` (min xyz, max xyz each); for a leaf
+    (count > 0) the bits of its first slot's sphere row ``(cx, cy, cz, r)``
+    and 8 zeros; then ``(count, index, the first slot's prim id, 0)``. A
+    node of negative count holds its inner layout, which the walk never
+    reads. ``rows`` (float32 ``[slots, 4]``) and ``prims`` (int32
+    ``[slots]``) give each leaf slot's sphere row and prim id: slot ``s``
+    is ``prim_ids[s]`` clamped to the sphere table, or sphere ``s`` when
+    the tree has no ``prim_ids``. A leaf's slot ``k`` is ``clamp(index +
+    k, 0, slots - 1)``, so its first is ``clamp(index, 0, slots - 1)``, as
+    the plain walk resolves them."""
+
+    nodes: torch.Tensor   # [n_nodes, 16] i32
+    rows: torch.Tensor    # [slots, 4] f32
+    prims: torch.Tensor   # [slots] i32
+
+
 class SceneBuffers(NamedTuple):
-    """The device scene, field for field the JAX package's layout. ``bvh``
-    and ``tri_bvh`` are None for a scene extracted without a BVH."""
+    """The device scene, field for field the JAX package's layout, and
+    ``sphere_walk``, the port's layout of ``bvh`` for its CUDA walk, built
+    with it (:func:`make_sphere_walk`; a scene whose ``spheres`` or ``bvh``
+    is replaced or edited needs a new one). ``bvh``, ``sphere_walk`` and
+    ``tri_bvh`` are None for a scene extracted without a BVH."""
 
     spheres: Spheres
     materials: Materials
     bvh: Optional[BvhNodes] = None
     triangles: Optional[Triangles] = None
     tri_bvh: Optional[BvhNodes] = None
+    sphere_walk: Optional[SphereWalk] = None
 
 
 class CameraState(NamedTuple):
@@ -332,6 +359,36 @@ def make_materials_np(table: np.ndarray, capacity: Optional[int] = None,
     return Materials(*(upload(out[:, i].copy(), device) for i in range(11)))
 
 
+def make_sphere_walk(spheres: Spheres, bvh: BvhNodes) -> SphereWalk:
+    """The :class:`SphereWalk` of ``bvh`` over ``spheres``, on their device,
+    by torch operations (a few kernels on a card): build it once with the
+    tables, as :meth:`..scene.world.World.extract` does."""
+    n = bvh.min_x.shape[0]
+    dev = bvh.min_x.device
+    cap = spheres.cx.shape[0]
+    index = bvh.index.long()
+    ids = bvh.prim_ids
+    if ids is None or ids.numel() == 0:
+        prims = torch.arange(cap, dtype=torch.int32, device=dev)
+    else:
+        prims = ids.long().clamp(0, cap - 1).to(torch.int32)
+    rows = torch.stack([spheres.cx, spheres.cy, spheres.cz, spheres.radius],
+                       dim=1)[prims.long()]
+    box = torch.stack([bvh.min_x, bvh.min_y, bvh.min_z, bvh.max_x, bvh.max_y,
+                       bvh.max_z], dim=1)
+    inner = torch.cat([box[index.clamp(0, n - 1)],
+                       box[(index + 1).clamp(0, n - 1)]], dim=1)
+    first = index.clamp(0, prims.shape[0] - 1)
+    leaf = torch.cat([rows[first], torch.zeros((n, 8), dtype=torch.float32,
+                                               device=dev)], dim=1)
+    geometry = torch.where((bvh.count > 0)[:, None], leaf, inner)
+    meta = torch.stack([bvh.count.to(torch.int32), bvh.index.to(torch.int32),
+                        prims[first], torch.zeros_like(prims[first])], dim=1)
+    nodes = torch.cat([geometry.view(torch.int32), meta], dim=1)
+    return SphereWalk(nodes.contiguous(), rows.contiguous(),
+                      prims.contiguous())
+
+
 def scene_from_numpy(scene, cam, device=None):
     """The JAX package's ``SceneBuffers`` and ``CameraState``, given with numpy
     leaves (``np.asarray`` of each), as the port's ``(SceneBuffers,
@@ -340,7 +397,8 @@ def scene_from_numpy(scene, cam, device=None):
 
     Field names and layouts are the same in both packages, so each leaf is
     carried over as it is, the BVH tables (``n_nodes`` a scalar, ``prim_ids``
-    only for multi-prim leaves) among them.
+    only for multi-prim leaves) among them; a sphere BVH gets its
+    ``sphere_walk`` (:func:`make_sphere_walk`).
     """
     device = resolve_device(device)
 
@@ -355,11 +413,14 @@ def scene_from_numpy(scene, cam, device=None):
     def vec(v):
         return Vec3(t(v.x), t(v.y), t(v.z))
 
-    buffers = SceneBuffers(spheres=table(Spheres, scene.spheres),
+    spheres, bvh = table(Spheres, scene.spheres), table(BvhNodes, scene.bvh)
+    buffers = SceneBuffers(spheres=spheres,
                            materials=table(Materials, scene.materials),
-                           bvh=table(BvhNodes, scene.bvh),
+                           bvh=bvh,
                            triangles=table(Triangles, scene.triangles),
-                           tri_bvh=table(BvhNodes, scene.tri_bvh))
+                           tri_bvh=table(BvhNodes, scene.tri_bvh),
+                           sphere_walk=None if bvh is None
+                           else make_sphere_walk(spheres, bvh))
     camera = CameraState(
         position=vec(cam.position), direction=vec(cam.direction),
         up=vec(cam.up),

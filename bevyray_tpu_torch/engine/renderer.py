@@ -111,7 +111,8 @@ def make_intersect_fn(scene: SceneBuffers, config: RenderConfig):
         if scene.bvh is not None:
             return lambda o, d, active: intersect_bvh(
                 o, d, scene.spheres, scene.bvh,
-                max_leaf_size=config.bvh_leaf_size, active=active)
+                max_leaf_size=config.bvh_leaf_size, active=active,
+                walk=scene.sphere_walk)
         if config.intersect_backend == "bvh":
             raise ValueError("bvh backend requested but scene has no BVH")
         # "auto" chose the BVH for the triangles; the spheres have none.

@@ -320,40 +320,43 @@ void intersect_triangles(const std::vector<torch::Tensor>& rays, const torch::Te
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// `walk`: the paired-child record of `bvh` over `spheres` (wavefront.py
-// `walk_record`): nodes (int32, 16 a node), rows (float32, 4 a slot) and
-// prims (int32, one a slot), one slot a prim_ids row, or a sphere without
-// prim_ids.
-SphereWalk sphere_walk(const std::vector<torch::Tensor>& walk, const BvhTable& tree,
-                       const SphereTable& tab, const torch::Tensor& like) {
+// `walk`: the paired-child record of a sphere BVH (core/types.py
+// SphereWalk): nodes (int32, N x 16), rows (float32, S x 4) and prims
+// (int32, S), one slot a leaf slot.
+SphereWalk sphere_walk(const std::vector<torch::Tensor>& walk, int64_t stack_size,
+                       int64_t max_leaf_size, const torch::Tensor& like) {
   TORCH_CHECK(walk.size() == 3, "walk must be nodes, rows, prims");
-  const int64_t n_slots = tree.prim_ids != nullptr ? tree.n_prim_ids : tab.n;
+  TORCH_CHECK(stack_size >= 1 && stack_size <= kMaxStack, "stack_size must lie in [1, ",
+              kMaxStack, "]");
+  TORCH_CHECK(max_leaf_size >= 1 && max_leaf_size < (int64_t{1} << 31),
+              "max_leaf_size must be a positive int32");
+  TORCH_CHECK(walk[0].dim() == 2 && walk[0].size(1) == 16 && walk[0].size(0) > 0,
+              "walk nodes must be (nodes, 16) with nodes > 0");
+  TORCH_CHECK(walk[1].dim() == 2 && walk[1].size(1) == 4 && walk[1].size(0) > 0,
+              "walk rows must be (slots, 4) with slots > 0");
+  const int64_t n_nodes = walk[0].size(0);
+  const int64_t n_slots = walk[1].size(0);
   SphereWalk w{};
-  w.nodes = reinterpret_cast<const int4*>(ints(walk[0], 16 * int64_t{tree.n_nodes}, like,
+  w.nodes = reinterpret_cast<const int4*>(ints(walk[0].view({-1}), 16 * n_nodes, like,
                                                "walk nodes"));
-  TORCH_CHECK(walk[1].dim() == 2 && walk[1].size(1) == 4, "walk rows must be (slots, 4)");
   w.rows = reinterpret_cast<const float4*>(
       column(walk[1].view({-1}), 4 * n_slots, like, "walk rows"));
   w.prims = ints(walk[2], n_slots, like, "walk prims");
   TORCH_CHECK(reinterpret_cast<uintptr_t>(w.nodes) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(w.rows) % 16 == 0,
               "walk nodes and rows must be 16-byte aligned");
-  w.n_nodes = tree.n_nodes;
-  w.n_slots = static_cast<int>(n_slots);
-  w.stack_size = tree.stack_size;
-  w.max_leaf_size = tree.max_leaf_size;
+  w.n_nodes = rows(n_nodes, "walk nodes");
+  w.n_slots = rows(n_slots, "walk rows");
+  w.stack_size = static_cast<int>(stack_size);
+  w.max_leaf_size = static_cast<int>(max_leaf_size);
   return w;
 }
 
 void intersect_bvh(const std::vector<torch::Tensor>& rays, const torch::Tensor& active,
-                   const std::vector<torch::Tensor>& bvh, int64_t stack_size,
-                   int64_t max_leaf_size, const std::vector<torch::Tensor>& spheres,
-                   const std::vector<torch::Tensor>& walk, torch::Tensor out_t,
-                   torch::Tensor out_i) {
+                   const std::vector<torch::Tensor>& walk, int64_t stack_size,
+                   int64_t max_leaf_size, torch::Tensor out_t, torch::Tensor out_i) {
   const RayBatch b = ray_batch(rays, active, out_t, out_i);
-  const BvhTable tree = bvh_table(bvh, stack_size, max_leaf_size, rays[0]);
-  const SphereTable tab = sphere_table(spheres, rays[0]);
-  const SphereWalk w = sphere_walk(walk, tree, tab, rays[0]);
+  const SphereWalk w = sphere_walk(walk, stack_size, max_leaf_size, rays[0]);
   const c10::cuda::CUDAGuard guard(rays[0].device());
   launch_intersect_bvh(b, w, out_t.data_ptr<float>(), out_i.data_ptr<int64_t>(),
                        c10::cuda::getCurrentCUDAStream().stream());

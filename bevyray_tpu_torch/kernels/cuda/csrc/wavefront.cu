@@ -55,11 +55,10 @@
 //   gives the lowest index on every tie, as the plain version's chunk rule
 //   does; K2 keeps one ray a thread and stages its rows (corner and edges
 //   computed once a tile);
-// - K3 walks a paired-child record built once per (sphere table, BVH)
-//   (kernels/cuda/wavefront.py `walk_record`): a popped node is one round
-//   of four independent 16-byte loads, which hold an inner node's two
-//   children's boxes, or a leaf's first sphere row and prim id, beside the
-//   node's count and index (the columns took two dependent rounds, and a
+// - K3 walks a paired-child record built with the scene (core/types.py
+//   `make_sphere_walk`): a popped node is one round of four independent
+//   16-byte loads, which hold an inner node's two children's boxes, or a
+//   leaf's first sphere row and prim id, beside the node's count and index (the columns took two dependent rounds, and a
 //   leaf a third). The stack of node ids stays in the thread's local
 //   memory, which L1 holds: in shared memory (32 entries x 256 threads)
 //   it ran no faster and took L1's room from the record (PERF.md). Each
@@ -88,8 +87,6 @@ constexpr int kTile = 512;      // K2: table rows per shared-memory tile
 constexpr int kRowsK1 = 2048;   // K1: sphere rows per staged tile (32 KB)
 
 constexpr int kMaxDevices = 64;
-
-static_assert(kK1Rays >= 1 && kK1Rays <= 8, "WAVEFRONT_K1_RAYS must lie in [1, 8]");
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) { return min(max(x, lo), hi); }
 
@@ -248,7 +245,8 @@ __device__ void spheres_dispatch(int q, const RayBatch& rays, const SphereTable&
 // K1: every active ray against every valid sphere of the table. A block
 // takes kThreads x `per_thread` consecutive lanes and compacts its active
 // ones: kK1Rays a thread in the first `wide` blocks, `tail` in the others.
-__global__ void __launch_bounds__(kThreads, kK1MinBlocks)
+// Three blocks an SM: 80 registers a thread and no spill (PERF.md).
+__global__ void __launch_bounds__(kThreads, 3)
     spheres_kernel(RayBatch rays, SphereTable tab, int wide, int tail,
                    float* __restrict__ out_t, int64_t* __restrict__ out_i) {
   const int block = static_cast<int>(blockIdx.x);
@@ -381,16 +379,9 @@ __device__ __forceinline__ float bits(int x) { return __int_as_float(x); }
 
 // K3: the bounded-stack walk (raycast, wgsl:313-346; traverse.py
 // _intersect_bvh_reference) over the paired-child record.
-__global__ void __launch_bounds__(kThreads, kK3MinBlocks)
+__global__ void __launch_bounds__(kThreads)
     walk_spheres_kernel(RayBatch rays, SphereWalk w, float* __restrict__ out_t,
                         int64_t* __restrict__ out_i) {
-#if WAVEFRONT_K3_SHARED_STACK
-  __shared__ int s_stack[kMaxStack * kThreads];   // entry k of thread x at k * kThreads + x
-  constexpr int kStride = kThreads;
-#else
-  int s_stack[kMaxStack];   // in the thread's local memory
-  constexpr int kStride = 1;
-#endif
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= rays.n) return;
   V3 o, d;
@@ -400,11 +391,11 @@ __global__ void __launch_bounds__(kThreads, kK3MinBlocks)
     const float a = dot(d, d);
     const float inv_a = 1.0f / a;
     const V3 inv = {1.0f / d.x, 1.0f / d.y, 1.0f / d.z};
-    int* stack = kStride == 1 ? s_stack : s_stack + threadIdx.x;
+    int stack[kMaxStack];   // in the thread's local memory
     stack[0] = 0;   // the root; stack index 1 (wgsl:316-318)
     int sp = 1;
     while (sp > 0 && sp < w.stack_size) {   // wgsl:320
-      const int4* rec = w.nodes + 4 * static_cast<int64_t>(stack[--sp * kStride]);
+      const int4* rec = w.nodes + 4 * static_cast<int64_t>(stack[--sp]);
       const int4 q0 = __ldg(rec), q1 = __ldg(rec + 1), q2 = __ldg(rec + 2), q3 = __ldg(rec + 3);
       const int count = q3.x;
       const int first = q3.y;
@@ -430,11 +421,11 @@ __global__ void __launch_bounds__(kThreads, kK3MinBlocks)
         const float d2 = slab(bits(q1.z), bits(q1.w), bits(q2.x), bits(q2.y), bits(q2.z),
                               bits(q2.w), o, inv);
         if (d1 < kInf && d1 < best_t) {
-          if (sp < w.stack_size) stack[sp * kStride] = clampi(first, 0, w.n_nodes - 1);
+          if (sp < w.stack_size) stack[sp] = clampi(first, 0, w.n_nodes - 1);
           ++sp;
         }
         if (d2 < kInf && d2 < best_t) {
-          if (sp < w.stack_size) stack[sp * kStride] = clampi(first + 1, 0, w.n_nodes - 1);
+          if (sp < w.stack_size) stack[sp] = clampi(first + 1, 0, w.n_nodes - 1);
           ++sp;
         }
       }
@@ -531,7 +522,7 @@ void launch_intersect_spheres(const RayBatch& rays, const SphereTable& spheres, 
   // each resident slot of the card), then the lanes left in blocks of one
   // ray a thread, so that the last wave is short. Lanes too few for one
   // such wave take one width in every block, the most that keeps a block
-  // on every slot (a build may take that rule for every batch).
+  // on every slot.
   static int slots[kMaxDevices] = {};
   int device = 0;
   cudaGetDevice(&device);
@@ -546,7 +537,7 @@ void launch_intersect_spheres(const RayBatch& rays, const SphereTable& spheres, 
     if (device < kMaxDevices) slots[device] = resident;
   }
   const int wave = kThreads * kK1Rays * resident;   // lanes of a whole wide wave
-  int wide = kK1SplitTail ? rays.n / wave * resident : 0, tail = 1;
+  int wide = rays.n / wave * resident, tail = 1;
   if (wide == 0) tail = std::min(std::max(rays.n / (kThreads * resident), 1), kK1Rays);
   const int left = rays.n - wide * kThreads * kK1Rays;
   const int grid = wide + grid_for(left, kThreads * tail);

@@ -46,11 +46,11 @@ struct TriangleTable {
   int n;
 };
 
-// A flattened BVH2 (core/types.py BvhNodes): n_nodes rows of boxes, the
-// first prim (leaf) or first child (inner) and the prim count (0: inner);
-// `prim_ids` (n_prim_ids rows, or null) maps a leaf's slots to prims. The
-// walk keeps `stack_size` entries (at most kMaxStack) and tests at most
-// `max_leaf_size` prims a leaf.
+// A flattened BVH2 (core/types.py BvhNodes), the table K4 walks: n_nodes
+// rows of boxes, the first prim (leaf) or first child (inner) and the prim
+// count (0: inner); `prim_ids` (n_prim_ids rows, or null) maps a leaf's
+// slots to prims. The walk keeps `stack_size` entries (at most kMaxStack)
+// and tests at most `max_leaf_size` prims a leaf.
 struct BvhTable {
   const float* min_x;
   const float* min_y;
@@ -69,14 +69,16 @@ struct BvhTable {
 
 constexpr int kMaxStack = 32;   // raytrace.wgsl:310
 
-// The paired-child record of a sphere BVH (kernels/cuda/wavefront.py
-// `walk_record`), the table K3 walks. `nodes`: 4 int4 a node. An inner node
-// (count 0) holds the boxes of its children clamp(index) and clamp(index +
-// 1) (min xyz, max xyz of the first, then of the second: 12 floats' bits);
-// a leaf (count > 0) holds its first prim's row (cx, cy, cz, r) and 8 zero
-// words. The fourth int4 is (count, index, the first prim's id, 0). `rows`
-// and `prims` give each leaf slot's sphere row and prim id (slot s:
-// prim_ids[s] clamped to the sphere table, or s without prim_ids).
+// The paired-child record of a sphere BVH over its sphere table
+// (core/types.py `SphereWalk`, built with the scene), the one table K3
+// reads. `nodes`: 4 int4 a node. An inner node (count 0) holds the boxes
+// of its children clamp(index) and clamp(index + 1) (min xyz, max xyz of
+// the first, then of the second: 12 floats' bits); a leaf (count > 0)
+// holds its first prim's row (cx, cy, cz, r) and 8 zero words. The fourth
+// int4 is (count, index, the first prim's id, 0). `rows` and `prims` give
+// each of the n_slots leaf slots' sphere row and prim id. The walk keeps
+// `stack_size` entries (at most kMaxStack) and tests at most
+// `max_leaf_size` prims a leaf.
 struct SphereWalk {
   const int4* nodes;
   const float4* rows;
@@ -111,32 +113,8 @@ void launch_intersect_bvh_triangles(const RayBatch& rays, const BvhTable& bvh,
                                     const TriangleTable& tris, float* out_t,
                                     int64_t* out_i, cudaStream_t stream);
 
-// Build-time choices, each set here to the one kept; a build may set them
-// to compare others (tests/torch_wavefront_kernels.py): K1 takes up to
-// kK1Rays rays a thread (1 to 8) under __launch_bounds__(256,
-// kK1MinBlocks), and with kK1SplitTail ends a grid of whole waves in
-// blocks of one ray a thread; K3 keeps its stack in local memory, or with
-// WAVEFRONT_K3_SHARED_STACK in shared memory, under
-// __launch_bounds__(256, kK3MinBlocks).
-#ifndef WAVEFRONT_K1_RAYS
-#define WAVEFRONT_K1_RAYS 4
-#endif
-#ifndef WAVEFRONT_K1_MIN_BLOCKS
-#define WAVEFRONT_K1_MIN_BLOCKS 3
-#endif
-#ifndef WAVEFRONT_K1_SPLIT_TAIL
-#define WAVEFRONT_K1_SPLIT_TAIL 1
-#endif
-#ifndef WAVEFRONT_K3_SHARED_STACK
-#define WAVEFRONT_K3_SHARED_STACK 0
-#endif
-#ifndef WAVEFRONT_K3_MIN_BLOCKS
-#define WAVEFRONT_K3_MIN_BLOCKS 1
-#endif
-constexpr int kK1Rays = WAVEFRONT_K1_RAYS;
-constexpr int kK1MinBlocks = WAVEFRONT_K1_MIN_BLOCKS;
-constexpr bool kK1SplitTail = WAVEFRONT_K1_SPLIT_TAIL != 0;
-constexpr int kK3MinBlocks = WAVEFRONT_K3_MIN_BLOCKS;
+// K1 takes up to kK1Rays rays a thread (wavefront.cu's design note).
+constexpr int kK1Rays = 4;
 
 // The facts of kernel `which` (0: K1 over a sphere table of `rows` rows,
 // which sets its staged tile; 1: K3).

@@ -8,9 +8,9 @@ builds the extension on first use (:mod:`.build`). A launch allocates its
 outputs, queues one kernel on the current stream and returns without
 waiting for the card.
 
-The sphere walk (K3) reads the BVH through :func:`walk_record`, a layout
-of the ``BvhNodes`` columns and the sphere rows built with torch
-operations once per pair of tables and kept until either changes.
+The sphere walk (K3) reads only the scene's ``SphereWalk``
+(:func:`...core.types.make_sphere_walk`), the BVH laid out with its
+sphere rows when the scene is extracted.
 """
 
 from __future__ import annotations
@@ -43,66 +43,6 @@ def bvh_columns(bvh) -> list:
     return ([c.contiguous() for c in (bvh.min_x, bvh.min_y, bvh.min_z,
                                       bvh.max_x, bvh.max_y, bvh.max_z)]
             + [c.contiguous() for c in (bvh.index, bvh.count, ids)])
-
-
-def build_walk_record(spheres, bvh) -> tuple:
-    """The paired-child record that K3 walks, ``(nodes, rows, prims)``,
-    on the tables' device.
-
-    ``nodes`` is int32 ``[n_nodes, 16]``: for an inner node (count 0) the
-    float32 bits of its children's boxes, ``clamp(index, 0, n - 1)`` then
-    ``clamp(index + 1, 0, n - 1)`` (min xyz, max xyz each); for a leaf
-    (count > 0) the bits of its first slot's sphere row ``(cx, cy, cz, r)``
-    and 8 zeros; then ``(count, index, the first slot's prim id, 0)``. A
-    node of negative count holds its inner layout, which the walk never
-    reads. ``rows`` (float32 ``[slots, 4]``) and ``prims`` (int32
-    ``[slots]``) give each leaf slot's sphere row and prim id: slot ``s``
-    is ``prim_ids[s]`` clamped to the sphere table, or sphere ``s`` when
-    the tree has no ``prim_ids``. A leaf's slot ``k`` is ``clamp(index +
-    k, 0, slots - 1)``, so its first is ``clamp(index, 0, slots - 1)``,
-    as the plain walk resolves them."""
-    n = bvh.min_x.shape[0]
-    dev = bvh.min_x.device
-    cap = spheres.cx.shape[0]
-    index = bvh.index.long()
-    ids = bvh.prim_ids
-    if ids is None or ids.numel() == 0:
-        prims = torch.arange(cap, dtype=torch.int32, device=dev)
-    else:
-        prims = ids.long().clamp(0, cap - 1).to(torch.int32)
-    rows = torch.stack([spheres.cx, spheres.cy, spheres.cz, spheres.radius],
-                       dim=1)[prims.long()]
-    box = torch.stack([bvh.min_x, bvh.min_y, bvh.min_z, bvh.max_x, bvh.max_y,
-                       bvh.max_z], dim=1)
-    inner = torch.cat([box[index.clamp(0, n - 1)],
-                       box[(index + 1).clamp(0, n - 1)]], dim=1)
-    first = index.clamp(0, prims.shape[0] - 1)
-    leaf = torch.cat([rows[first], torch.zeros((n, 8), dtype=torch.float32,
-                                               device=dev)], dim=1)
-    geometry = torch.where((bvh.count > 0)[:, None], leaf, inner)
-    meta = torch.stack([bvh.count.to(torch.int32), bvh.index.to(torch.int32),
-                        prims[first], torch.zeros_like(prims[first])], dim=1)
-    nodes = torch.cat([geometry.view(torch.int32), meta], dim=1)
-    return nodes.contiguous(), rows.contiguous(), prims.contiguous()
-
-
-def walk_record(spheres, bvh) -> tuple:
-    """:func:`build_walk_record` of the tables, built at the first call
-    and kept on ``bvh.index`` while every column read is the same tensor
-    at the same version: a new extract, or an edit in place, rebuilds it."""
-    cols = (spheres.cx, spheres.cy, spheres.cz, spheres.radius, bvh.min_x,
-            bvh.min_y, bvh.min_z, bvh.max_x, bvh.max_y, bvh.max_z, bvh.count,
-            bvh.prim_ids)
-    # The columns themselves are held (so an id is never reused while they
-    # are), with their versions; ``index``, which holds them, by version.
-    stamp = (bvh.index._version,) + tuple(-1 if c is None else c._version
-                                          for c in cols)
-    held = getattr(bvh.index, "_walk_record", None)
-    if (held is None or held[1] != stamp
-            or any(a is not b for a, b in zip(held[0], cols))):
-        held = (cols, stamp, build_walk_record(spheres, bvh))
-        bvh.index._walk_record = held
-    return held[2]
 
 
 def kernel_info(device, rows: int) -> dict:

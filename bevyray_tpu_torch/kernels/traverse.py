@@ -3,9 +3,8 @@
 Counterpart of ``bevyray_tpu/kernels/traverse.py``. :func:`intersect_bvh`
 and :func:`intersect_bvh_triangles` are wrappers: on CUDA tensors they
 launch the walks of ``cuda/csrc/wavefront.cu`` (K3/K4: one thread per ray;
-K3 over a paired-child record, :func:`.cuda.wavefront.walk_record`), on
-CPU tensors they run the plain versions
-:func:`intersect_bvh_reference` and
+K3 over the scene's ``SphereWalk``), on CPU tensors they run the plain
+versions :func:`intersect_bvh_reference` and
 :func:`intersect_bvh_triangles_reference`, torch operators on either
 device, described below.
 
@@ -36,7 +35,7 @@ from __future__ import annotations
 import torch
 
 from ..core.constants import INF, T_MIN
-from ..core.types import BvhNodes, Spheres
+from ..core.types import BvhNodes, Spheres, SphereWalk, make_sphere_walk
 from ..core.vec import Vec3
 from .cuda import wavefront
 from .intersect import _check_cuda, on_active
@@ -145,16 +144,18 @@ def intersect_bvh_reference(origin: Vec3, direction: Vec3, spheres: Spheres,
 
 def intersect_bvh(origin: Vec3, direction: Vec3, spheres: Spheres,
                   bvh: BvhNodes, stack_size: int = STACK_SIZE,
-                  max_leaf_size: int = 1, active=None):
+                  max_leaf_size: int = 1, active=None,
+                  walk: SphereWalk | None = None):
     """Nearest sphere hit of each ray by the walk, as ``(t, index)``, INF /
     -1 on a miss and where the bool mask ``active`` is False: the values of
     :func:`intersect_bvh_reference`.
 
     On CPU tensors this runs the plain walk (on the active lanes). On CUDA
     tensors it launches the K3 walk of ``cuda/csrc/wavefront.cu`` (a stack
-    of at most 32 entries) over the tables' paired-child record
-    (:func:`.cuda.wavefront.walk_record`, built at the first launch on a
-    pair of tables) or raises; it never falls back.
+    of at most 32 entries) or raises; it never falls back. K3 reads only
+    ``walk``, the ``SphereWalk`` of ``bvh`` over ``spheres`` (the scene's
+    ``sphere_walk``); without one, this call builds it first
+    (:func:`..core.types.make_sphere_walk`, a few kernels more).
     ``intersect_bvh.launches`` counts the launches.
     """
     dev = origin.x.device
@@ -162,10 +163,10 @@ def intersect_bvh(origin: Vec3, direction: Vec3, spheres: Spheres,
         return on_active(intersect_bvh_reference, active, origin, direction,
                          spheres, bvh, stack_size, max_leaf_size)
     _check_cuda(dev, "intersect_bvh")
+    if walk is None:
+        walk = make_sphere_walk(spheres, bvh)
     out = wavefront.launch("intersect_bvh", origin, direction, active,
-                           wavefront.bvh_columns(bvh), stack_size,
-                           max_leaf_size, wavefront.sphere_columns(spheres),
-                           list(wavefront.walk_record(spheres, bvh)))
+                           list(walk), stack_size, max_leaf_size)
     intersect_bvh.launches += 1
     return out
 

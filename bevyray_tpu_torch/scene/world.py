@@ -14,8 +14,8 @@ import numpy as np
 
 from ..bvh import build_scene_bvh, build_triangle_bvh
 from ..core.types import (CameraState, SceneBuffers, make_materials_np,
-                          make_spheres_np, make_triangles_np, pad_to,
-                          resolve_device, upload_scalars)
+                          make_sphere_walk, make_spheres_np, make_triangles_np,
+                          pad_to, resolve_device, upload_scalars)
 from ..core.vec import Vec3
 from .components import (PerspectiveProjection, RaytracedCamera, RaytracedMesh,
                          RaytracedSphere, StandardMaterial, Transform,
@@ -204,7 +204,8 @@ class World:
         card; without one it raises, see :func:`resolve_device`).
 
         ``with_bvh``: also build the sphere BVH and, for meshes, the triangle
-        BVH on the host (:mod:`..bvh`). ``bvh_leaf_size``: max prims per BVH
+        BVH on the host (:mod:`..bvh`), and lay the sphere BVH out for the
+        CUDA walk (``sphere_walk``). ``bvh_leaf_size``: max prims per BVH
         leaf (obvhs multi-prim leaves; must match the renderer's
         ``config.bvh_leaf_size`` when the bvh backend is used).
         """
@@ -239,7 +240,9 @@ class World:
                                   device=device)
 
         scene = SceneBuffers(spheres=spheres, materials=materials, bvh=bvh,
-                             triangles=triangles, tri_bvh=tri_bvh)
+                             triangles=triangles, tri_bvh=tri_bvh,
+                             sphere_walk=None if bvh is None
+                             else make_sphere_walk(spheres, bvh))
         self._extract_cache["scene"] = (key, scene)
         return scene
 

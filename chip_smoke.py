@@ -369,11 +369,14 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` in ms over ``reps`` calls, by CUDA events."""
+    """Mean device time of ``fn`` in ms over ``reps`` calls, by CUDA events.
+    The calls queue behind a spin kernel, so that a kernel shorter than its
+    launch on the host is timed by the card, not by the host's launch rate."""
     import torch
 
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)   # ~10 ms at 1.98 GHz
     start.record()
     for _ in range(reps):
         fn()
@@ -2250,7 +2253,7 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
     from bevyray_tpu_torch.bvh import build as bvh_build
     from bevyray_tpu_torch.engine import renderer as renderer_mod
     from bevyray_tpu_torch.engine.raster import raster_layer
-    from bevyray_tpu_torch.core.types import make_spheres_np
+    from bevyray_tpu_torch.core.types import make_sphere_walk, make_spheres_np
     from bevyray_tpu_torch.core.vec import Vec3
     from bevyray_tpu_torch.kernels import intersect, traverse
     from bevyray_tpu_torch.kernels.cuda import wavefront as wavefront_mod
@@ -2334,7 +2337,7 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
             on_active(plain["intersect_triangles"], active, o, d, tris,
                       chunk),
         "intersect_bvh": lambda o, d, sph, bvh, stack_size=32,
-        max_leaf_size=1, active=None: on_active(
+        max_leaf_size=1, active=None, walk=None: on_active(
             plain["intersect_bvh"], active, o, d, sph, bvh, stack_size,
             max_leaf_size),
         "intersect_bvh_triangles": lambda o, d, tris, bvh, stack_size=32,
@@ -2371,8 +2374,12 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
     max_err = collections.defaultdict(float)
     timing = {}
 
-    def hold(case, name, args, o, d, active, time_it=False, **kw):
-        got = kernels[name](o, d, *args, **kw, active=active)
+    def hold(case, name, args, o, d, active, time_it=False, walk=None,
+             **kw):
+        # K3 walks the record that the scene carries (``walk``), as the
+        # renderer passes it; without one the wrapper builds it first.
+        kernel_kw = kw if walk is None else dict(kw, walk=walk)
+        got = kernels[name](o, d, *args, **kernel_kw, active=active)
         work = {}
         extra = dict(kw, work=work) if name.startswith("intersect_bvh") else kw
         torch.cuda.synchronize()
@@ -2388,7 +2395,7 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
                 f"active, t max |d| {err:.3g}, index equal {same_i}, hits "
                 f"{int((got[1] >= 0).sum())}")
         if time_it:   # the first timed case of a kernel is its entry's
-            ms = cuda_ms(lambda: kernels[name](o, d, *args, **kw,
+            ms = cuda_ms(lambda: kernels[name](o, d, *args, **kernel_kw,
                                                active=active), WAVE_REPS)
             bound = wave_bound(name, args, o, n_act, work)
             timing.setdefault(name, (ms, plain_ms, bound, case))
@@ -2418,28 +2425,29 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
         hold(f"config 5 mesh BVH bounce {b}", "intersect_bvh_triangles",
              (tris5, scene5.tri_bvh), o, d, act, time_it=first)
         hold(f"config 5 sphere BVH bounce {b}", "intersect_bvh",
-             (scene5.spheres, scene5.bvh), o, d, act)
+             (scene5.spheres, scene5.bvh), o, d, act,
+             walk=scene5.sphere_walk)
         o, d, act = rays["big"][b]
         hold(f"{big.n_spheres} spheres leaf 1 bounce {b}", "intersect_bvh",
-             (big_scene.spheres, big_scene.bvh), o, d, act, time_it=True)
+             (big_scene.spheres, big_scene.bvh), o, d, act, time_it=True,
+             walk=big_scene.sphere_walk)
         hold(f"{big.n_spheres} spheres leaf 4 bounce {b}", "intersect_bvh",
              (big_leaf4.spheres, big_leaf4.bvh), o, d, act,
-             max_leaf_size=4, time_it=True)
+             max_leaf_size=4, time_it=True, walk=big_leaf4.sphere_walk)
         hold(f"{big.n_spheres} spheres 4-entry stack bounce {b}",
              "intersect_bvh", (big_scene.spheres, big_scene.bvh), o, d, act,
-             stack_size=4)
+             stack_size=4, walk=big_scene.sphere_walk)
         hold(f"{big.n_spheres} spheres dense bounce {b}",
              "intersect_spheres", (big_scene.spheres,), o, d, act,
              time_it=True)
     centers, radii = big.extract_host()[:2]
     lo, hi = centers.min(0) - radii.max(), centers.max(0) + radii.max()
     o, d = axis_rays(lo, hi, box_planes(big_scene.bvh), AXIS_RAYS, 5, dev)
-    for case, sph, tree, leaf in (("leaf 1", big_scene.spheres,
-                                   big_scene.bvh, 1),
-                                  ("leaf 4", big_leaf4.spheres,
-                                   big_leaf4.bvh, 4)):
+    for case, scn, leaf in (("leaf 1", big_scene, 1),
+                            ("leaf 4", big_leaf4, 4)):
         hold(f"axis-aligned rays, {big.n_spheres} spheres {case}",
-             "intersect_bvh", (sph, tree), o, d, None, max_leaf_size=leaf)
+             "intersect_bvh", (scn.spheres, scn.bvh), o, d, None,
+             max_leaf_size=leaf, walk=scn.sphere_walk)
     hold(f"axis-aligned rays, {big.n_spheres} spheres", "intersect_spheres",
          (big_scene.spheres,), o, d, None)
     live = np.asarray(tris5.valid.cpu())
@@ -2486,10 +2494,11 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
     o, d, act = rays["big"][0]
     hold(f"{big.n_spheres} spheres leaf 1 bounce 0, first {ODD_LANES} lanes",
          "intersect_bvh", (big_scene.spheres, big_scene.bvh),
-         cut(o, ODD_LANES), cut(d, ODD_LANES), act[:ODD_LANES], time_it=True)
+         cut(o, ODD_LANES), cut(d, ODD_LANES), act[:ODD_LANES], time_it=True,
+         walk=big_scene.sphere_walk)
     hold(f"{big.n_spheres} spheres leaf 1 bounce 0, every {SPARSE_STEP}th "
          "lane", "intersect_bvh", (big_scene.spheres, big_scene.bvh), o, d,
-         sparse(act), time_it=True)
+         sparse(act), time_it=True, walk=big_scene.sphere_walk)
     hold(f"{big.n_spheres} spheres dense bounce 0, every {SPARSE_STEP}th "
          "lane", "intersect_spheres", (big_scene.spheres,), o, d,
          sparse(act))
@@ -2504,7 +2513,7 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
                                          device=dev)
         hold(f"{big.n_spheres} spheres twice, leaf {leaf} bounce 0",
              "intersect_bvh", (spheres2, tree), o, d, act,
-             max_leaf_size=leaf)
+             max_leaf_size=leaf, walk=make_sphere_walk(spheres2, tree))
 
     # (c) Host waits for the card over each frame's work.
     rounds = [

@@ -17,7 +17,8 @@ import torch
 import bevyray_tpu as jb
 import bevyray_tpu_torch as bt
 from bevyray_tpu.engine import renderer as jrenderer
-from bevyray_tpu_torch.core.types import scene_from_numpy
+from bevyray_tpu_torch.core.types import (SceneBuffers, make_sphere_walk,
+                                         scene_from_numpy)
 from bevyray_tpu_torch.engine import renderer as prenderer
 
 torch.set_num_threads(2)
@@ -47,6 +48,16 @@ def _np(tree):
 
 
 def _assert_tree_equal(got, want):
+    """Port NamedTuples of tensors vs JAX NamedTuples of arrays, leaf by
+    leaf. A port scene's ``sphere_walk`` (its own layout of the sphere BVH,
+    with no JAX counterpart) must be the record of its own tables."""
+    if isinstance(got, SceneBuffers):
+        walk = got.sphere_walk
+        assert (walk is None) == (got.bvh is None)
+        if walk is not None:
+            fresh = make_sphere_walk(got.spheres, got.bvh)
+            assert all(torch.equal(x, y) for x, y in zip(walk, fresh))
+        got = got._replace(sphere_walk=None)
     g_leaves = jax.tree.leaves(jax.tree.map(lambda t: t.numpy(), got))
     w_leaves = jax.tree.leaves(_np(want))
     assert len(g_leaves) == len(w_leaves)

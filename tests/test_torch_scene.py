@@ -20,7 +20,8 @@ from bevyray_tpu.kernels.pallas import grouping as jgrouping
 from bevyray_tpu.kernels.pallas import megakernel as jmk
 from bevyray_tpu.scene import components as jcomp
 from bevyray_tpu.scene.world import World as JWorld
-from bevyray_tpu_torch.core.types import scene_from_numpy
+from bevyray_tpu_torch.core.types import (SceneBuffers, make_sphere_walk,
+                                         scene_from_numpy)
 from bevyray_tpu_torch.kernels.cuda import grouping
 from bevyray_tpu_torch.kernels.cuda import megakernel as mk
 
@@ -34,7 +35,16 @@ def _np(tree):
 
 
 def _assert_tree_equal(got, want):
-    """Port NamedTuples of tensors vs JAX NamedTuples of arrays, leaf by leaf."""
+    """Port NamedTuples of tensors vs JAX NamedTuples of arrays, leaf by
+    leaf. A port scene's ``sphere_walk`` (its own layout of the sphere BVH,
+    with no JAX counterpart) must be the record of its own tables."""
+    if isinstance(got, SceneBuffers):
+        walk = got.sphere_walk
+        assert (walk is None) == (got.bvh is None)
+        if walk is not None:
+            fresh = make_sphere_walk(got.spheres, got.bvh)
+            assert all(torch.equal(x, y) for x, y in zip(walk, fresh))
+        got = got._replace(sphere_walk=None)
     g_leaves, w_leaves = jax.tree.leaves(
         jax.tree.map(lambda t: t.numpy(), got)), jax.tree.leaves(_np(want))
     assert len(g_leaves) == len(w_leaves)

@@ -1,9 +1,10 @@
 """The tables that the wavefront kernels K1 and K3 read, held to the plain
 versions on the CPU (``kernels/cuda/csrc/wavefront.cu``).
 
-K3 walks a paired-child record (``kernels/cuda/wavefront.py``
-``build_walk_record``): each node's children's boxes (or a leaf's first
-sphere row) beside its count and index. Here the record decodes to the
+K3 walks a paired-child record (``core/types.py`` ``SphereWalk``, built by
+``make_sphere_walk`` with the scene): each node's children's boxes (or a
+leaf's first sphere row) beside its count and index. Here the record
+decodes to the
 ``BvhNodes`` columns with the walk's clamps, and a walk over the record in
 plain torch, step for step the kernel's, gives ``intersect_bvh_reference``'s
 ``(t, index)`` to the bit: at leaf 1 and 4, with a 4-entry stack, and on
@@ -23,10 +24,10 @@ import torch
 
 from bevyray_tpu_torch import rtiow
 from bevyray_tpu_torch.core.constants import INF, T_MIN
-from bevyray_tpu_torch.core.types import BvhNodes, make_spheres_np
+from bevyray_tpu_torch.core.types import (BvhNodes, make_sphere_walk,
+                                         make_spheres_np, scene_from_numpy)
 from bevyray_tpu_torch.core.vec import Vec3
 from bevyray_tpu_torch.kernels import intersect, traverse
-from bevyray_tpu_torch.kernels.cuda import wavefront
 
 torch.set_num_threads(2)
 
@@ -172,7 +173,7 @@ def test_walk_record_decodes_to_the_bvh_columns(big, case):
         bvh = _odd_tree()
         if case.endswith("no prim_ids"):
             bvh = bvh._replace(prim_ids=None)
-    nodes, rows, prims = wavefront.build_walk_record(spheres, bvh)
+    nodes, rows, prims = make_sphere_walk(spheres, bvh)
     n = bvh.min_x.shape[0]
     cap = spheres.cx.shape[0]
     assert nodes.dtype == torch.int32 and nodes.shape == (n, 16)
@@ -215,7 +216,7 @@ def test_record_walk_equals_the_plain_walk(big, case):
         o, d = _axis_rays(centers, radii, scene.bvh, N_RAYS, seed=5)
     else:
         o, d = _rays(centers, radii, N_RAYS, seed=3)
-    record = wavefront.build_walk_record(scene.spheres, scene.bvh)
+    record = make_sphere_walk(scene.spheres, scene.bvh)
     got = record_walk(o, d, record, stack, leaf)
     want = traverse.intersect_bvh_reference(o, d, scene.spheres, scene.bvh,
                                             stack_size=stack,
@@ -236,7 +237,7 @@ def test_odd_tree_walk_equals_the_plain_walk(big):
                               device="cpu")
     for tree in (_odd_tree(), _odd_tree()._replace(prim_ids=None)):
         o, d = _rays(centers[:8], radii[:8], 512, seed=9)
-        record = wavefront.build_walk_record(spheres, tree)
+        record = make_sphere_walk(spheres, tree)
         for leaf in (1, 4):
             got = record_walk(o, d, record, 32, leaf)
             want = traverse.intersect_bvh_reference(o, d, spheres, tree,
@@ -246,28 +247,29 @@ def test_odd_tree_walk_equals_the_plain_walk(big):
 
 
 def test_walk_record_is_rebuilt_for_a_new_table():
-    """``walk_record`` keeps one record per pair of tables, and builds a
-    new one after an edit and a new extract, and after an edit in place."""
+    """Each extract with a BVH carries the record of its own tables
+    (``sphere_walk``): the cached extract keeps it, an edit and a new
+    extract build a new one, and ``scene_from_numpy`` builds one too."""
     world = rtiow.final_scene(seed=42, grid=4)
     scene = world.extract(device="cpu")
-    first = wavefront.walk_record(scene.spheres, scene.bvh)
-    assert wavefront.walk_record(scene.spheres, scene.bvh) is first
+    first = scene.sphere_walk
+    assert all(torch.equal(x, y) for x, y in
+               zip(first, make_sphere_walk(scene.spheres, scene.bvh)))
+    assert world.extract(device="cpu").sphere_walk is first
+    assert world.extract(with_bvh=False, device="cpu").sphere_walk is None
     world.set_translation(1, (0.5, 3.0, -0.5))
     edited = world.extract(device="cpu")
-    assert edited.bvh.index is not scene.bvh.index
-    second = wavefront.walk_record(edited.spheres, edited.bvh)
+    second = edited.sphere_walk
     assert second is not first
-    fresh = wavefront.build_walk_record(edited.spheres, edited.bvh)
+    fresh = make_sphere_walk(edited.spheres, edited.bvh)
     assert all(torch.equal(x, y) for x, y in zip(second, fresh))
     assert not all(torch.equal(x, y) for x, y in zip(first, fresh))
-    # An edit in place: the record follows the column's new version.
-    edited.spheres.cx.add_(1.0)
-    third = wavefront.walk_record(edited.spheres, edited.bvh)
-    assert third is not second
-    assert torch.equal(third[1][:, 0], edited.spheres.cx[third[2].long()])
-    # The same columns under another sphere table: rebuilt too.
-    other = edited.spheres._replace(radius=edited.spheres.radius * 2.0)
-    assert wavefront.walk_record(other, edited.bvh) is not third
+    leaves = edited._replace(sphere_walk=None)
+    carried, _ = scene_from_numpy(
+        type(leaves)(*(None if t is None else type(t)(
+            *(None if c is None else c.numpy() for c in t)) for t in leaves)),
+        world.camera_state(aspect=1.0, device="cpu"), device="cpu")
+    assert all(torch.equal(x, y) for x, y in zip(carried.sphere_walk, fresh))
 
 
 def coded_dense(o: Vec3, d: Vec3, spheres):
@@ -388,3 +390,31 @@ def test_cuda_walk_follows_an_edit():
                                                 scene.bvh)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
         world.set_translation(1, (0.5, 3.0 + step, -0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prim_ids", [True, False])
+def test_cuda_walk_of_the_odd_tree_equals_plain(prim_ids):
+    """K3 on the hand-made tree (indices past both ends, a negative count,
+    a NaN box), with and without ``prim_ids``, at leaf 1 and 4, given its
+    record and building it itself: the plain walk's values to the bit."""
+    dev = _card()
+    world = rtiow.final_scene(seed=42, grid=4)
+    centers, radii = world.extract_host()[:2]
+    spheres = make_spheres_np(centers[:8], radii[:8], np.arange(8),
+                              device=dev)
+    tree = _odd_tree()
+    if not prim_ids:
+        tree = tree._replace(prim_ids=None)
+    tree = type(tree)(*(None if c is None else c.to(dev) for c in tree))
+    o, d = (Vec3(*(c.to(dev) for c in v))
+            for v in _rays(centers[:8], radii[:8], 4096, seed=9))
+    walk = make_sphere_walk(spheres, tree)
+    for leaf in (1, 4):
+        want = traverse.intersect_bvh_reference(o, d, spheres, tree,
+                                                max_leaf_size=leaf)
+        for given in (walk, None):
+            got = traverse.intersect_bvh(o, d, spheres, tree,
+                                         max_leaf_size=leaf, walk=given)
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])

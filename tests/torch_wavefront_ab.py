@@ -16,11 +16,20 @@ metallic cube mesh, 1280x720, 16 spp, level 2) over its raster layer. It
 times the raster layer (p50 of 5 calls after a first) and takes the census
 of host waits for the card (``bench/timing.py`` ``host_syncs``) over one
 headline frame at 1 spp, one 4,971-sphere "bvh" frame and one config-5
-round (``raster_layer`` + ``FusedRenderer.render``). The first arm of each
-tree saves its seed-1 frames and raster buffers; the last lines give the
-card (name, power limit), each tree's p50s and census, and each cell's
-max |d| between the trees. Needs one CUDA card; the two trees must share
-the public API.
+round (``raster_layer`` + ``FusedRenderer.render``). Then it times the
+ray tests alone (K1-K4 of ``kernels/cuda/csrc/wavefront.cu``) through the
+calls a frame makes (``engine.renderer.make_intersect_fn``, the
+triangle wrappers), on the rays that bounces 0 and 2 of sample 0 hand
+them (``chip_smoke.capture_rays``), by CUDA events (the mean of 20
+launches after one, queued behind a spin kernel so that the host's
+launch time stays out of the reading): K1 at the headline and at 4,971
+spheres, K3 at 4,971 spheres (leaf 1 and 4), K2 and K4 at config 5. The
+first arm of each tree saves its seed-1 frames, raster buffers and ray
+test results; the last lines give the card (name, power limit), each
+tree's p50s, census and ray test times (and K1's issue slots a (ray,
+sphere) pair at the ``--fmad=false`` issue rate, 132 SMs x 128 lanes x
+1.98 GHz), and each cell's and ray test's max |d| between the trees.
+Needs one CUDA card; the two trees must share the public API.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+ISSUE_RATE = 132 * 128 * 1.98e9   # fp32 instructions a second, no contraction
 
 ARM = """
 import dataclasses, json, sys, time
@@ -132,10 +142,71 @@ syncs = {{
             big_scene, big_cam, seed=2)),
     "config 5 round": census(config5_round),
 }}
+
+# The ray tests alone, called as a frame calls them.
+import chip_smoke
+from bevyray_tpu_torch.engine.renderer import make_intersect_fn
+from bevyray_tpu_torch.kernels import intersect, traverse
+
+
+# chip_smoke.cuda_ms of this tree, here so that both trees are timed alike.
+def device_ms(fn, reps=20):
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)   # ~10 ms: the launches queue meanwhile
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def walk(leaf):
+    return RenderConfig(640, 360, 4, 4, level=3, intersect_backend="bvh",
+                        bvh_leaf_size=leaf)
+
+
+brute_big = RenderConfig(640, 360, 4, 4, level=3, intersect_backend="brute")
+big4 = big.extract(bvh_leaf_size=4)
+mesh5 = world5.extract()
+rays = {{"headline": chip_smoke.capture_rays(scene, cam, headline, dev),
+        "big": chip_smoke.capture_rays(big_scene, big_cam, brute_big, dev),
+        "config5": chip_smoke.capture_rays(scene5, cam5, config5, dev)}}
+tests = [
+    ("K1 headline bounce 0", make_intersect_fn(scene, headline),
+     "headline", 0, scene.spheres),
+    ("K1 headline bounce 2", make_intersect_fn(scene, headline),
+     "headline", 2, scene.spheres),
+    ("K1 4,971 spheres bounce 0", make_intersect_fn(big_scene, brute_big),
+     "big", 0, big_scene.spheres),
+    ("K3 4,971 spheres leaf 1 bounce 0", make_intersect_fn(big_scene, walk(1)),
+     "big", 0, None),
+    ("K3 4,971 spheres leaf 4 bounce 0", make_intersect_fn(big4, walk(4)),
+     "big", 0, None),
+    ("K3 4,971 spheres leaf 1 bounce 2", make_intersect_fn(big_scene, walk(1)),
+     "big", 2, None),
+    ("K2 config 5 bounce 0", lambda o, d, a: intersect.intersect_triangles(
+        o, d, scene5.triangles, active=a), "config5", 0, None),
+    ("K4 config 5 bounce 0", lambda o, d, a: traverse.intersect_bvh_triangles(
+        o, d, mesh5.triangles, mesh5.tri_bvh, active=a), "config5", 0, None),
+]
+kernels = {{}}
+saved["ray tests"] = {{}}
+for name, fn, cell, bounce, table in tests:
+    o, d, act = rays[cell][bounce]
+    t, i = fn(o, d, act)
+    saved["ray tests"][name] = (t.cpu(), i.cpu())
+    kernels[name] = {{"ms": device_ms(lambda: fn(o, d, act)),
+                     "active": int(act.sum()),
+                     "rows": None if table is None else int(table.valid.sum())}}
 if {save!r}:
     torch.save(saved, {save!r})
 print(json.dumps({{"cells": cells, "raster_p50_ms": sorted(raster_ms[1:])[2],
-                   "host_syncs": syncs, "build_s": build_s}}))
+                   "host_syncs": syncs, "ray_tests": kernels,
+                   "build_s": build_s}}))
 """
 
 
@@ -173,16 +244,32 @@ def main() -> int:
 
     got, want = (torch.load(out_dir / f"{arm}.pt") for arm in ("this",
                                                                "other"))
+    tests_got, tests_want = got.pop("ray tests"), want.pop("ray tests")
     diffs = {cell: {"image": float((got[cell][0] - want[cell][0]).abs().max()),
                     "depth": float((got[cell][1] - want[cell][1]).abs().max()),
                     "segments": [got[cell][2], want[cell][2]]}
              for cell in got}
+    diffs.update({name: {"t": float((tests_got[name][0]
+                                     - tests_want[name][0]).abs().max()),
+                         "index_equal": torch.equal(tests_got[name][1],
+                                                    tests_want[name][1])}
+                  for name in tests_got})
     print(f"card: {card}")
     print(json.dumps({arm: {"p50_ms": {cell: [r["cells"][cell]["p50_ms"]
                                               for r in rs]
                                        for cell in rs[0]["cells"]},
                             "raster_p50_ms": [r["raster_p50_ms"] for r in rs],
-                            "host_syncs": rs[0]["host_syncs"]}
+                            "host_syncs": rs[0]["host_syncs"],
+                            "ray_test_ms": {name: [r["ray_tests"][name]["ms"]
+                                                   for r in rs]
+                                            for name in rs[0]["ray_tests"]},
+                            "k1_slots_a_pair": {
+                                name: [r["ray_tests"][name]["ms"] * 1e-3
+                                       * ISSUE_RATE / (test["active"]
+                                                       * test["rows"])
+                                       for r in rs]
+                                for name, test in rs[0]["ray_tests"].items()
+                                if test["rows"]}}
                       for arm, rs in runs.items()}))
     print(json.dumps({"max_abs_diff_this_vs_other": diffs}))
     return 0
