@@ -378,15 +378,15 @@ void intersect_bvh_triangles(const std::vector<torch::Tensor>& rays,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-// Registers, spills, shared memory and resident blocks per SM of K1 (over
-// a table of `rows` rows) and K3, on CUDA device `device`.
+// Registers, spills, shared memory and resident blocks per SM of K1 and
+// K2 (over a table of `rows` rows) and K3, on CUDA device `device`.
 std::map<std::string, std::map<std::string, int64_t>> wavefront_info(int64_t device,
                                                                      int64_t rows) {
   TORCH_CHECK(rows >= 1 && rows < (int64_t{1} << 31), "rows must be a positive int32");
   const c10::cuda::CUDAGuard guard(static_cast<c10::DeviceIndex>(device));
   std::map<std::string, std::map<std::string, int64_t>> out;
-  const char* names[] = {"intersect_spheres", "intersect_bvh"};
-  for (int which = 0; which < 2; ++which) {
+  const char* names[] = {"intersect_spheres", "intersect_bvh", "intersect_triangles"};
+  for (int which = 0; which < 3; ++which) {
     WaveKernelInfo info{};
     C10_CUDA_CHECK(::wavefront_kernel_info(which, static_cast<int>(rows), &info));
     out[names[which]] = {{"num_regs", info.num_regs},
@@ -395,7 +395,8 @@ std::map<std::string, std::map<std::string, int64_t>> wavefront_info(int64_t dev
                          {"dynamic_smem", info.dynamic_smem},
                          {"blocks_per_sm", info.blocks_per_sm}};
   }
-  out["intersect_spheres"]["rays_per_thread"] = kK1Rays;
+  out["intersect_spheres"]["rays_per_thread"] = kDenseRays;
+  out["intersect_triangles"]["rays_per_thread"] = kDenseRays;
   return out;
 }
 
@@ -414,7 +415,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("intersect_bvh", &intersect_bvh,
         "Nearest sphere hit of each ray by the BVH walk over its paired-child record");
   m.def("wavefront_info", &wavefront_info,
-        "Registers, spills, shared memory and occupancy of the K1 and K3 kernels");
+        "Registers, spills, shared memory and occupancy of the K1, K2 and K3 kernels");
   m.def("intersect_bvh_triangles", &intersect_bvh_triangles,
         "Nearest triangle hit of each ray by the BVH walk");
 }

@@ -19,7 +19,7 @@
 //
 // Bound on an H100 SXM: fp32 issue. A dense sphere test is 21 fp32
 // operations with one IEEE sqrt where the discriminant is not negative, a
-// triangle test 60 with one IEEE division, a BVH box test 27. Each ray
+// triangle test 60 with one IEEE reciprocal, a BVH box test 27. Each ray
 // reads 25 bytes and writes 12, and the tables are a few KB to a few
 // hundred KB, so at the headline (2 M rays x 512 spheres) the operations
 // take ~14 times as long as the bytes. Without contraction each operation
@@ -31,7 +31,7 @@
 // 0, so K3's time goes to the latency of its dependent loads, not to
 // arithmetic. What the design does about it:
 //
-// - K1 gives each thread up to kK1Rays rays, so that one 16-byte row
+// - K1 gives each thread up to kDenseRays rays, so that one 16-byte row
 //   (cx, cy, cz, r * r) read from shared memory feeds that many pairs. An
 //   invalid row is staged with r * r = NaN: c and so the discriminant are
 //   NaN, `disc >= 0` fails and the row never wins, with no load of a valid
@@ -42,19 +42,29 @@
 //   a slow subroutine for inputs with the sign bit set, megakernel.cu).
 //   The table is staged once a block, in tiles of kRowsK1 rows (32 KB)
 //   where it is larger;
-// - K1 compacts each block's active lanes first (the bounce loop launches
-//   it masked over every lane): the live rays go to the first threads,
-//   each thread takes as many rays as the block's count needs, a warp with
-//   none skips the rows, and a block with no active lane returns before
-//   staging anything. Where the batch fills the card's resident blocks at
-//   kK1Rays rays a thread, whole waves of blocks take that many and the
-//   lanes left go in blocks of one ray a thread, so that the last wave,
-//   which part of the card runs alone, is short; a smaller batch takes
-//   fewer rays a thread, so that every resident slot gets a block;
+// - K1 and K2 compact each block's active lanes first (the bounce loop
+//   launches them masked over every lane): the live rays go to the first
+//   threads, each thread takes as many rays as the block's count needs, a
+//   warp with none skips the rows, and a block with no active lane returns
+//   before staging anything. Where the batch fills the card's resident
+//   blocks at kDenseRays rays a thread, whole waves of blocks take that
+//   many and the lanes left go in blocks of one ray a thread, so that the
+//   last wave, which part of the card runs alone, is short; a smaller
+//   batch takes fewer rays a thread, so that every resident slot gets a
+//   block. The two share that skeleton (dense_kernel) and differ in their
+//   rows;
+// - K2 stages the valid rows of each tile of kRowsK2 table rows
+//   compacted (a ballot and a popcount a warp, in ascending order, each
+//   with its row index), the corner and the edges computed once a row, as
+//   three 16-byte rows: the loop runs over the live rows only (12 of
+//   config 5's 128), three shared loads feed a thread's rays, and no
+//   valid flag is read. A pair whose |det| or u fails leaves the row
+//   before q, v and t (~32 of its 60 operations). A dead slot runs the
+//   block's last live ray, not a zero direction whose det of 0 sends the
+//   IEEE reciprocal to its slow path on every row;
 // - the dense tests keep a strict t < best in ascending row order, which
 //   gives the lowest index on every tie, as the plain version's chunk rule
-//   does; K2 keeps one ray a thread and stages its rows (corner and edges
-//   computed once a tile);
+//   does;
 // - K3 walks a paired-child record built with the scene (core/types.py
 //   `make_sphere_walk`): a popped node is one round of four independent
 //   16-byte loads, which hold an inner node's two children's boxes, or a
@@ -83,8 +93,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 512;      // K2: table rows per shared-memory tile
 constexpr int kRowsK1 = 2048;   // K1: sphere rows per staged tile (32 KB)
+constexpr int kRowsK2 = 512;    // K2: triangle table rows per staged tile (<= 24 KB)
 
 constexpr int kMaxDevices = 64;
 
@@ -128,7 +138,10 @@ __device__ __forceinline__ float sphere_t(V3 o, V3 d, float a, float inv_a, floa
 
 // Moller-Trumbore, two-sided (intersect.py _chunk_hits) from the corner a
 // and the edges e1 = b - a, e2 = c - a: f32 max unless |det| > 1e-12,
-// u >= 0, v >= 0, u + v <= 1 and t > T_MIN.
+// u >= 0, v >= 0, u + v <= 1 and t > T_MIN. With kExit a pair whose |det|
+// or u fails returns before q, v and t: it skips only terms of a pair that
+// the final test rejects, so it gives the same value.
+template <bool kExit>
 __device__ __forceinline__ float triangle_t(V3 o, V3 d, float ax, float ay, float az,
                                             float e1x, float e1y, float e1z, float e2x,
                                             float e2y, float e2z) {
@@ -141,6 +154,7 @@ __device__ __forceinline__ float triangle_t(V3 o, V3 d, float ax, float ay, floa
   const float ty = o.y - ay;
   const float tz = o.z - az;
   const float u = (tx * px + ty * py + tz * pz) * inv_det;
+  if (kExit && !(fabsf(det) > 1e-12f && u >= 0.0f)) return kInf;
   const float qx = ty * e1z - tz * e1y;
   const float qy = tz * e1x - tx * e1z;
   const float qz = tx * e1y - ty * e1x;
@@ -150,17 +164,17 @@ __device__ __forceinline__ float triangle_t(V3 o, V3 d, float ax, float ay, floa
   return ok ? t : kInf;
 }
 
-// ---- K1 ----------------------------------------------------------------------
+// ---- the dense tests: K1 and K2 ----------------------------------------------
 
 // K1's rows against the Q rays of each thread: lanes `s_lane[threadIdx.x +
 // j * kThreads]` for the slots below `m` (the block's active lanes, in
 // lane order). A dead slot carries a NaN origin: its discriminants are
 // NaN and it never enters the sqrt branch.
 template <int Q>
-__device__ __forceinline__ void spheres_scan(const RayBatch& rays, const SphereTable& tab,
-                                             const int* s_lane, int m, float4* s_row,
-                                             float* __restrict__ out_t,
-                                             int64_t* __restrict__ out_i) {
+__device__ __forceinline__ void dense_scan(const RayBatch& rays, const SphereTable& tab,
+                                           const int* s_lane, int m, float4* s_row,
+                                           float* __restrict__ out_t,
+                                           int64_t* __restrict__ out_i) {
   V3 o[Q], d[Q];
   float a[Q], inv_a[Q], best_t[Q];
   int best_i[Q];
@@ -228,39 +242,123 @@ __device__ __forceinline__ void spheres_scan(const RayBatch& rays, const SphereT
   }
 }
 
-// The scan at the block's ray count: q rays a thread (1 <= q <= Q).
+// K2's rows against the Q rays of each thread (the slots of K1's scan). A
+// dead slot takes the block's last live ray and writes nothing: a zero
+// direction would give det = 0, whose IEEE reciprocal takes the slow path
+// on every row. A tile of kRowsK2 table rows is staged compacted: its
+// valid rows in ascending order, each as three float4 (ax, ay, az, e1x),
+// (e1y, e1z, e2x, e2y), (e2z, the row's index, 0, 0), so that the loop
+// runs over the live rows only, three 16-byte loads a row and no valid
+// flag.
 template <int Q>
-__device__ void spheres_dispatch(int q, const RayBatch& rays, const SphereTable& tab,
-                                 const int* s_lane, int m, float4* s_row,
-                                 float* __restrict__ out_t, int64_t* __restrict__ out_i) {
+__device__ __forceinline__ void dense_scan(const RayBatch& rays, const TriangleTable& tab,
+                                           const int* s_lane, int m, float4* s_row,
+                                           float* __restrict__ out_t,
+                                           int64_t* __restrict__ out_i) {
+  __shared__ int s_count[2][kWarps];   // valid rows a warp, two rounds in turn
+  V3 o[Q], d[Q];
+  float best_t[Q];
+  int best_i[Q];
+#pragma unroll
+  for (int j = 0; j < Q; ++j) {
+    const int i = s_lane[min(static_cast<int>(threadIdx.x) + j * kThreads, m - 1)];
+    o[j] = {rays.ox[i], rays.oy[i], rays.oz[i]};
+    d[j] = {rays.dx[i], rays.dy[i], rays.dz[i]};
+    best_t[j] = kInf;
+    best_i[j] = -1;
+  }
+  const bool warp_live = (threadIdx.x & ~31) < m;
+  const int warp = threadIdx.x / 32;
+  const unsigned below = (1u << (threadIdx.x % 32)) - 1u;
+  int turn = 0;
+  for (int base = 0; base < tab.n; base += kRowsK2) {
+    const int rows = min(kRowsK2, tab.n - base);
+    if (base > 0) __syncthreads();   // every warp is done with the last tile
+    int live = 0;   // the tile's valid rows staged so far
+    for (int k0 = 0; k0 < rows; k0 += kThreads, turn ^= 1) {
+      const int k = k0 + threadIdx.x;
+      const int s = base + k;
+      const bool valid = k < rows && tab.valid[s];
+      const unsigned ballot = __ballot_sync(0xffffffffu, valid);
+      if (threadIdx.x % 32 == 0) s_count[turn][warp] = __popc(ballot);
+      __syncthreads();
+      int slot = live + __popc(ballot & below);
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const int c = s_count[turn][w];
+        slot += w < warp ? c : 0;
+        live += c;
+      }
+      if (valid) {
+        const float ax = tab.ax[s], ay = tab.ay[s], az = tab.az[s];
+        float4* row = s_row + 3 * slot;
+        row[0] = make_float4(ax, ay, az, tab.bx[s] - ax);
+        row[1] = make_float4(tab.by[s] - ay, tab.bz[s] - az, tab.cx[s] - ax, tab.cy[s] - ay);
+        row[2] = make_float4(tab.cz[s] - az, __int_as_float(s), 0.0f, 0.0f);
+      }
+    }
+    __syncthreads();
+    if (!warp_live) continue;
+#pragma unroll 2
+    for (int k = 0; k < live; ++k) {
+      const float4 r0 = s_row[3 * k], r1 = s_row[3 * k + 1], r2 = s_row[3 * k + 2];
+#pragma unroll
+      for (int j = 0; j < Q; ++j) {
+        const float t = triangle_t<true>(o[j], d[j], r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z,
+                                         r1.w, r2.x);
+        if (t < best_t[j]) {
+          best_t[j] = t;
+          best_i[j] = __float_as_int(r2.y);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < Q; ++j) {
+    const int slot = threadIdx.x + j * kThreads;
+    if (slot < m) {
+      const int i = s_lane[slot];
+      out_t[i] = best_t[j];
+      out_i[i] = best_i[j];
+    }
+  }
+}
+
+// The scan at the block's ray count: q rays a thread (1 <= q <= Q).
+template <int Q, class Table>
+__device__ void dense_dispatch(int q, const RayBatch& rays, const Table& tab, const int* s_lane,
+                               int m, float4* s_row, float* __restrict__ out_t,
+                               int64_t* __restrict__ out_i) {
   if constexpr (Q > 1) {
     if (q < Q) {
-      spheres_dispatch<Q - 1>(q, rays, tab, s_lane, m, s_row, out_t, out_i);
+      dense_dispatch<Q - 1>(q, rays, tab, s_lane, m, s_row, out_t, out_i);
       return;
     }
   }
-  spheres_scan<Q>(rays, tab, s_lane, m, s_row, out_t, out_i);
+  dense_scan<Q>(rays, tab, s_lane, m, s_row, out_t, out_i);
 }
 
-// K1: every active ray against every valid sphere of the table. A block
-// takes kThreads x `per_thread` consecutive lanes and compacts its active
-// ones: kK1Rays a thread in the first `wide` blocks, `tail` in the others.
-// Three blocks an SM: 80 registers a thread and no spill (PERF.md).
+// K1 (Table = SphereTable) and K2 (TriangleTable): every active ray
+// against every valid row of the table. A block takes kThreads x
+// `per_thread` consecutive lanes and compacts its active ones: kDenseRays
+// a thread in the first `wide` blocks, `tail` in the others. Three blocks
+// an SM: K1 80 registers a thread and no spill (PERF.md).
+template <class Table>
 __global__ void __launch_bounds__(kThreads, 3)
-    spheres_kernel(RayBatch rays, SphereTable tab, int wide, int tail,
-                   float* __restrict__ out_t, int64_t* __restrict__ out_i) {
+    dense_kernel(RayBatch rays, Table tab, int wide, int tail, float* __restrict__ out_t,
+                 int64_t* __restrict__ out_i) {
   const int block = static_cast<int>(blockIdx.x);
-  const int per_thread = block < wide ? kK1Rays : tail;
-  const int first = block < wide ? block * (kThreads * kK1Rays)
-                                 : wide * (kThreads * kK1Rays) + (block - wide) * (kThreads * tail);
+  const int per_thread = block < wide ? kDenseRays : tail;
+  const int first = block < wide ? block * (kThreads * kDenseRays)
+                                 : wide * (kThreads * kDenseRays) + (block - wide) * (kThreads * tail);
   extern __shared__ float4 s_row[];
-  __shared__ int s_lane[kThreads * kK1Rays];
-  __shared__ int s_start[kK1Rays * kWarps + 1];   // each (chunk, warp)'s first slot
+  __shared__ int s_lane[kThreads * kDenseRays];
+  __shared__ int s_start[kDenseRays * kWarps + 1];   // each (chunk, warp)'s first slot
   const int warp = threadIdx.x / 32;
   const unsigned below = (1u << (threadIdx.x % 32)) - 1u;
-  bool live[kK1Rays];
+  bool live[kDenseRays];
 #pragma unroll
-  for (int c = 0; c < kK1Rays; ++c) {
+  for (int c = 0; c < kDenseRays; ++c) {
     const int i = first + c * kThreads + threadIdx.x;
     live[c] = c < per_thread && i < rays.n && (rays.active == nullptr || rays.active[i]);
     const unsigned ballot = __ballot_sync(0xffffffffu, live[c]);
@@ -273,80 +371,27 @@ __global__ void __launch_bounds__(kThreads, 3)
   __syncthreads();
   if (threadIdx.x == 0) {   // exclusive scan of the counts; the total last
     int sum = 0;
-    for (int k = 0; k < kK1Rays * kWarps; ++k) {
+    for (int k = 0; k < kDenseRays * kWarps; ++k) {
       const int n = s_start[k];
       s_start[k] = sum;
       sum += n;
     }
-    s_start[kK1Rays * kWarps] = sum;
+    s_start[kDenseRays * kWarps] = sum;
   }
   __syncthreads();
 #pragma unroll
-  for (int c = 0; c < kK1Rays; ++c) {
+  for (int c = 0; c < kDenseRays; ++c) {
     const unsigned ballot = __ballot_sync(0xffffffffu, live[c]);
     if (live[c]) {
       s_lane[s_start[c * kWarps + warp] + __popc(ballot & below)] =
           first + c * kThreads + threadIdx.x;
     }
   }
-  const int m = s_start[kK1Rays * kWarps];
+  const int m = s_start[kDenseRays * kWarps];
   __syncthreads();
   if (m == 0) return;   // the whole block: skip the table
-  spheres_dispatch<kK1Rays>((m + kThreads - 1) / kThreads, rays, tab, s_lane, m, s_row, out_t,
-                            out_i);
-}
-
-// ---- K2 ----------------------------------------------------------------------
-
-// K2: every active ray against every valid triangle; each tile holds the
-// corner a and the edges, computed once per row.
-__global__ void __launch_bounds__(kThreads)
-    triangles_kernel(RayBatch rays, TriangleTable tab, float* __restrict__ out_t,
-                     int64_t* __restrict__ out_i) {
-  __shared__ float s_row[9][kTile];   // ax, ay, az, e1 xyz, e2 xyz
-  __shared__ bool s_valid[kTile];
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  V3 o = {0.0f, 0.0f, 0.0f}, d = {0.0f, 0.0f, 0.0f};
-  const bool live = lane_ray(rays, i, o, d);
-  float best_t = kInf;
-  int best_i = -1;
-  if (__syncthreads_or(live)) {
-    for (int base = 0; base < tab.n; base += kTile) {
-      const int rows = min(kTile, tab.n - base);
-      for (int k = threadIdx.x; k < rows; k += kThreads) {
-        const int s = base + k;
-        const float ax = tab.ax[s], ay = tab.ay[s], az = tab.az[s];
-        s_row[0][k] = ax;
-        s_row[1][k] = ay;
-        s_row[2][k] = az;
-        s_row[3][k] = tab.bx[s] - ax;
-        s_row[4][k] = tab.by[s] - ay;
-        s_row[5][k] = tab.bz[s] - az;
-        s_row[6][k] = tab.cx[s] - ax;
-        s_row[7][k] = tab.cy[s] - ay;
-        s_row[8][k] = tab.cz[s] - az;
-        s_valid[k] = tab.valid[s];
-      }
-      __syncthreads();
-      if (live) {
-        for (int k = 0; k < rows; ++k) {
-          if (!s_valid[k]) continue;
-          const float t = triangle_t(o, d, s_row[0][k], s_row[1][k], s_row[2][k], s_row[3][k],
-                                     s_row[4][k], s_row[5][k], s_row[6][k], s_row[7][k],
-                                     s_row[8][k]);
-          if (t < best_t) {
-            best_t = t;
-            best_i = base + k;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-  if (i < rays.n) {
-    out_t[i] = best_t;
-    out_i[i] = best_i;
-  }
+  dense_dispatch<kDenseRays>((m + kThreads - 1) / kThreads, rays, tab, s_lane, m, s_row, out_t,
+                             out_i);
 }
 
 // ---- the walks ---------------------------------------------------------------
@@ -464,10 +509,10 @@ __global__ void __launch_bounds__(kThreads)
           if (!tab.valid[prim]) continue;
           const float ax = __ldg(tab.ax + prim), ay = __ldg(tab.ay + prim),
                       az = __ldg(tab.az + prim);
-          const float t =
-              triangle_t(o, d, ax, ay, az, __ldg(tab.bx + prim) - ax, __ldg(tab.by + prim) - ay,
-                         __ldg(tab.bz + prim) - az, __ldg(tab.cx + prim) - ax,
-                         __ldg(tab.cy + prim) - ay, __ldg(tab.cz + prim) - az);
+          const float t = triangle_t<false>(
+              o, d, ax, ay, az, __ldg(tab.bx + prim) - ax, __ldg(tab.by + prim) - ay,
+              __ldg(tab.bz + prim) - az, __ldg(tab.cx + prim) - ax, __ldg(tab.cy + prim) - ay,
+              __ldg(tab.cz + prim) - az);
           if (t < best_t) {
             best_t = t;
             best_i = prim;
@@ -495,8 +540,13 @@ __global__ void __launch_bounds__(kThreads)
 
 int grid_for(int n, int per_block) { return (n + per_block - 1) / per_block; }
 
-size_t k1_smem(int rows) {
-  return static_cast<size_t>(rows < kRowsK1 ? rows : kRowsK1) * sizeof(float4);
+// Dynamic shared memory of a dense test's staged tile over a table of
+// `rows` rows.
+size_t dense_smem(const SphereTable&, int rows) {
+  return static_cast<size_t>(std::min(rows, kRowsK1)) * sizeof(float4);
+}
+size_t dense_smem(const TriangleTable&, int rows) {
+  return static_cast<size_t>(std::min(rows, kRowsK2)) * 3 * sizeof(float4);
 }
 
 template <class Kernel>
@@ -513,17 +563,16 @@ cudaError_t facts(Kernel kernel, size_t smem, WaveKernelInfo* out) {
   return cudaSuccess;
 }
 
-}  // namespace
-
-void launch_intersect_spheres(const RayBatch& rays, const SphereTable& spheres, float* out_t,
-                              int64_t* out_i, cudaStream_t stream) {
+// A dense test's grid: whole waves of blocks of kDenseRays rays a thread
+// (one block on each resident slot of the card), then the lanes left in
+// blocks of one ray a thread, so that the last wave is short. Lanes too
+// few for one such wave take one width in every block, the most that
+// keeps a block on every slot.
+template <class Table>
+void launch_dense(const RayBatch& rays, const Table& tab, float* out_t, int64_t* out_i,
+                  cudaStream_t stream) {
   if (rays.n == 0) return;
-  // The grid: whole waves of blocks of kK1Rays rays a thread (one block on
-  // each resident slot of the card), then the lanes left in blocks of one
-  // ray a thread, so that the last wave is short. Lanes too few for one
-  // such wave take one width in every block, the most that keeps a block
-  // on every slot.
-  static int slots[kMaxDevices] = {};
+  static int slots[kMaxDevices] = {};   // one per Table: its kernel's
   int device = 0;
   cudaGetDevice(&device);
   int resident = 0;
@@ -531,25 +580,30 @@ void launch_intersect_spheres(const RayBatch& rays, const SphereTable& spheres, 
   if (resident == 0) {
     int sms = 0, per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, spheres_kernel, kThreads,
-                                                  k1_smem(kRowsK1));
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dense_kernel<Table>, kThreads,
+                                                  dense_smem(tab, 1 << 30));
     resident = sms * per_sm > 0 ? sms * per_sm : 1;
     if (device < kMaxDevices) slots[device] = resident;
   }
-  const int wave = kThreads * kK1Rays * resident;   // lanes of a whole wide wave
+  const int wave = kThreads * kDenseRays * resident;   // lanes of a whole wide wave
   int wide = rays.n / wave * resident, tail = 1;
-  if (wide == 0) tail = std::min(std::max(rays.n / (kThreads * resident), 1), kK1Rays);
-  const int left = rays.n - wide * kThreads * kK1Rays;
+  if (wide == 0) tail = std::min(std::max(rays.n / (kThreads * resident), 1), kDenseRays);
+  const int left = rays.n - wide * kThreads * kDenseRays;
   const int grid = wide + grid_for(left, kThreads * tail);
-  spheres_kernel<<<grid, kThreads, k1_smem(spheres.n), stream>>>(rays, spheres, wide, tail,
-                                                                 out_t, out_i);
+  dense_kernel<Table><<<grid, kThreads, dense_smem(tab, tab.n), stream>>>(rays, tab, wide, tail,
+                                                                        out_t, out_i);
+}
+
+}  // namespace
+
+void launch_intersect_spheres(const RayBatch& rays, const SphereTable& spheres, float* out_t,
+                              int64_t* out_i, cudaStream_t stream) {
+  launch_dense(rays, spheres, out_t, out_i, stream);
 }
 
 void launch_intersect_triangles(const RayBatch& rays, const TriangleTable& tris, float* out_t,
                                 int64_t* out_i, cudaStream_t stream) {
-  if (rays.n == 0) return;
-  triangles_kernel<<<grid_for(rays.n, kThreads), kThreads, 0, stream>>>(rays, tris, out_t,
-                                                                        out_i);
+  launch_dense(rays, tris, out_t, out_i, stream);
 }
 
 void launch_intersect_bvh(const RayBatch& rays, const SphereWalk& walk, float* out_t,
@@ -568,7 +622,12 @@ void launch_intersect_bvh_triangles(const RayBatch& rays, const BvhTable& bvh,
 }
 
 cudaError_t wavefront_kernel_info(int which, int rows, WaveKernelInfo* out) {
-  if (which == 0 && rows >= 1) return facts(spheres_kernel, k1_smem(rows), out);
+  if (which == 0 && rows >= 1) {
+    return facts(dense_kernel<SphereTable>, dense_smem(SphereTable{}, rows), out);
+  }
   if (which == 1) return facts(walk_spheres_kernel, 0, out);
+  if (which == 2 && rows >= 1) {
+    return facts(dense_kernel<TriangleTable>, dense_smem(TriangleTable{}, rows), out);
+  }
   return cudaErrorInvalidValue;
 }

@@ -113,9 +113,11 @@ void launch_intersect_bvh_triangles(const RayBatch& rays, const BvhTable& bvh,
                                     const TriangleTable& tris, float* out_t,
                                     int64_t* out_i, cudaStream_t stream);
 
-// K1 takes up to kK1Rays rays a thread (wavefront.cu's design note).
-constexpr int kK1Rays = 4;
+// The dense tests (K1, K2) take up to kDenseRays rays a thread
+// (wavefront.cu's design note).
+constexpr int kDenseRays = 4;
 
 // The facts of kernel `which` (0: K1 over a sphere table of `rows` rows,
-// which sets its staged tile; 1: K3).
+// 2: K2 over a triangle table of `rows` rows, which sets their staged
+// tiles; 1: K3).
 cudaError_t wavefront_kernel_info(int which, int rows, WaveKernelInfo* out);

@@ -48,9 +48,10 @@ def bvh_columns(bvh) -> list:
 def kernel_info(device, rows: int) -> dict:
     """Registers per thread (``num_regs``), spill bytes per thread
     (``local_bytes``), static and dynamic shared memory per block and
-    resident blocks per SM (``blocks_per_sm``) of K1 (over a table of
-    ``rows`` rows; also its ``rays_per_thread``) and K3, by wrapper name,
-    on CUDA ``device``. Builds the extension on first use."""
+    resident blocks per SM (``blocks_per_sm``) of K1 and K2 (over a table
+    of ``rows`` rows, which sets their staged tiles; also their
+    ``rays_per_thread``) and K3, by wrapper name, on CUDA ``device``.
+    Builds the extension on first use."""
     from .build import extension
 
     index = torch.device(device).index or 0

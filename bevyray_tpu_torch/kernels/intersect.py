@@ -11,7 +11,8 @@ its own per-thread copies.
 
 :func:`intersect_spheres` and :func:`intersect_triangles` are wrappers: on
 CUDA tensors they launch the hand-written kernels of
-``cuda/csrc/wavefront.cu`` (one thread per ray over the whole table), on CPU
+``cuda/csrc/wavefront.cu`` (up to four of a block's active rays a thread
+over the whole table), on CPU
 tensors they run the plain versions :func:`intersect_spheres_reference` and
 :func:`intersect_triangles_reference`. Those are dense [rays x table chunk]
 blocks, as in the JAX package; rays go in steps that bound the temporaries

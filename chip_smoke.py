@@ -87,13 +87,18 @@ kernels of ``kernels/cuda/csrc/wavefront.cu`` (K1 ``intersect_spheres``, K2
 ``intersect_bvh_triangles``, which replace XLA loops of the JAX package):
 (a) the main path with the counts zeroed just before each run and read
 just after, timed: the wavefront headline (K1), config 5's mesh through
-``Renderer`` dense (K1, K2) and by the BVH (K3, K4), and 10(f)'s 4,971
-spheres walking the BVH (K3); the headline frame equal (image, depth,
-segments) to the one with the plain versions patched in; (b) each kernel
-against its plain version on the same CUDA tensors, t max |d| 0 and index
-equal on every lane, at bounces 0 and 2 of real frames with their active
-masks, on the leaf-4 BVH, a 4-entry stack and axis-aligned rays on box
-planes, with its time beside its bound; (c) ``host_syncs`` over
+``Renderer`` dense (K1, K2) and by the BVH (K3, K4), 10(f)'s 4,971
+spheres walking the BVH (K3), and the cube field (``cube_field_world``:
+4,092 triangles at config 5's settings, "auto" taking the dense test, 80
+K2 launches); the headline frame equal (image, depth, segments) to the
+one with the plain versions patched in; (b) each kernel against its plain
+version on the same CUDA tensors, t max |d| 0 and index equal on every
+lane, at bounces 0 and 2 of real frames with their active masks (K2 and
+K4 also on the cube field), on the leaf-4 BVH, a 4-entry stack,
+axis-aligned rays on box planes, odd lane counts, sparse masks, rows
+twice, every third triangle row invalid and the raster layer's call,
+with its time beside its bound (the dense tests' also at the issue
+rate); (c) ``host_syncs`` over
 ``Renderer`` frames (brute, bvh, mesh) and a config-5 round, which must be
 empty; (d) the launches of one wavefront frame (torch's profiler).
 
@@ -157,6 +162,9 @@ PIXEL_TOL, PIXEL_FRAC, MEAN_TOL, DEPTH_MEAN_RTOL, SEG_RTOL = (
 # left out, so the bound is a floor.
 SPHERE_TEST_OPS, SLAB_TEST_OPS, TRIANGLE_TEST_OPS = 21, 27, 60
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+# Without contraction (--fmad=false) each operation is one issued fp32
+# instruction: 132 SMs x 128 lanes x 1.98 GHz.
+ISSUE_RATE = 132 * 128 * 1.98e9
 # Phase 7. The TPU kernel's fast draw path and block fusion.
 FAST_REPLACES = f"{TPU_KERNEL}:486"     # HwRngProvider (+ fast math :375)
 FUSE_REPLACES = f"{TPU_KERNEL}:195"     # _resolve_fuse (+ halves :1517)
@@ -226,6 +234,7 @@ WAVE_REPLACES = {
     "intersect_bvh": "bevyray_tpu/kernels/traverse.py:125",
     "intersect_bvh_triangles": "bevyray_tpu/kernels/traverse.py:125",
 }
+CUBE_FIELD = 341        # cubes of cube_field_world: 4,092 triangles
 WAVE_BOUNCES = (0, 2)   # the captured bounces the kernels are held on
 WAVE_REPS = 20          # launches per CUDA-event timing
 AXIS_RAYS = 1 << 16     # axis-aligned rays, origins on box and face planes
@@ -263,6 +272,34 @@ def config5_world():
                      StandardMaterial(base_color=(0.2, 0.5, 0.9), metallic=1.0,
                                       perceptual_roughness=0.15))
     return world, RenderConfig(*HYBRID_SIZE, SPP, BOUNCES, level=2)
+
+
+def cube_field_world(pkg):
+    """The final scene (seed 42) with CUBE_FIELD cube meshes of 12
+    triangles on the ground in front of the camera, each sized, placed,
+    turned about y and colored from numpy's generator seeded with 13:
+    4,092 triangles in a table of 4,096 rows, the largest that "auto"
+    sends to the dense triangle test. Built with ``pkg`` (the port, or a
+    package with the same scene API); render it with config 5's
+    ``RenderConfig`` (1280x720, 16 spp, 4 bounces, level 2)."""
+    import numpy as np
+
+    T = pkg.Transform
+    rng = np.random.default_rng(13)
+    world = pkg.rtiow.final_scene(seed=42)
+    for _ in range(CUBE_FIELD):
+        size, x, z, yaw = (float(v) for v in rng.uniform(
+            (0.15, -4.0, -5.0, 0.0), (0.45, 4.0, 2.5, np.pi / 2)))
+        color = tuple(float(c) for c in rng.uniform(0.1, 0.9, 3))
+        metallic, rough = (float(v) for v in rng.uniform((0.0, 0.05),
+                                                         (1.0, 0.5)))
+        world.spawn_mesh(
+            T.from_xyz(x, size / 2, z).with_rotation(
+                T.rotation_axis_angle((0.0, 1.0, 0.0), yaw)),
+            pkg.cube_mesh(size),
+            pkg.StandardMaterial(base_color=color, metallic=round(metallic),
+                                 perceptual_roughness=rough))
+    return world
 
 
 def golden_world(pkg, name):
@@ -2231,15 +2268,19 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
     ``intersect_triangles``, K3 ``intersect_bvh``, K4
     ``intersect_bvh_triangles``). (a) The main path: the wavefront headline
     frame (K1), BASELINE config 5's mesh through ``Renderer`` with the
-    dense tests (K1, K2) and with the BVH walks (K3, K4), and 10(f)'s 4,971
-    spheres walking the BVH (K3), each with the counts zeroed just before
-    and read just after, timed; the headline frame again with the plain
-    versions patched in: image, depth and segments equal. (b) Each kernel
-    against its plain version on the same CUDA tensors at bounces 0 and 2
-    of a real frame (the bounce's own active mask): the headline (K1),
-    config 5 (K1, K2; K3, K4 on its BVHs), the 4,971-sphere BVH at leaf 1
-    and 4 and with a 4-entry stack (K3), and axis-aligned rays on box
-    planes (K1-K4); t max |d| 0 and index equal on every lane. Each
+    dense tests (K1, K2) and with the BVH walks (K3, K4), 10(f)'s 4,971
+    spheres walking the BVH (K3) and the cube field (K1, K2: one K2 launch
+    a bounce), each with the counts zeroed just before and read just
+    after, timed; the headline frame again with the plain versions
+    patched in: image, depth and segments equal. (b) Each kernel against
+    its plain version on the same CUDA tensors at bounces 0 and 2 of a
+    real frame (the bounce's own active mask): the headline (K1), config 5
+    (K1, K2; K3, K4 on its BVHs), the cube field (K2; K4 on its mesh
+    BVH), the 4,971-sphere BVH at leaf 1 and 4 and with a 4-entry stack
+    (K3), and axis-aligned rays on box planes (K1-K4); the dense tests'
+    and K3's layouts (odd lane counts, sparse masks, rows twice, K2's
+    interleaved valid rows, the raster layer's call); t max |d| 0 and
+    index equal on every lane. Each
     kernel's time by CUDA events beside its bound and its plain version's
     time. (c) ``host_syncs`` over ``Renderer.render`` (brute, bvh, mesh)
     and over a config-5 round (``raster_layer`` + ``FusedRenderer``): the
@@ -2248,16 +2289,19 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
     import numpy as np
     import torch
 
+    import bevyray_tpu_torch
     from bevyray_tpu_torch import FusedRenderer, RenderConfig, Renderer, rtiow
     from bevyray_tpu_torch.bench.timing import host_syncs
     from bevyray_tpu_torch.bvh import build as bvh_build
     from bevyray_tpu_torch.engine import renderer as renderer_mod
     from bevyray_tpu_torch.engine.raster import raster_layer
-    from bevyray_tpu_torch.core.types import make_sphere_walk, make_spheres_np
+    from bevyray_tpu_torch.core.types import (make_sphere_walk, make_spheres_np,
+                                              make_triangles_np)
     from bevyray_tpu_torch.core.vec import Vec3
     from bevyray_tpu_torch.kernels import intersect, traverse
     from bevyray_tpu_torch.kernels.cuda import wavefront as wavefront_mod
     from bevyray_tpu_torch.kernels.intersect import on_active
+    from bevyray_tpu_torch.kernels.raygen import generate_rays, pixel_uv
 
     t_phase = time.perf_counter()
     kernels = {"intersect_spheres": intersect.intersect_spheres,
@@ -2289,6 +2333,11 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
                                device=dev)
     scene5 = world5.extract(device=dev)
     rc, rd = raster_layer(world5, cam5, config5, device=dev)
+    field = cube_field_world(bevyray_tpu_torch)
+    cam_f = field.camera_state(aspect=HYBRID_SIZE[0] / HYBRID_SIZE[1],
+                               device=dev)
+    scene_f = field.extract(device=dev)
+    rc_f, rd_f = raster_layer(field, cam_f, config5, device=dev)
     big = rtiow.final_scene(seed=CLI_SCENE_SEED, grid=BIG_GRID)
     big_scene = big.extract(device=dev)
     big_cam = big.camera_state(aspect=BIG_SIZE[0] / BIG_SIZE[1], device=dev)
@@ -2305,6 +2354,8 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
          dict(raster_color=rc, raster_depth=rd)),
         (f"{big.n_spheres} spheres auto", Renderer(big_cfg), big_scene,
          big_cam, {}),
+        (f"cube field ({CUBE_FIELD} cubes) auto", Renderer(config5), scene_f,
+         cam_f, dict(raster_color=rc_f, raster_depth=rd_f)),
     ]
     launches = collections.Counter()
     frames = {}
@@ -2320,11 +2371,17 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
                 and bool(torch.isfinite(frame.rt_depth).all())
                 and int(frame.rays_traced) > 0):
             raise SystemExit(f"phase 13 {name}: not a finite frame")
+        backend = renderer_mod.resolve_intersect_backend(scn, renderer.config)
         print(f"phase 13(a) {name} {renderer.config.width}x"
               f"{renderer.config.height} {renderer.config.samples_per_pixel}"
-              f" spp ({renderer_mod.resolve_intersect_backend(scn, renderer.config)}):"
-              f" frame {ms:.3f} ms, {int(frame.rays_traced)} segments, "
-              f"launches {got} | {card}", flush=True)
+              f" spp ({backend}): frame {ms:.3f} ms, "
+              f"{int(frame.rays_traced)} segments, launches {got} | {card}",
+              flush=True)
+        if name.startswith("cube field") and (
+                backend != "brute" or got["intersect_triangles"]
+                != SPP * (BOUNCES + 1)):
+            raise SystemExit(f"phase 13(a) {name}: not {SPP * (BOUNCES + 1)}"
+                             f" dense triangle tests ({backend}, {got})")
     if min(launches[name] for name in kernels) < 1:
         raise SystemExit(f"phase 13(a): a kernel of the path launched no "
                          f"time: {dict(launches)}")
@@ -2398,9 +2455,13 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
             ms = cuda_ms(lambda: kernels[name](o, d, *args, **kernel_kw,
                                                active=active), WAVE_REPS)
             bound = wave_bound(name, args, o, n_act, work)
-            timing.setdefault(name, (ms, plain_ms, bound, case))
+            timing.setdefault(name, (ms, plain_ms, bound[:2], case))
             line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
                      f"{bound[0]:.4f} ms ({bound[1]})")
+            if bound[2] is not None:
+                line += (f", {bound[2]:.4f} ms at the issue rate ("
+                         f"{ms * 1e-3 * ISSUE_RATE / bound[3]:.1f} issue "
+                         f"slots a pair)")
         print(line + f" | {card}", flush=True)
         if err != 0.0 or not same_i:
             raise SystemExit(f"phase 13(b) {name} {case}: the kernel differs "
@@ -2411,7 +2472,8 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
     rays = {key: capture_rays(*args, dev) for key, args in (
         ("headline", (scene, cam, headline)),
         ("config 5", (scene5, cam5, brute5)),
-        ("big", (big_scene, big_cam, big_cfg)))}
+        ("big", (big_scene, big_cam, big_cfg)),
+        ("field", (scene_f, cam_f, config5)))}
     for b in WAVE_BOUNCES:
         first = b == WAVE_BOUNCES[0]
         o, d, act = rays["headline"][b]
@@ -2427,6 +2489,11 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
         hold(f"config 5 sphere BVH bounce {b}", "intersect_bvh",
              (scene5.spheres, scene5.bvh), o, d, act,
              walk=scene5.sphere_walk)
+        o, d, act = rays["field"][b]
+        hold(f"cube field bounce {b}", "intersect_triangles",
+             (scene_f.triangles,), o, d, act, time_it=first)
+        hold(f"cube field mesh BVH bounce {b}", "intersect_bvh_triangles",
+             (scene_f.triangles, scene_f.tri_bvh), o, d, act, time_it=first)
         o, d, act = rays["big"][b]
         hold(f"{big.n_spheres} spheres leaf 1 bounce {b}", "intersect_bvh",
              (big_scene.spheres, big_scene.bvh), o, d, act, time_it=True,
@@ -2460,16 +2527,19 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
     hold("axis-aligned rays, config 5 mesh", "intersect_triangles",
          (tris5,), o, d, None)
 
-    # The cases that reach K1's and K3's layouts: a lane count off K1's
-    # block of 256 x rays a thread, a few active lanes scattered over many
-    # blocks (K1 compacts each block's), and every sphere twice in a row
-    # (exact ties: the dense test keeps the lower index, the walk the
-    # first found), K1's table then past one staged tile.
-    facts = {rows: wavefront_mod.kernel_info(dev, rows)
-             for rows in (scene.spheres.capacity, 2 * big_scene.spheres.capacity)}
-    for rows, info in facts.items():
-        print(f"phase 13(b) K1 and K3 instances, K1 over {rows} rows: "
-              f"{json.dumps(info)} | {card}", flush=True)
+    # The cases that reach the dense tests' and K3's layouts: a lane count
+    # off a block of 256 x rays a thread, a few active lanes scattered over
+    # many blocks (K1 and K2 compact each block's), every sphere and every
+    # triangle twice in a row (exact ties: the dense tests keep the lower
+    # index, the walk the first found), K1's table then past one staged
+    # tile; every third triangle row invalid (K2 stages the valid rows of
+    # a tile compacted); the raster layer's call (unmasked, 12 rows).
+    for rows in sorted({tris5.capacity, scene.spheres.capacity,
+                        scene_f.triangles.capacity,
+                        2 * big_scene.spheres.capacity}):
+        print(f"phase 13(b) K1, K2 and K3 instances, the dense tests over "
+              f"{rows} rows: {json.dumps(wavefront_mod.kernel_info(dev, rows))}"
+              f" | {card}", flush=True)
 
     def cut(v, n):
         return Vec3(*(c[:n] for c in v))
@@ -2479,9 +2549,8 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
         few[SPARSE_FIRST::SPARSE_STEP] = act[SPARSE_FIRST::SPARSE_STEP]
         return few
 
-    def twice(spheres):
-        return type(spheres)(*(torch.repeat_interleave(c, 2)
-                               for c in spheres))
+    def twice(table):
+        return type(table)(*(torch.repeat_interleave(c, 2) for c in table))
 
     o, d, act = rays["headline"][0]
     hold(f"headline bounce 0, first {ODD_LANES} lanes", "intersect_spheres",
@@ -2505,6 +2574,31 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
     hold(f"{big.n_spheres} spheres twice, dense bounce 0",
          "intersect_spheres", (twice(big_scene.spheres),), o, d, act,
          time_it=True)
+    tris_f = scene_f.triangles
+    o, d, act = rays["field"][0]
+    hold(f"cube field bounce 0, first {ODD_LANES} lanes",
+         "intersect_triangles", (tris_f,), cut(o, ODD_LANES),
+         cut(d, ODD_LANES), act[:ODD_LANES], time_it=True)
+    hold(f"cube field bounce 0, every {SPARSE_STEP}th lane",
+         "intersect_triangles", (tris_f,), o, d, sparse(act), time_it=True)
+    hold("cube field bounce 0, every triangle twice", "intersect_triangles",
+         (twice(tris_f),), o, d, act, time_it=True)
+    third = tris_f._replace(valid=tris_f.valid & (torch.arange(
+        tris_f.valid.numel(), device=dev) % 3 != 1))
+    hold("cube field bounce 0, every third row invalid",
+         "intersect_triangles", (third,), o, d, act, time_it=True)
+    o, d, act = rays["config 5"][0]
+    hold("config 5 bounce 0, every triangle twice", "intersect_triangles",
+         (twice(tris5),), o, d, act)
+    va, vb, vc, _ = world5.extract_raster_host()
+    raster_tris = make_triangles_np(va, vb, vc,
+                                    np.zeros(va.shape[0], np.int32),
+                                    capacity=va.shape[0], device=dev)
+    u, v = pixel_uv(*HYBRID_SIZE, device=dev)
+    half = torch.full_like(u, 0.5)
+    o, d = generate_rays(u, v, half, half, cam5, HYBRID_SIZE[1])
+    hold("the raster layer's call (pixel centers, unmasked)",
+         "intersect_triangles", (raster_tris,), o, d, None, time_it=True)
     centers2, radii2 = np.repeat(centers, 2, axis=0), np.repeat(radii, 2)
     spheres2 = make_spheres_np(centers2, radii2, np.arange(radii2.shape[0]),
                                device=dev)
@@ -2596,12 +2690,13 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
 
 
 def wave_bound(name, args, o, n_active, work) -> tuple:
-    """(ms, "operations" | "bytes"): the least time the card could take for
-    one call of kernel ``name``: the tests this call's active rays need (the
-    dense tests: every valid row; the walks: the box and prim tests that
-    the plain walk counted) over the fp32 peak, or its bytes (each ray and
-    table row read once, each (t, index) written once) over the memory
-    rate."""
+    """(ms, "operations" | "bytes", issue ms, pairs): the least time the
+    card could take for one call of kernel ``name``: the tests this call's
+    active rays need (the dense tests: every valid row; the walks: the box
+    and prim tests that the plain walk counted) over the fp32 peak, or its
+    bytes (each ray and table row read once, each (t, index) written once)
+    over the memory rate; for a dense test also the operations at the
+    ``--fmad=false`` issue rate and its (ray, row) pairs, else None."""
     n = o.x.shape[0]
     table = args[0]
     rows = table.valid.numel()
@@ -2620,8 +2715,11 @@ def wave_bound(name, args, o, n_active, work) -> tuple:
     if name.startswith("intersect_bvh"):
         n_bytes += args[1].min_x.numel() * ROW_BYTES["bvh_node"]
     by_ops, by_bytes = ops / PEAK_FP32 * 1e3, n_bytes / PEAK_BYTES * 1e3
-    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes,
-                                                              "bytes")
+    bound = ((by_ops, "operations") if by_ops >= by_bytes
+             else (by_bytes, "bytes"))
+    if name not in ("intersect_spheres", "intersect_triangles"):
+        return bound + (None, None)
+    return bound + (ops / ISSUE_RATE * 1e3, n_active * int(table.valid.sum()))
 
 
 if __name__ == "__main__":

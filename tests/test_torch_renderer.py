@@ -220,6 +220,25 @@ def test_renderer_matches_jax(scene, level):
         assert float(got.rt_depth.max()) == pytest.approx(1010.0)
 
 
+def test_cube_field_matches_jax():
+    """``chip_smoke.cube_field_world`` built and extracted by each package:
+    4,092 triangles in a table of 4,096 rows, eight chunks of the dense
+    test, at config 5's bounces and level at 64x36, 1 spp."""
+    from chip_smoke import cube_field_world
+
+    jw, pw = cube_field_world(jb), cube_field_world(bt)
+    js, jcam = jw.extract(with_bvh=False), jw.camera_state(aspect=64 / 36)
+    ps = pw.extract(with_bvh=False, device="cpu")
+    pcam = pw.camera_state(aspect=64 / 36, device="cpu")
+    assert ps.triangles.capacity == js.triangles.capacity == 4096
+    cfg = dict(width=64, height=36, samples_per_pixel=1, bounces=4, level=2)
+    assert prenderer.resolve_intersect_backend(
+        ps, bt.RenderConfig(**cfg)) == "brute"
+    want = jb.Renderer(jb.RenderConfig(**cfg)).render(js, jcam, seed=5)
+    got = bt.Renderer(bt.RenderConfig(**cfg)).render(ps, pcam, seed=5)
+    _close(got, want)
+
+
 @pytest.mark.parametrize("scene", list(SCENES))
 def test_renderer_matches_fused_renderer(scene):
     """The wavefront step against the fused kernel's plain version on the

@@ -7,28 +7,35 @@ OTHER_TREE is another checkout of the repository (for example the parent
 commit unpacked with ``git archive`` into a directory that ``.gitignore``
 lists). In separate processes, in the order other, this, this, other, each
 arm builds its tree's CUDA extension and runs the wavefront ``Renderer``
-(seed 1, 2, ... after a warm-up frame at seed 0) on five cells: the
+(seed 1, 2, ... after a warm-up frame at seed 0) on six cells: the
 headline (RTiOW final scene, 1920x1080, 16 spp, 4 bounces, level 3); the
 CLI's default ``render`` (1280x720, 16 spp, backend auto: "brute"); 4,971
 spheres (``final_scene(seed=42, grid=35)``, 640x360, 4 spp) walking the
-BVH and with the dense test; and BASELINE config 5 (the final scene with a
-metallic cube mesh, 1280x720, 16 spp, level 2) over its raster layer. It
+BVH and with the dense test; BASELINE config 5 (the final scene with a
+metallic cube mesh, 1280x720, 16 spp, level 2) over its raster layer; and
+the cube field (``chip_smoke.cube_field_world`` of this tree, built with
+each arm's package: 4,092 triangles, "auto" taking the dense test) at
+config 5's settings over its raster layer. It
 times the raster layer (p50 of 5 calls after a first) and takes the census
 of host waits for the card (``bench/timing.py`` ``host_syncs``) over one
 headline frame at 1 spp, one 4,971-sphere "bvh" frame and one config-5
-round (``raster_layer`` + ``FusedRenderer.render``). Then it times the
+round (``raster_layer`` + ``FusedRenderer.render``), and the card's busy
+time (torch's profiler: the summed durations of its kernels) over one
+1-spp frame of the headline, config 5 and the cube field, which the
+host's launch rate does not enter. Then it times the
 ray tests alone (K1-K4 of ``kernels/cuda/csrc/wavefront.cu``) through the
 calls a frame makes (``engine.renderer.make_intersect_fn``, the
 triangle wrappers), on the rays that bounces 0 and 2 of sample 0 hand
 them (``chip_smoke.capture_rays``), by CUDA events (the mean of 20
 launches after one, queued behind a spin kernel so that the host's
 launch time stays out of the reading): K1 at the headline and at 4,971
-spheres, K3 at 4,971 spheres (leaf 1 and 4), K2 and K4 at config 5. The
-first arm of each tree saves its seed-1 frames, raster buffers and ray
-test results; the last lines give the card (name, power limit), each
-tree's p50s, census and ray test times (and K1's issue slots a (ray,
-sphere) pair at the ``--fmad=false`` issue rate, 132 SMs x 128 lanes x
-1.98 GHz), and each cell's and ray test's max |d| between the trees.
+spheres, K3 at 4,971 spheres (leaf 1 and 4), K2 and K4 at config 5 and on
+the cube field. The first arm of each tree saves its seed-1 frames, raster
+buffers and ray test results; the last lines give the card (name, power
+limit), each tree's p50s, census and ray test times (and the dense tests'
+issue slots a (ray, row) pair at the ``--fmad=false`` issue rate, 132 SMs
+x 128 lanes x 1.98 GHz), and each cell's and ray test's max |d| between
+the trees.
 Needs one CUDA card; the two trees must share the public API.
 """
 
@@ -44,14 +51,17 @@ ROOT = Path(__file__).resolve().parents[1]
 ISSUE_RATE = 132 * 128 * 1.98e9   # fp32 instructions a second, no contraction
 
 ARM = """
-import dataclasses, json, sys, time
+import dataclasses, importlib.util, json, sys, time
 sys.path.insert(0, ".")
 import torch
+import bevyray_tpu_torch
 from bevyray_tpu_torch import (FusedRenderer, RenderConfig, Renderer,
                                StandardMaterial, Transform, cube_mesh, rtiow)
 from bevyray_tpu_torch.bench.timing import host_syncs
 from bevyray_tpu_torch.engine.raster import raster_layer
 from bevyray_tpu_torch.kernels.cuda import build
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 dev = torch.device("cuda", 0)
 t0 = time.perf_counter()
@@ -126,6 +136,17 @@ cells["config5"] = frames("config5", lambda s: Renderer(config5).render(
 fused5 = FusedRenderer(config5)
 fused5.render(scene5, cam5, seed=0, raster_color=rc, raster_depth=rd)
 
+# The cube field: this tree's scene, built with the arm's package.
+spec = importlib.util.spec_from_file_location("ab_scenes", {smoke!r})
+ab_scenes = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(ab_scenes)
+field = ab_scenes.cube_field_world(bevyray_tpu_torch)
+field_scene = field.extract()
+field_cam = field.camera_state(aspect=16 / 9)
+rc_f, rd_f = raster_layer(field, field_cam, config5)
+cells["cube_field"] = frames("cube_field", lambda s: Renderer(config5).render(
+    field_scene, field_cam, seed=s, raster_color=rc_f, raster_depth=rd_f))
+
 
 def config5_round():
     rc2, rd2 = raster_layer(world5, cam5, config5)
@@ -133,6 +154,28 @@ def config5_round():
 
 
 one = dataclasses.replace(headline, samples_per_pixel=1)
+one5 = dataclasses.replace(config5, samples_per_pixel=1)
+
+
+def busy_ms(render):
+    render(3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        render(3)
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+
+
+busy = {{
+    "headline": busy_ms(lambda s: Renderer(one).render(scene, cam, seed=s)),
+    "config5": busy_ms(lambda s: Renderer(one5).render(
+        scene5, cam5, seed=s, raster_color=rc, raster_depth=rd)),
+    "cube_field": busy_ms(lambda s: Renderer(one5).render(
+        field_scene, field_cam, seed=s, raster_color=rc_f,
+        raster_depth=rd_f)),
+}}
 syncs = {{
     "Renderer headline 1 spp": census(
         lambda: Renderer(one).render(scene, cam, seed=2)),
@@ -174,7 +217,8 @@ big4 = big.extract(bvh_leaf_size=4)
 mesh5 = world5.extract()
 rays = {{"headline": chip_smoke.capture_rays(scene, cam, headline, dev),
         "big": chip_smoke.capture_rays(big_scene, big_cam, brute_big, dev),
-        "config5": chip_smoke.capture_rays(scene5, cam5, config5, dev)}}
+        "config5": chip_smoke.capture_rays(scene5, cam5, config5, dev),
+        "field": chip_smoke.capture_rays(field_scene, field_cam, config5, dev)}}
 tests = [
     ("K1 headline bounce 0", make_intersect_fn(scene, headline),
      "headline", 0, scene.spheres),
@@ -189,9 +233,18 @@ tests = [
     ("K3 4,971 spheres leaf 1 bounce 2", make_intersect_fn(big_scene, walk(1)),
      "big", 2, None),
     ("K2 config 5 bounce 0", lambda o, d, a: intersect.intersect_triangles(
-        o, d, scene5.triangles, active=a), "config5", 0, None),
+        o, d, scene5.triangles, active=a), "config5", 0, scene5.triangles),
     ("K4 config 5 bounce 0", lambda o, d, a: traverse.intersect_bvh_triangles(
         o, d, mesh5.triangles, mesh5.tri_bvh, active=a), "config5", 0, None),
+    ("K2 cube field bounce 0", lambda o, d, a: intersect.intersect_triangles(
+        o, d, field_scene.triangles, active=a), "field", 0,
+     field_scene.triangles),
+    ("K2 cube field bounce 2", lambda o, d, a: intersect.intersect_triangles(
+        o, d, field_scene.triangles, active=a), "field", 2,
+     field_scene.triangles),
+    ("K4 cube field bounce 0", lambda o, d, a: traverse.intersect_bvh_triangles(
+        o, d, field_scene.triangles, field_scene.tri_bvh, active=a), "field",
+     0, None),
 ]
 kernels = {{}}
 saved["ray tests"] = {{}}
@@ -205,7 +258,8 @@ for name, fn, cell, bounce, table in tests:
 if {save!r}:
     torch.save(saved, {save!r})
 print(json.dumps({{"cells": cells, "raster_p50_ms": sorted(raster_ms[1:])[2],
-                   "host_syncs": syncs, "ray_tests": kernels,
+                   "host_syncs": syncs, "busy_ms_1spp": busy,
+                   "ray_tests": kernels,
                    "build_s": build_s}}))
 """
 
@@ -230,7 +284,8 @@ def main() -> int:
                       ("other", other)):
         save = str(out_dir / f"{arm}.pt") if not runs[arm] else ""
         out = subprocess.run([sys.executable, "-c",
-                              ARM.format(frames=args.frames, save=save)],
+                              ARM.format(frames=args.frames, save=save,
+                                         smoke=str(ROOT / "chip_smoke.py"))],
                              cwd=tree, capture_output=True, text=True,
                              timeout=1200)
         if out.returncode:
@@ -259,11 +314,14 @@ def main() -> int:
                                               for r in rs]
                                        for cell in rs[0]["cells"]},
                             "raster_p50_ms": [r["raster_p50_ms"] for r in rs],
+                            "busy_ms_1spp": {cell: [r["busy_ms_1spp"][cell]
+                                                    for r in rs]
+                                             for cell in rs[0]["busy_ms_1spp"]},
                             "host_syncs": rs[0]["host_syncs"],
                             "ray_test_ms": {name: [r["ray_tests"][name]["ms"]
                                                    for r in rs]
                                             for name in rs[0]["ray_tests"]},
-                            "k1_slots_a_pair": {
+                            "dense_slots_a_pair": {
                                 name: [r["ray_tests"][name]["ms"] * 1e-3
                                        * ISSUE_RATE / (test["active"]
                                                        * test["rows"])
