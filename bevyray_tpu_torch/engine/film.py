@@ -30,6 +30,7 @@ import torch
 from ..core.types import (CameraState, RenderConfig, SceneBuffers,
                           camera_key, resolve_device)
 from ..core.vec import Vec3
+from ..kernels.bounce import new_state
 from ..kernels.cuda.megakernel import KernelScene, render_tiles, unshuffle_blocks
 from ..kernels.raygen import pixel_uv
 from .fused_renderer import FusedRenderer
@@ -114,10 +115,11 @@ def accumulate_impl(film: Film, scene: SceneBuffers, cam: CameraState,
     pixel_ids = torch.arange(n, device=dev)
     color_sum, depth_sum = film.color_sum, film.depth_sum
     segments = film.rays_traced
+    state = new_state(n, cam, config, dev)
     for i in range(config.samples_per_pixel):
         color, depth, segs = trace_sample(scene, cam, config, pixel_ids, u, v,
                                           (sample_offset + i) & _M32,
-                                          frame_seed)
+                                          frame_seed, state=state)
         color_sum = color_sum + color
         depth_sum = depth_sum + depth
         segments = segments + segs

@@ -3,19 +3,24 @@
 Counterpart of ``bevyray_tpu/engine/renderer.py``, the JAX package's public
 default. The reference runs one fragment thread per pixel with a sample loop
 and a bounce loop of per-thread ``break``s (raytrace.wgsl:93-224); here the
-whole frame is one flat batch of rays, one per pixel, and each bounce is a
-handful of tensor operations over it: the sphere test
-(:func:`..kernels.intersect.intersect_spheres`) or the BVH walk
-(:mod:`..kernels.traverse`), which on a CUDA card are the hand-written
-kernels of ``kernels/cuda/csrc/wavefront.cu``, then the hit and material
-gathers, :func:`..kernels.shade.scatter` and the sky in PyTorch's own
-operators. The fused CUDA kernel is :class:`.fused_renderer.FusedRenderer`.
+whole frame is one flat batch of rays, one per pixel, and a sample is ray
+generation (:func:`..kernels.bounce.raygen_sample`), then per bounce the
+sphere test (:func:`..kernels.intersect.intersect_spheres`) or the BVH walk
+(:mod:`..kernels.traverse`), the triangle test where the scene has
+triangles, and the shading (:func:`..kernels.bounce.shade_bounce`: the hit
+records, the sky, the materials, :func:`..kernels.shade.scatter`). On a
+CUDA card each of these is one hand-written kernel (``kernels/cuda/csrc/
+wavefront.cu`` and ``bounce.cu``); on the CPU their plain PyTorch
+versions run. The fused CUDA kernel is
+:class:`.fused_renderer.FusedRenderer`.
 
 The bounce loop is JAX's ``while_loop`` body run masked: every lane, every
 one of the ``bounces + 1`` iterations, with each update under the lane's
 ``active`` flag (a dead lane adds nothing and its ray tests return at
-once). Nothing in a frame reads a value back to the host, so the host
-queues a whole frame without waiting for the card.
+once). A sample's lanes live in a :class:`..kernels.bounce.SampleState`,
+allocated once a frame and updated in place. Nothing in a frame reads a
+value back to the host, so the host queues a whole frame without waiting
+for the card.
 """
 
 from __future__ import annotations
@@ -25,19 +30,13 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..core import rng
-from ..core.constants import INF
 from ..core.types import CameraState, RenderConfig, SceneBuffers
 from ..core.vec import Vec3
-from ..kernels.composite import (background_gradient, composite,
-                                 linear_to_gamma)
-from ..kernels.intersect import (gather_materials, intersect_spheres,
-                                 intersect_triangles, make_hit_info,
-                                 merge_hits, triangle_hit_info)
-from ..kernels.raygen import generate_rays, pixel_uv
-from ..kernels.shade import scatter
+from ..kernels.bounce import new_state, raygen_sample, shade_bounce
+from ..kernels.composite import composite
+from ..kernels.intersect import intersect_spheres, intersect_triangles
+from ..kernels.raygen import pixel_uv
 from ..kernels.traverse import intersect_bvh, intersect_bvh_triangles
-from . import slots
 
 _M32 = 0xFFFFFFFF
 
@@ -120,16 +119,10 @@ def make_intersect_fn(scene: SceneBuffers, config: RenderConfig):
         o, d, scene.spheres, config.sphere_chunk, active=active)
 
 
-def _draw_ball(stream, base: int, first_slot: int) -> Vec3:
-    return rng.unit_ball_from_uniforms(
-        *(rng.draw(stream, base + first_slot + k)
-          for k in range(rng.BALL_DRAWS)))
-
-
 def trace_sample(scene: SceneBuffers, cam: CameraState, config: RenderConfig,
                  pixel_ids: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                  sample_index: int, frame_seed: int, intersect_fn=None,
-                 fixed_trip_count: bool = False):
+                 fixed_trip_count: bool = False, state=None):
     """Trace one sample of every pixel in ``pixel_ids`` (row-major ids, with
     their ``u``/``v``). Returns (gamma-space color: Vec3, depth: [N], the
     segments traced: 0-d int64).
@@ -144,10 +137,17 @@ def trace_sample(scene: SceneBuffers, cam: CameraState, config: RenderConfig,
     place of :func:`make_intersect_fn`'s (the sphere-sharded step passes its
     own). ``fixed_trip_count``: kept for the callers of the JAX package's
     signature (the sharded step passes it); every bounce runs either way,
-    so it changes nothing.
+    so it changes nothing. ``state``: a
+    :class:`..kernels.bounce.SampleState` of as many lanes made for this
+    ``cam`` and ``config`` (:func:`..kernels.bounce.new_state`; another
+    raises), reused from an earlier sample (allocated here when None); the
+    returned tensors are its harvest and count, which the next sample
+    traced into it overwrites. Every caller with a sample loop passes one
+    state a pass.
 
     The loop is the JAX body (bevyray_tpu/engine/renderer.py:149-200) over
-    every lane with updates under ``active``; the segment count is summed on
+    every lane with updates under ``active``: ray generation, then per
+    bounce the ray tests and the shading; the segment count is summed on
     the device, so nothing here waits for the card.
     """
     del fixed_trip_count
@@ -155,30 +155,14 @@ def trace_sample(scene: SceneBuffers, cam: CameraState, config: RenderConfig,
         intersect_fn = make_intersect_fn(scene, config)
     tri_bvh = (scene.tri_bvh
                if resolve_intersect_backend(scene, config) == "bvh" else None)
-    dev = u.device
-    n = pixel_ids.shape[0]
-    stream = rng.stream_init(pixel_ids, int(sample_index) & _M32,
-                             int(frame_seed) & _M32)
-    ju = rng.draw(stream, slots.JITTER_U)
-    jv = rng.draw(stream, slots.JITTER_V)
-    lu = lv = None
-    if config.defocus:
-        lu = rng.draw(stream, slots.LENS_U)
-        lv = rng.draw(stream, slots.LENS_V)
-    o, d = generate_rays(u, v, ju, jv, cam, config.height, lens_u=lu,
-                         lens_v=lv)
-    o = Vec3(*(c.contiguous() for c in o))
-    fallback_far = cam.far + 10.0 if config.level == 1 else cam.far - 1.0
-
-    ray_color = Vec3.full((n,), 1.0, 1.0, 1.0, device=dev)
-    radiance = Vec3.full((n,), 0.0, 0.0, 0.0, device=dev)
-    first_depth = torch.full((n,), INF, dtype=torch.float32, device=dev)
-    active = torch.ones(n, dtype=torch.bool, device=dev)
-    segments = torch.zeros((), dtype=torch.int64, device=dev)
+    if state is None:
+        state = new_state(pixel_ids.shape[0], cam, config, u.device)
+    raygen_sample(state, pixel_ids, u, v, cam, config, sample_index,
+                  frame_seed)
+    o, d, active = state.origin, state.direction, state.active
     for bounce in range(config.bounces + 1):          # wgsl:189
-        segments = segments + active.sum()
         t, idx = intersect_fn(o, d, active)
-        hit = make_hit_info(o, d, t, idx, scene.spheres)
+        tt = ti = None
         if scene.triangles is not None:
             if tri_bvh is not None:
                 tt, ti = intersect_bvh_triangles(
@@ -187,36 +171,8 @@ def trace_sample(scene: SceneBuffers, cam: CameraState, config: RenderConfig,
             else:
                 tt, ti = intersect_triangles(o, d, scene.triangles,
                                              active=active)
-            hit = merge_hits(hit, triangle_hit_info(o, d, tt, ti,
-                                                    scene.triangles))
-        if bounce == 0:                               # wgsl:193-195
-            first_depth = hit.t
-        # A miss picks up the sky and ends the path (wgsl:198-201); a hit
-        # adds its emission (an extension: 0 in the reference's scenes).
-        radiance = Vec3.where(active & hit.miss,
-                              radiance + ray_color * background_gradient(d),
-                              radiance)
-        active_hit = active & ~hit.miss
-        mat = gather_materials(scene.materials, hit.material_id)
-        radiance = Vec3.where(active_hit, radiance + ray_color * mat.emissive,
-                              radiance)
-        base = slots.bounce_base(bounce)
-        sc = scatter(d, hit, mat, rng.draw(stream, base + slots.S_METAL),
-                     rng.draw(stream, base + slots.S_TRANS),
-                     rng.draw(stream, base + slots.S_REFLECT),
-                     _draw_ball(stream, base, slots.S_BALL1),
-                     _draw_ball(stream, base, slots.S_BALL2),
-                     diffuse_mode=config.diffuse_sampling)   # wgsl:203-211
-        cont = active_hit & ~sc.absorbed
-        ray_color = Vec3.where(cont, ray_color * sc.attenuation, ray_color)
-        o = Vec3.where(active_hit, hit.position, o)
-        d = Vec3.where(active_hit, sc.direction, d)
-        active = cont
-    # Paths that ran out of bounces or were absorbed keep only the light
-    # they gathered (wgsl:215-217). Gamma is per sample, before the average
-    # (wgsl:165, 223).
-    depth = torch.where(first_depth >= INF, fallback_far, first_depth)
-    return linear_to_gamma(radiance), depth, segments
+        shade_bounce(state, bounce, t, idx, tt, ti, scene, config)
+    return state.color, state.depth, state.segments
 
 
 def render_impl(scene: SceneBuffers, cam: CameraState, config: RenderConfig,
@@ -235,9 +191,11 @@ def render_impl(scene: SceneBuffers, cam: CameraState, config: RenderConfig,
     depth_sum = torch.zeros(n, dtype=torch.float32, device=dev)
     segments = torch.zeros((), dtype=torch.int64, device=dev)
     intersect_fn = make_intersect_fn(scene, config)
+    state = new_state(n, cam, config, dev)
     for i in range(config.samples_per_pixel):
         color, depth, segs = trace_sample(scene, cam, config, pixel_ids, u, v,
-                                          i, frame_seed, intersect_fn)
+                                          i, frame_seed, intersect_fn,
+                                          state=state)
         color_sum = color_sum + color
         depth_sum = depth_sum + depth
         segments = segments + segs
@@ -255,8 +213,9 @@ class Renderer:
         frame = r.render(world.extract(), world.camera_state(aspect=16/9),
                          seed=1)
 
-    Runs where the scene lies (torch operators on either device); the draws
-    are the exact PCG streams, the only ones this path has.
+    Runs where the scene lies: the CUDA kernels of the ray tests and the
+    bounce body on the card, their plain PyTorch versions on the CPU; the
+    draws are the exact PCG streams, the only ones this path has.
     """
 
     def __init__(self, config: RenderConfig):

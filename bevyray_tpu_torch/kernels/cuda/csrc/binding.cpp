@@ -1,7 +1,7 @@
-// Python binding of the fused path-tracing kernel (megakernel.cu) and the
-// wavefront kernels (wavefront.cu). The one source that includes PyTorch's
-// headers: it checks the tensors, launches on PyTorch's current stream and
-// checks the launch.
+// Python binding of the fused path-tracing kernel (megakernel.cu), the
+// wavefront ray tests (wavefront.cu) and the wavefront bounce body
+// (bounce.cu). The one source that includes PyTorch's headers: it checks the
+// tensors, launches on PyTorch's current stream and checks the launch.
 
 #include <torch/extension.h>
 
@@ -13,6 +13,7 @@
 #include <c10/cuda/CUDAGuard.h>
 #include <c10/cuda/CUDAStream.h>
 
+#include "bounce.h"
 #include "megakernel.h"
 #include "wavefront.h"
 
@@ -378,22 +379,140 @@ void intersect_bvh_triangles(const std::vector<torch::Tensor>& rays,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+// ---- the bounce body ---------------------------------------------------------
+
+const int64_t* longs(const torch::Tensor& t, int64_t n, const torch::Tensor& like,
+                     const char* name) {
+  TORCH_CHECK(t.is_cuda() && t.device() == like.device() &&
+                  t.scalar_type() == torch::kInt64 && t.is_contiguous() && t.numel() == n,
+              name, " must be a contiguous int64 tensor of ", n, " lanes on the state's device");
+  return t.data_ptr<int64_t>();
+}
+
+float* lane_floats(torch::Tensor t, int64_t n, const torch::Tensor& like, const char* name) {
+  return const_cast<float*>(column(t, n, like, name));
+}
+
+// `state`: ox, oy, oz, dx, dy, dz, ray_color r, g, b, radiance r, g, b
+// (float32), active (bool), first_depth (float32), stream (int32), n lanes
+// each; segments (one int64); the harvest's r, g, b, depth (float32, n
+// each); the camera row (CAM_FLOATS float32).
+WaveState wave_state(const std::vector<torch::Tensor>& state) {
+  TORCH_CHECK(state.size() == 21, "state must be the 21 columns of a SampleState");
+  const torch::Tensor& like = state[0];
+  const int64_t n = like.numel();
+  WaveState s{};
+  s.n = rows(n, "state");
+  float** cols[] = {&s.ox, &s.oy, &s.oz, &s.dx, &s.dy, &s.dz, &s.color_r, &s.color_g,
+                    &s.color_b, &s.rad_r, &s.rad_g, &s.rad_b};
+  for (int k = 0; k < 12; ++k) *cols[k] = lane_floats(state[k], n, like, "state columns");
+  s.active = const_cast<bool*>(flags(state[12], n, like, "active"));
+  s.first_depth = lane_floats(state[13], n, like, "first_depth");
+  s.stream = reinterpret_cast<uint32_t*>(const_cast<int32_t*>(ints(state[14], n, like,
+                                                                    "stream")));
+  TORCH_CHECK(state[15].is_cuda() && state[15].device() == like.device() &&
+                  state[15].scalar_type() == torch::kInt64 && state[15].numel() == 1,
+              "segments must be one int64 on the state's device");
+  s.segments = reinterpret_cast<unsigned long long*>(state[15].data_ptr<int64_t>());
+  s.out_r = lane_floats(state[16], n, like, "color r");
+  s.out_g = lane_floats(state[17], n, like, "color g");
+  s.out_b = lane_floats(state[18], n, like, "color b");
+  s.out_depth = lane_floats(state[19], n, like, "depth");
+  s.camera = column(state[20], CAM_FLOATS, like, "camera");
+  return s;
+}
+
+void raygen_sample(const std::vector<torch::Tensor>& state, const torch::Tensor& pixel_ids,
+                   const torch::Tensor& u, const torch::Tensor& v, int64_t sample,
+                   int64_t seed, bool defocus) {
+  const WaveState s = wave_state(state);
+  const torch::Tensor& like = state[0];
+  const int64_t* ids = longs(pixel_ids, s.n, like, "pixel_ids");
+  const float* pu = column(u, s.n, like, "u");
+  const float* pv = column(v, s.n, like, "v");
+  TORCH_CHECK(sample >= 0 && sample <= 0xFFFFFFFFLL && seed >= 0 && seed <= 0xFFFFFFFFLL,
+              "sample and seed must be u32 words");
+  const c10::cuda::CUDAGuard guard(like.device());
+  launch_raygen_sample(s, ids, pu, pv, static_cast<uint32_t>(sample),
+                       static_cast<uint32_t>(seed), defocus,
+                       c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// `t`/`index`: the sphere test's float32 / int64, n each; `tri_t` /
+// `tri_index` the triangle test's, read only with `tris`. `spheres`: cx,
+// cy, cz (float32), material_id (int32); `tris`: the nine corner columns
+// (float32) and material_id (int32), or empty without triangles;
+// `materials`: base r, g, b, metallic, roughness, ior, transmission,
+// emissive r, g, b (float32).
+void shade_bounce(const std::vector<torch::Tensor>& state, const torch::Tensor& t,
+                  const torch::Tensor& index, const torch::Tensor& tri_t,
+                  const torch::Tensor& tri_index, const std::vector<torch::Tensor>& spheres,
+                  const std::vector<torch::Tensor>& tris,
+                  const std::vector<torch::Tensor>& materials, int64_t bounce, bool last,
+                  bool cosine) {
+  const WaveState s = wave_state(state);
+  const torch::Tensor& like = state[0];
+  HitColumns hit{};
+  hit.t = column(t, s.n, like, "t");
+  hit.index = longs(index, s.n, like, "index");
+  ShadeScene sc{};
+  TORCH_CHECK(spheres.size() == 4, "spheres must be cx, cy, cz, material_id");
+  const int64_t n_sph = spheres[0].numel();
+  TORCH_CHECK(n_sph > 0, "the sphere table must have rows");
+  sc.cx = column(spheres[0], n_sph, like, "cx");
+  sc.cy = column(spheres[1], n_sph, like, "cy");
+  sc.cz = column(spheres[2], n_sph, like, "cz");
+  sc.sphere_material = ints(spheres[3], n_sph, like, "sphere material_id");
+  sc.n_spheres = rows(n_sph, "spheres");
+  if (!tris.empty()) {
+    hit.tri_t = column(tri_t, s.n, like, "tri_t");
+    hit.tri_index = longs(tri_index, s.n, like, "tri_index");
+    TORCH_CHECK(tris.size() == 10, "triangles must be the nine corners and material_id");
+    const int64_t n_tri = tris[0].numel();
+    TORCH_CHECK(n_tri > 0, "the triangle table must have rows");
+    for (int k = 0; k < 9; ++k) sc.tri[k] = column(tris[k], n_tri, like, "triangle corners");
+    sc.tri_material = ints(tris[9], n_tri, like, "triangle material_id");
+    sc.n_tris = rows(n_tri, "triangles");
+  }
+  TORCH_CHECK(materials.size() == 10, "materials must be the ten columns the shading reads");
+  const int64_t n_mat = materials[0].numel();
+  TORCH_CHECK(n_mat > 0, "the material table must have rows");
+  for (int k = 0; k < 10; ++k) sc.mat[k] = column(materials[k], n_mat, like, "materials");
+  sc.n_materials = rows(n_mat, "materials");
+  TORCH_CHECK(bounce >= 0 && bounce < (int64_t{1} << 24), "bounce must be a small count");
+  const c10::cuda::CUDAGuard guard(like.device());
+  launch_shade_bounce(s, hit, sc, static_cast<int>(bounce), last, cosine,
+                      c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 // Registers, spills, shared memory and resident blocks per SM of K1 and
-// K2 (over a table of `rows` rows) and K3, on CUDA device `device`.
+// K2 (over a table of `rows` rows), K3, K5 and K6, on CUDA device `device`.
 std::map<std::string, std::map<std::string, int64_t>> wavefront_info(int64_t device,
                                                                      int64_t rows) {
   TORCH_CHECK(rows >= 1 && rows < (int64_t{1} << 31), "rows must be a positive int32");
   const c10::cuda::CUDAGuard guard(static_cast<c10::DeviceIndex>(device));
   std::map<std::string, std::map<std::string, int64_t>> out;
+  auto put = [&out](const char* name, cudaError_t err, const WaveKernelInfo& info) {
+    C10_CUDA_CHECK(err);
+    out[name] = {{"num_regs", info.num_regs},
+                 {"local_bytes", info.local_bytes},
+                 {"static_smem", info.static_smem},
+                 {"dynamic_smem", info.dynamic_smem},
+                 {"blocks_per_sm", info.blocks_per_sm}};
+  };
   const char* names[] = {"intersect_spheres", "intersect_bvh", "intersect_triangles"};
   for (int which = 0; which < 3; ++which) {
     WaveKernelInfo info{};
-    C10_CUDA_CHECK(::wavefront_kernel_info(which, static_cast<int>(rows), &info));
-    out[names[which]] = {{"num_regs", info.num_regs},
-                         {"local_bytes", info.local_bytes},
-                         {"static_smem", info.static_smem},
-                         {"dynamic_smem", info.dynamic_smem},
-                         {"blocks_per_sm", info.blocks_per_sm}};
+    const cudaError_t err = ::wavefront_kernel_info(which, static_cast<int>(rows), &info);
+    put(names[which], err, info);
+  }
+  const char* bounce_names[] = {"raygen_sample", "shade_bounce"};
+  for (int which = 0; which < 2; ++which) {
+    WaveKernelInfo info{};
+    const cudaError_t err = ::bounce_kernel_info(which, &info);
+    put(bounce_names[which], err, info);
   }
   out["intersect_spheres"]["rays_per_thread"] = kDenseRays;
   out["intersect_triangles"]["rays_per_thread"] = kDenseRays;
@@ -415,7 +534,11 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("intersect_bvh", &intersect_bvh,
         "Nearest sphere hit of each ray by the BVH walk over its paired-child record");
   m.def("wavefront_info", &wavefront_info,
-        "Registers, spills, shared memory and occupancy of the K1, K2 and K3 kernels");
+        "Registers, spills, shared memory and occupancy of the K1, K2, K3, K5 and K6 kernels");
   m.def("intersect_bvh_triangles", &intersect_bvh_triangles,
         "Nearest triangle hit of each ray by the BVH walk");
+  m.def("raygen_sample", &raygen_sample,
+        "A sample's start state of every lane (K5), the segment count zeroed");
+  m.def("shade_bounce", &shade_bounce,
+        "One bounce's shading of every lane (K6), the harvest on the last");
 }

@@ -50,8 +50,9 @@ def kernel_info(device, rows: int) -> dict:
     (``local_bytes``), static and dynamic shared memory per block and
     resident blocks per SM (``blocks_per_sm``) of K1 and K2 (over a table
     of ``rows`` rows, which sets their staged tiles; also their
-    ``rays_per_thread``) and K3, by wrapper name, on CUDA ``device``.
-    Builds the extension on first use."""
+    ``rays_per_thread``), K3, and the bounce body's K5 and K6
+    (``csrc/bounce.cu``), by wrapper name, on CUDA ``device``. Builds the
+    extension on first use."""
     from .build import extension
 
     index = torch.device(device).index or 0

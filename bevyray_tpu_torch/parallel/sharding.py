@@ -40,6 +40,7 @@ from ..core.types import (CameraState, RenderConfig, SceneBuffers, Spheres,
                           camera_key, host_array, host_camera, upload)
 from ..core.vec import Vec3
 from ..engine.renderer import FrameResult, frame_result, trace_sample
+from ..kernels.bounce import new_state
 from ..kernels.cuda.megakernel import (KernelScene, block_grid,
                                        kernel_scene_cache_key, morton_order,
                                        prepare_kernel_scene, render_tiles,
@@ -202,11 +203,12 @@ def render_frame_sharded(mesh: Mesh, scene: SceneBuffers, cam: CameraState,
             color_sum = Vec3.full((n_local,), 0.0, 0.0, 0.0, device=dev)
             depth_sum = torch.zeros(n_local, dtype=torch.float32, device=dev)
             segments = torch.zeros((), dtype=torch.int64, device=dev)
+            state = new_state(n_local, cam_d, config, dev)
             for k in range(local_spp):
                 color, depth, segs = trace_sample(
                     scene_d, cam_d, config, ids_d, u_d, v_d,
                     dp_i * local_spp + k, seed, intersect_fn=intersect_fn,
-                    fixed_trip_count=tp > 1)
+                    fixed_trip_count=tp > 1, state=state)
                 color_sum = color_sum + color
                 depth_sum = depth_sum + depth
                 segments = segments + segs

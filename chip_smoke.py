@@ -81,26 +81,36 @@ headline, the BASELINE matrix, the orbit and edit arms, the scaling
 harness) at the JAX scripts' own sizes; their JSON rows come on lines of
 their own.
 
-Phase 13 holds the wavefront renderer's ray tests, the hand-written
-kernels of ``kernels/cuda/csrc/wavefront.cu`` (K1 ``intersect_spheres``, K2
+Phase 13 holds the wavefront renderer's hand-written kernels: the ray
+tests of ``kernels/cuda/csrc/wavefront.cu`` (K1 ``intersect_spheres``, K2
 ``intersect_triangles``, K3 ``intersect_bvh``, K4
-``intersect_bvh_triangles``, which replace XLA loops of the JAX package):
-(a) the main path with the counts zeroed just before each run and read
-just after, timed: the wavefront headline (K1), config 5's mesh through
-``Renderer`` dense (K1, K2) and by the BVH (K3, K4), 10(f)'s 4,971
-spheres walking the BVH (K3), and the cube field (``cube_field_world``:
-4,092 triangles at config 5's settings, "auto" taking the dense test, 80
-K2 launches); the headline frame equal (image, depth, segments) to the
-one with the plain versions patched in; (b) each kernel against its plain
-version on the same CUDA tensors, t max |d| 0 and index equal on every
-lane, at bounces 0 and 2 of real frames with their active masks (K2 and
-K4 also on the cube field), on the leaf-4 BVH, a 4-entry stack,
-axis-aligned rays on box planes, odd lane counts, sparse masks, rows
-twice, every third triangle row invalid and the raster layer's call,
-with its time beside its bound (the dense tests' also at the issue
-rate); (c) ``host_syncs`` over
-``Renderer`` frames (brute, bvh, mesh) and a config-5 round, which must be
-empty; (d) the launches of one wavefront frame (torch's profiler).
+``intersect_bvh_triangles``) and the bounce body of ``bounce.cu`` (K5
+``raygen_sample``, K6 ``shade_bounce``), which replace XLA code of the JAX
+package: (a) the main path with the counts zeroed just before each run
+and read just after, timed: the wavefront headline (K1), config 5's mesh
+through ``Renderer`` dense (K1, K2) and by the BVH (K3, K4), 10(f)'s
+4,971 spheres walking the BVH (K3), the cube field
+(``cube_field_world``: 4,092 triangles at config 5's settings, "auto"
+taking the dense test, 80 K2 launches), the wavefront sharded step on
+mesh (2, 1, 2) and a ``ProgressiveRenderer(backend="xla")`` pass (K5 and
+K6 in every run), each frame equal (image, depth, segments) to the one
+with the plain bounce body patched in, and the headline frame equal to
+the one with every plain version patched in; (b) each kernel against its
+plain version on the same CUDA tensors: the ray tests t max |d| 0 and
+index equal on every lane, at bounces 0 and 2 of real frames with their
+active masks (K2 and K4 also on the cube field), on the leaf-4 BVH, a
+4-entry stack, axis-aligned rays on box planes, odd lane counts, sparse
+masks, rows twice, every third triangle row invalid and the raster
+layer's call; K5 on the headline's pixels (all, the first
+``ODD_LANES``, a shard's half at another sample) and the night scene's
+lens, K6 on the states of bounces 0, 2 and 4 of the headline, config 5
+(also at level 1), the cube field, 4,971 spheres by the BVH, the night
+scene (lens, emission, cosine lobes) and odd lanes, every column of the
+state bit-equal and the segments equal; each with its time beside its
+bound (the dense tests' also at the issue rate); (c) ``host_syncs`` over
+``Renderer`` frames (brute, bvh, mesh) and a config-5 round, which must
+be empty; (d) the kernels of a 1-spp and a 16-spp wavefront frame and
+the card's busy time (torch's profiler).
 
 Each phase prints its lines; the line before the last is the kernel table
 as JSON, and the last line is ``{"ok": true, "device": {...}}``. Any failed
@@ -111,6 +121,7 @@ nonzero at once when there is no CUDA card or no port beside it.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -245,6 +256,26 @@ SPARSE_FIRST, SPARSE_STEP = 17, 4099   # the active lanes of a sparse mask
 RAY_BYTES = 6 * 4 + 1 + 4 + 8
 ROW_BYTES = {"intersect_spheres": 4 * 4 + 1, "intersect_triangles": 9 * 4 + 1,
              "bvh_node": 6 * 4 + 2 * 4}
+# The bounce body (csrc/bounce.cu): K5 ``raygen_sample`` and K6
+# ``shade_bounce``, each held against its plain version
+# (kernels/bounce.py) to the bit on every column of the sample's state.
+BOUNCE_SOURCE = "bevyray_tpu_torch/kernels/cuda/csrc/bounce.cu"
+BOUNCE_REPLACES = {"raygen_sample": "bevyray_tpu/engine/renderer.py:103",
+                   "shade_bounce": "bevyray_tpu/engine/renderer.py:149"}
+# K6 is held at these bounces: the captured ones and the last (the
+# harvest).
+SHADE_BOUNCES = WAVE_BOUNCES + (BOUNCES,)
+NIGHT_SIZE = (1920, 1080)   # BASELINE config 4, the night scene's frame
+# Bytes a lane K5 reads (pixel id, u, v) and writes (origin, direction,
+# throughput, radiance, flag, first depth, stream word).
+RAYGEN_LANE_BYTES = 8 + 4 + 4 + 4 * 12 + 1 + 4 + 4
+# Operations a lane, counted roughly from the sources (each instruction of
+# the CUDA math library's log, sin, cos and exp one operation): K5 the
+# stream word, two draws and generate_rays; K6 a hit's record, material,
+# draws and one branch's two unit balls, a miss its sky. The bytes bound
+# both kernels by several times these.
+RAYGEN_LANE_OPS = 80
+SHADE_HIT_OPS, SHADE_MISS_OPS = 500, 30
 
 def mesh_scene(copies=1):
     """The simple scene with a metallic cube mesh in front of a sphere,
@@ -1785,7 +1816,6 @@ def cli_phase(card, dev) -> None:
     sampling on a scene that carries a BVH, and ``bench --backend pallas``,
     whose JSON names the card; (f) through the API, 4,971 spheres, where
     "auto" walks the BVH built by the native builder, against "brute"."""
-    import contextlib
     import io
     import tempfile
 
@@ -2231,6 +2261,123 @@ def capture_rays(scene, cam, config, dev, seed=1) -> list:
     return captured
 
 
+def capture_states(scene, cam, config, dev, seed=1) -> tuple:
+    """Sample 0 of a wavefront frame: the pixels its ray generation takes
+    (ids, u, v) and, at each bounce of ``SHADE_BOUNCES``, a copy of the
+    state and the ray tests' results that the frame hands its shading."""
+    import torch
+
+    from bevyray_tpu_torch.engine import renderer as renderer_mod
+    from bevyray_tpu_torch.kernels.raygen import pixel_uv
+
+    real = renderer_mod.shade_bounce
+    captured = {}
+
+    def record(state, b, t, idx, tt, ti, scn, cfg):
+        if b in SHADE_BOUNCES:
+            captured[b] = (clone_state(state), t.clone(), idx.clone(),
+                           None if tt is None else tt.clone(),
+                           None if ti is None else ti.clone())
+        return real(state, b, t, idx, tt, ti, scn, cfg)
+
+    u, v = pixel_uv(config.width, config.height, device=dev)
+    ids = torch.arange(config.n_pixels, device=dev)
+    renderer_mod.shade_bounce = record
+    try:
+        renderer_mod.trace_sample(scene, cam, config, ids, u, v, 0, seed)
+    finally:
+        renderer_mod.shade_bounce = real
+    return (ids, u, v), captured
+
+
+def clone_state(state, n=None):
+    """A copy of a ``SampleState``, or of its first ``n`` lanes (the camera
+    row and the segment count as they are, the camera and config shared)."""
+    from bevyray_tpu_torch.core.vec import Vec3
+    from bevyray_tpu_torch.kernels.bounce import SampleState
+
+    def lanes(x):
+        return (x if n is None else x[:n]).clone()
+
+    return SampleState(**{
+        name: (Vec3(*(lanes(c) for c in x)) if isinstance(x, Vec3)
+               else x if name in ("cam", "config")
+               else x.clone() if name in ("segments", "camera") else lanes(x))
+        for name, x in state._asdict().items()})
+
+
+def state_diff(got, want) -> tuple:
+    """(max |d| over the float32 columns where both are numbers, every
+    column bit-equal) of two ``SampleState``s."""
+    import torch
+
+    err, same = 0.0, True
+    for x, y in zip(got.columns(), want.columns()):
+        if x.dtype == torch.float32:
+            same = same and torch.equal(x.view(torch.int32),
+                                        y.view(torch.int32))
+            d = (x - y).abs()
+            d = d[~torch.isnan(d)]
+            if d.numel():
+                err = max(err, float(d.max()))
+        else:
+            same = same and torch.equal(x, y)
+    return err, same
+
+
+def shade_bound(state, after, t, tt, bounce, last, scene) -> tuple:
+    """(ms, "bytes" | "operations") of one K6 call: each input byte read
+    once and each output byte written once by the lanes this call's data
+    needs (every lane's flag; at bounce 0 every lane's t and first depth;
+    an active lane's direction, throughput, radiance and t (both tests'
+    with triangles), its radiance and flag written; a hit's origin, the
+    winning test's index, stream word, position and direction; a
+    continuing path's throughput; on the last bounce every lane's harvest
+    and the radiance and first depth it reads), the tables once; against
+    the operations of its hits and misses at the fp32 peak."""
+    from bevyray_tpu_torch.core.constants import INF
+
+    n = t.numel()
+    tri = tt is not None
+    active = state.active
+    hit = active & ((t < INF) | (tt < INF) if tri else (t < INF))
+    n_act, n_hit = int(active.sum()), int(hit.sum())
+    n_cont = int(after.active.sum())
+    n_bytes = n + n_act * (36 + (8 if tri else 4) + 13)
+    n_bytes += n_hit * (12 + 8 + 4 + 24) + n_cont * 12
+    if bounce == 0:
+        n_bytes += (n - n_act) * (8 if tri else 4) + n * 4
+    if last:
+        n_bytes += n * 16 + (n - n_act) * 12 + (0 if bounce == 0 else n * 4)
+    n_bytes += scene.spheres.capacity * 16 + scene.materials.capacity * 40
+    if tri:
+        n_bytes += scene.triangles.capacity * 40
+    ops = n_hit * SHADE_HIT_OPS + (n_act - n_hit) * SHADE_MISS_OPS
+    by_ops, by_bytes = ops / PEAK_FP32 * 1e3, n_bytes / PEAK_BYTES * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes,
+                                                               "bytes")
+
+
+def shade_ms(shade, state, args, reps: int) -> float:
+    """Mean device time in ms of ``shade(work, *args)`` over ``reps`` calls,
+    each on a fresh copy of ``state`` (K6 updates its state in place), by
+    CUDA events around each call alone, queued behind a spin kernel."""
+    import torch
+
+    work = clone_state(state)
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(20_000_000)   # ~10 ms at 1.98 GHz
+    for start, end in pairs:
+        for dst, src in zip(work.columns(), state.columns()):
+            dst.copy_(src)
+        start.record()
+        shade(work, *args)
+        end.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
 def axis_rays(lo, hi, planes, n, seed, dev) -> tuple:
     """``n`` rays along +-x, +-y or +-z from origins uniform in the box
     [lo, hi], one coordinate of each moved onto a value of ``planes`` (a
@@ -2263,34 +2410,36 @@ def box_planes(bvh) -> "np.ndarray":
 
 
 def wavefront_phase(scene, cam, headline, card, dev) -> list:
-    """Phase 13: the wavefront renderer's ray tests, the kernels of
+    """Phase 13: the wavefront renderer's kernels, the ray tests of
     ``csrc/wavefront.cu`` (K1 ``intersect_spheres``, K2
     ``intersect_triangles``, K3 ``intersect_bvh``, K4
-    ``intersect_bvh_triangles``). (a) The main path: the wavefront headline
-    frame (K1), BASELINE config 5's mesh through ``Renderer`` with the
-    dense tests (K1, K2) and with the BVH walks (K3, K4), 10(f)'s 4,971
-    spheres walking the BVH (K3) and the cube field (K1, K2: one K2 launch
-    a bounce), each with the counts zeroed just before and read just
-    after, timed; the headline frame again with the plain versions
-    patched in: image, depth and segments equal. (b) Each kernel against
-    its plain version on the same CUDA tensors at bounces 0 and 2 of a
-    real frame (the bounce's own active mask): the headline (K1), config 5
-    (K1, K2; K3, K4 on its BVHs), the cube field (K2; K4 on its mesh
-    BVH), the 4,971-sphere BVH at leaf 1 and 4 and with a 4-entry stack
-    (K3), and axis-aligned rays on box planes (K1-K4); the dense tests'
-    and K3's layouts (odd lane counts, sparse masks, rows twice, K2's
-    interleaved valid rows, the raster layer's call); t max |d| 0 and
-    index equal on every lane. Each
-    kernel's time by CUDA events beside its bound and its plain version's
-    time. (c) ``host_syncs`` over ``Renderer.render`` (brute, bvh, mesh)
-    and over a config-5 round (``raster_layer`` + ``FusedRenderer``): the
-    sites, which must be none. (d) The launches of one frame (torch's
+    ``intersect_bvh_triangles``) and the bounce body of ``csrc/bounce.cu``
+    (K5 ``raygen_sample``, K6 ``shade_bounce``). (a) The main path: the
+    wavefront headline frame (K1), BASELINE config 5's mesh through
+    ``Renderer`` with the dense tests (K1, K2) and with the BVH walks (K3,
+    K4), 10(f)'s 4,971 spheres walking the BVH (K3), the cube field (K1,
+    K2: one K2 launch a bounce), the wavefront sharded step and a film pass
+    (K5 and K6 in each), each with the counts zeroed just before and read
+    just after, timed, and equal (image, depth, segments) to the frame with
+    the plain bounce body patched in; the headline frame again with every
+    plain version patched in, equal too. (b) Each kernel against its plain
+    version on the same CUDA tensors: the ray tests at bounces 0 and 2 of
+    real frames (the bounce's own active mask) and on the layouts listed in
+    the module's docstring, t max |d| 0 and index equal on every lane; K5
+    and K6 on real frames' pixels and states, every column bit-equal.
+    Each kernel's time by CUDA events beside its bound and its plain
+    version's time. (c) ``host_syncs`` over ``Renderer.render`` (brute,
+    bvh, mesh) and over a config-5 round (``raster_layer`` +
+    ``FusedRenderer``): the sites, which must be none. (d) The kernels of
+    a 1-spp and a 16-spp headline frame and the card's busy time (torch's
     profiler). Returns the kernels-line entries."""
     import numpy as np
     import torch
 
     import bevyray_tpu_torch
-    from bevyray_tpu_torch import FusedRenderer, RenderConfig, Renderer, rtiow
+    from bevyray_tpu_torch import (FusedRenderer, ProgressiveRenderer,
+                                   RenderConfig, Renderer, rtiow)
+    from bevyray_tpu_torch.bench.matrix import matrix_configs
     from bevyray_tpu_torch.bench.timing import host_syncs
     from bevyray_tpu_torch.bvh import build as bvh_build
     from bevyray_tpu_torch.engine import renderer as renderer_mod
@@ -2298,21 +2447,28 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
     from bevyray_tpu_torch.core.types import (make_sphere_walk, make_spheres_np,
                                               make_triangles_np)
     from bevyray_tpu_torch.core.vec import Vec3
+    from bevyray_tpu_torch.kernels import bounce as bounce_mod
     from bevyray_tpu_torch.kernels import intersect, traverse
     from bevyray_tpu_torch.kernels.cuda import wavefront as wavefront_mod
     from bevyray_tpu_torch.kernels.intersect import on_active
     from bevyray_tpu_torch.kernels.raygen import generate_rays, pixel_uv
+    from bevyray_tpu_torch.parallel.sharding import (make_mesh,
+                                                     render_frame_sharded)
 
     t_phase = time.perf_counter()
     kernels = {"intersect_spheres": intersect.intersect_spheres,
                "intersect_triangles": intersect.intersect_triangles,
                "intersect_bvh": traverse.intersect_bvh,
-               "intersect_bvh_triangles": traverse.intersect_bvh_triangles}
+               "intersect_bvh_triangles": traverse.intersect_bvh_triangles,
+               "raygen_sample": bounce_mod.raygen_sample,
+               "shade_bounce": bounce_mod.shade_bounce}
     plain = {"intersect_spheres": intersect.intersect_spheres_reference,
              "intersect_triangles": intersect.intersect_triangles_reference,
              "intersect_bvh": traverse.intersect_bvh_reference,
              "intersect_bvh_triangles":
-                 traverse.intersect_bvh_triangles_reference}
+                 traverse.intersect_bvh_triangles_reference,
+             "raygen_sample": bounce_mod.raygen_sample_reference,
+             "shade_bounce": bounce_mod.shade_bounce_reference}
 
     def zero():
         for fn in kernels.values():
@@ -2321,10 +2477,14 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
     def counts():
         return {name: fn.launches for name, fn in kernels.items()}
 
-    def timed_frame(renderer, scn, camera, **kw):
+    def frame_of(renderer, scn, camera, **kw):
+        return lambda seed: renderer.render(scn, camera, seed=seed, **kw)
+
+    def timed(render):
+        """The frame of seed 1 and its ms, on the host's clock."""
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        frame = renderer.render(scn, camera, seed=1, **kw)
+        frame = render(1)
         torch.cuda.synchronize()
         return frame, (time.perf_counter() - t0) * 1e3
 
@@ -2345,48 +2505,37 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
     brute5 = dataclasses.replace(config5, intersect_backend="brute")
     bvh5 = dataclasses.replace(config5, intersect_backend="bvh")
 
-    # (a) The main path, each run between a zeroing and a reading.
+    # (a) The main path, each run between a zeroing and a reading: frames
+    # of the Renderer, a sharded step (2 pixel shards, 2 sphere shards) and
+    # a film pass, each then again with the plain bounce body patched in.
+    small = rtiow.final_scene(seed=42)
+    small_scene = small.extract(with_bvh=False, device=dev)
+    small_cam = small.camera_state(aspect=WAVE_SIZE[0] / WAVE_SIZE[1],
+                                   device=dev)
+    wave_cfg = RenderConfig(*WAVE_SIZE, SPP, BOUNCES, level=3)
+    mesh = make_mesh(2, 1, 2, devices=["cuda:0"] * 4)
     main_runs = [
-        ("headline", Renderer(headline), scene, cam, {}),
-        ("config 5 brute", Renderer(brute5), scene5, cam5,
-         dict(raster_color=rc, raster_depth=rd)),
-        ("config 5 bvh", Renderer(bvh5), scene5, cam5,
-         dict(raster_color=rc, raster_depth=rd)),
-        (f"{big.n_spheres} spheres auto", Renderer(big_cfg), big_scene,
-         big_cam, {}),
-        (f"cube field ({CUBE_FIELD} cubes) auto", Renderer(config5), scene_f,
-         cam_f, dict(raster_color=rc_f, raster_depth=rd_f)),
+        ("headline", headline, scene, frame_of(Renderer(headline), scene,
+                                               cam)),
+        ("config 5 brute", brute5, scene5, frame_of(
+            Renderer(brute5), scene5, cam5, raster_color=rc,
+            raster_depth=rd)),
+        ("config 5 bvh", bvh5, scene5, frame_of(
+            Renderer(bvh5), scene5, cam5, raster_color=rc, raster_depth=rd)),
+        (f"{big.n_spheres} spheres auto", big_cfg, big_scene, frame_of(
+            Renderer(big_cfg), big_scene, big_cam)),
+        (f"cube field ({CUBE_FIELD} cubes) auto", config5, scene_f, frame_of(
+            Renderer(config5), scene_f, cam_f, raster_color=rc_f,
+            raster_depth=rd_f)),
+        ("sharded step, mesh (2, 1, 2)", wave_cfg, small_scene,
+         lambda seed: render_frame_sharded(mesh, small_scene, small_cam,
+                                           wave_cfg, seed)),
+        ('film pass, ProgressiveRenderer(backend="xla")', wave_cfg,
+         small_scene, lambda seed: ProgressiveRenderer(
+             wave_cfg, device=dev).step(small_scene, small_cam, seed=seed)),
     ]
-    launches = collections.Counter()
-    frames = {}
-    for name, renderer, scn, camera, kw in main_runs:
-        renderer.render(scn, camera, seed=0, **kw)   # warm-up
-        zero()
-        frame, ms = timed_frame(renderer, scn, camera, **kw)
-        got = counts()
-        launches.update(got)
-        frames[name] = frame
-        image = frame.image
-        if not (bool(torch.isfinite(image).all())
-                and bool(torch.isfinite(frame.rt_depth).all())
-                and int(frame.rays_traced) > 0):
-            raise SystemExit(f"phase 13 {name}: not a finite frame")
-        backend = renderer_mod.resolve_intersect_backend(scn, renderer.config)
-        print(f"phase 13(a) {name} {renderer.config.width}x"
-              f"{renderer.config.height} {renderer.config.samples_per_pixel}"
-              f" spp ({backend}): frame {ms:.3f} ms, "
-              f"{int(frame.rays_traced)} segments, launches {got} | {card}",
-              flush=True)
-        if name.startswith("cube field") and (
-                backend != "brute" or got["intersect_triangles"]
-                != SPP * (BOUNCES + 1)):
-            raise SystemExit(f"phase 13(a) {name}: not {SPP * (BOUNCES + 1)}"
-                             f" dense triangle tests ({backend}, {got})")
-    if min(launches[name] for name in kernels) < 1:
-        raise SystemExit(f"phase 13(a): a kernel of the path launched no "
-                         f"time: {dict(launches)}")
 
-    # The headline frame with the plain versions patched in.
+    # Each wrapper of the path, and its plain version in its place.
     patched = {
         "intersect_spheres": lambda o, d, sph, chunk=512, active=None:
             on_active(plain["intersect_spheres"], active, o, d, sph, chunk),
@@ -2401,23 +2550,69 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
         max_leaf_size=1, active=None: on_active(
             plain["intersect_bvh_triangles"], active, o, d, tris, bvh,
             stack_size, max_leaf_size),
+        "raygen_sample": plain["raygen_sample"],
+        "shade_bounce": plain["shade_bounce"],
     }
-    saved = {name: getattr(renderer_mod, name) for name in patched}
-    try:
-        for name, fn in patched.items():
-            setattr(renderer_mod, name, fn)
+
+    @contextlib.contextmanager
+    def plain_in(names):
+        """``names`` of ``engine.renderer`` replaced by their plain versions."""
+        saved = {name: getattr(renderer_mod, name) for name in names}
+        try:
+            for name in names:
+                setattr(renderer_mod, name, patched[name])
+            yield
+        finally:
+            for name, fn in saved.items():
+                setattr(renderer_mod, name, fn)
+
+    launches = collections.Counter()
+    frames = {}
+    for name, config, scn, render in main_runs:
+        render(0)   # warm-up
         zero()
-        ref, ref_ms = timed_frame(Renderer(headline), scene, cam)
+        frame, ms = timed(render)
+        got = counts()
+        launches.update(got)
+        frames[name] = frame
+        if not (bool(torch.isfinite(frame.image).all())
+                and bool(torch.isfinite(frame.rt_depth).all())
+                and int(frame.rays_traced) > 0):
+            raise SystemExit(f"phase 13 {name}: not a finite frame")
+        with plain_in(("raygen_sample", "shade_bounce")):
+            plain_frame = render(1)
+        same = (torch.equal(frame.image, plain_frame.image)
+                and torch.equal(frame.rt_depth, plain_frame.rt_depth)
+                and int(frame.rays_traced) == int(plain_frame.rays_traced))
+        backend = renderer_mod.resolve_intersect_backend(scn, config)
+        print(f"phase 13(a) {name} {config.width}x{config.height} "
+              f"{config.samples_per_pixel} spp ({backend}): frame {ms:.3f} "
+              f"ms, {int(frame.rays_traced)} segments, launches {got}; "
+              f"equal to the frame with the plain bounce body: {same} | "
+              f"{card}", flush=True)
+        if not same:
+            raise SystemExit(f"phase 13(a) {name}: the frame differs from the "
+                             "one with the plain bounce body")
+        if name.startswith("cube field") and (
+                backend != "brute" or got["intersect_triangles"]
+                != SPP * (BOUNCES + 1)):
+            raise SystemExit(f"phase 13(a) {name}: not {SPP * (BOUNCES + 1)}"
+                             f" dense triangle tests ({backend}, {got})")
+    if min(launches[name] for name in kernels) < 1:
+        raise SystemExit(f"phase 13(a): a kernel of the path launched no "
+                         f"time: {dict(launches)}")
+
+    # The headline frame with every plain version patched in.
+    with plain_in(patched):
+        zero()
+        ref, ref_ms = timed(frame_of(Renderer(headline), scene, cam))
         stray = counts()
-    finally:
-        for name, fn in saved.items():
-            setattr(renderer_mod, name, fn)
     head = frames["headline"]
     same = (torch.equal(head.image, ref.image)
             and torch.equal(head.rt_depth, ref.rt_depth)
             and int(head.rays_traced) == int(ref.rays_traced))
-    print(f"phase 13(a) headline frame against the frame with the plain "
-          f"versions ({ref_ms:.1f} ms): image max |d| "
+    print(f"phase 13(a) headline frame against the frame with every plain "
+          f"version ({ref_ms:.1f} ms): image max |d| "
           f"{float((head.image - ref.image).abs().max()):.3g}, depth max |d| "
           f"{float((head.rt_depth - ref.rt_depth).abs().max()):.3g}, segments "
           f"{int(head.rays_traced)} / {int(ref.rays_traced)} | {card}",
@@ -2609,6 +2804,117 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
              "intersect_bvh", (spheres2, tree), o, d, act,
              max_leaf_size=leaf, walk=make_sphere_walk(spheres2, tree))
 
+    # K5 and K6 against their plain versions on the same CUDA tensors: K5
+    # on a frame's pixels (all of the headline's, the first ODD_LANES, the
+    # second half at sample 5 as a pixel shard takes it, the night scene
+    # with the lens), K6 on the state and the ray tests' results that each
+    # bounce of SHADE_BOUNCES hands it in sample 0 of real frames, their
+    # own active masks: the headline, config 5 (triangles; again at level
+    # 1), the cube field, 4,971 spheres by the BVH, the night scene (lens,
+    # emission, cosine lobes) and the headline's first ODD_LANES lanes.
+    # Every column of the state bit-equal, the segment counts equal.
+    def hold_raygen(case, ids, u, v, camera, config, sample, time_it=False):
+        base = bounce_mod.new_state(ids.shape[0], camera, config, dev)
+        got, want = clone_state(base), clone_state(base)
+        bounce_mod.raygen_sample(got, ids, u, v, camera, config, sample, 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain["raygen_sample"](want, ids, u, v, camera, config, sample, 1)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err, same = state_diff(got, want)
+        max_err["raygen_sample"] = max(max_err["raygen_sample"], err)
+        line = (f"phase 13(b) raygen_sample {case}: {ids.shape[0]} lanes, "
+                f"max |d| {err:.3g}, bit-equal {same}")
+        if time_it:
+            ms = cuda_ms(lambda: bounce_mod.raygen_sample(
+                got, ids, u, v, camera, config, sample, 1), WAVE_REPS)
+            n = ids.shape[0]
+            by_bytes = ((n * RAYGEN_LANE_BYTES + 4 * bounce_mod.CAM_FLOATS + 8)
+                        / PEAK_BYTES * 1e3)
+            by_ops = n * RAYGEN_LANE_OPS / PEAK_FP32 * 1e3
+            bound = ((by_ops, "operations") if by_ops >= by_bytes
+                     else (by_bytes, "bytes"))
+            timing.setdefault("raygen_sample", (ms, plain_ms, bound, case))
+            line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+                     f"{bound[0]:.4f} ms ({bound[1]})")
+        print(line + f" | {card}", flush=True)
+        if not same:
+            raise SystemExit(f"phase 13(b) raygen_sample {case}: the kernel "
+                             "differs from its plain version")
+
+    def hold_shade(case, entry, scn, config, b, lanes=None, time_it=False):
+        state, t, idx, tt, ti = entry
+        if lanes is not None:
+            state = clone_state(state, lanes)
+            t, idx = t[:lanes].contiguous(), idx[:lanes].contiguous()
+            if tt is not None:
+                tt, ti = tt[:lanes].contiguous(), ti[:lanes].contiguous()
+        args = (b, t, idx, tt, ti, scn, config)
+        got, want = clone_state(state), clone_state(state)
+        bounce_mod.shade_bounce(got, *args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain["shade_bounce"](want, *args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err, same = state_diff(got, want)
+        max_err["shade_bounce"] = max(max_err["shade_bounce"], err)
+        line = (f"phase 13(b) shade_bounce {case} bounce {b}: "
+                f"{t.numel()} lanes, {int(state.active.sum())} active, max "
+                f"|d| {err:.3g}, bit-equal {same}, segments "
+                f"{int(got.segments)} / {int(want.segments)}")
+        if time_it:
+            ms = shade_ms(bounce_mod.shade_bounce, state, args, WAVE_REPS)
+            bound = shade_bound(state, want, t, tt, b, b == config.bounces,
+                                scn)
+            timing.setdefault("shade_bounce", (ms, plain_ms, bound,
+                                               f"{case} bounce {b}"))
+            line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+                     f"{bound[0]:.4f} ms ({bound[1]})")
+        print(line + f" | {card}", flush=True)
+        if not same:
+            raise SystemExit(f"phase 13(b) shade_bounce {case} bounce {b}: "
+                             "the kernel differs from its plain version")
+
+    night = matrix_configs()[3]
+    night_cfg = dataclasses.replace(night.config, width=NIGHT_SIZE[0],
+                                    height=NIGHT_SIZE[1], samples_per_pixel=1)
+    night_scene = night.world.extract(device=dev)
+    night_cam = night.world.camera_state(aspect=night.aspect, device=dev)
+    level1 = dataclasses.replace(brute5, level=1)
+    (ids, u, v), _ = capture_states(scene, cam, headline, dev)
+    half = ids.shape[0] // 2
+    hold_raygen("headline", ids, u, v, cam, headline, 0, time_it=True)
+    hold_raygen(f"headline, first {ODD_LANES} lanes", ids[:ODD_LANES],
+                u[:ODD_LANES], v[:ODD_LANES], cam, headline, 0)
+    hold_raygen("headline, second half at sample 5", ids[half:], u[half:],
+                v[half:], cam, headline, 5)
+    (n_ids, n_u, n_v), _ = capture_states(night_scene, night_cam, night_cfg,
+                                          dev)
+    hold_raygen("night scene (lens)", n_ids, n_u, n_v, night_cam, night_cfg,
+                0)
+    shade_cases = [
+        ("headline", scene, cam, headline, {}),
+        ("config 5", scene5, cam5, brute5, {}),
+        ("config 5 at level 1", scene5, cam5, level1, {}),
+        ("cube field", scene_f, cam_f, config5, {}),
+        (f"{big.n_spheres} spheres bvh", big_scene, big_cam, big_cfg, {}),
+        ("night scene (lens, emission, cosine)", night_scene, night_cam,
+         night_cfg, {}),
+        (f"headline, first {ODD_LANES} lanes", scene, cam, headline,
+         dict(lanes=ODD_LANES)),
+    ]
+    for case, scn, camera, config, kw in shade_cases:
+        _, states = capture_states(scn, camera, config, dev)
+        for b in SHADE_BOUNCES:
+            hold_shade(case, states[b], scn, config, b,
+                       time_it=case == "headline" and b == 0, **kw)
+        del states
+    print(f"phase 13(b) K5 and K6 instances: "
+          f"{json.dumps({k: v for k, v in wavefront_mod.kernel_info(dev, 1).items() if k in BOUNCE_REPLACES})}"
+          f" | {card}", flush=True)
+
     # (c) Host waits for the card over each frame's work.
     rounds = [
         ("Renderer brute (headline, 1 spp)", lambda: Renderer(
@@ -2645,31 +2951,41 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
         raise SystemExit("phase 13(c): a frame's host work waited for the "
                          "card")
 
-    # (d) Kernel launches of one wavefront frame, by torch's profiler.
+    # (d) Kernel launches of wavefront frames, by torch's profiler.
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    def profiled(renderer):
+        renderer.render(scene, cam, seed=3)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            renderer.render(scene, cam, seed=3)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        device = [e for e in events if e.device_type == DeviceType.CUDA]
+        calls = sum(e.count for e in events
+                    if e.key.startswith(("cudaLaunchKernel",
+                                         "cuLaunchKernel")))
+        return device, calls
 
     # The card's busy time (the kernels' summed durations) against the
     # frame's time unprofiled: the rest is the card waiting for launches.
     one = Renderer(dataclasses.replace(headline, samples_per_pixel=1))
     one.render(scene, cam, seed=3)
-    _, one_ms = timed_frame(one, scene, cam)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        one.render(scene, cam, seed=3)
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    _, one_ms = timed(frame_of(one, scene, cam))
+    device, n_launch_calls = profiled(one)
     n_kernels = sum(e.count for e in device)
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3
-    n_launch_calls = sum(e.count for e in events
-                         if e.key.startswith(("cudaLaunchKernel",
-                                              "cuLaunchKernel")))
-    print(f"phase 13(d) one headline sample (1 spp, {BOUNCES} bounces): "
+    by_name = sorted(((e.count, round(e.self_device_time_total / 1e3, 4),
+                       e.key[:48]) for e in device), reverse=True)
+    full, _ = profiled(Renderer(headline))
+    print(f"phase 13(d) a 1-spp headline frame ({BOUNCES} bounces): "
           f"{n_kernels} kernels on the card, {n_launch_calls} launch calls "
-          f"on the host (x {SPP} for the {SPP} spp frame); the card busy "
-          f"{busy_ms:.3f} ms of the unprofiled frame's {one_ms:.3f} ms "
-          f"(idle share {1 - busy_ms / one_ms:.1%}) | {card}", flush=True)
+          f"on the host; the card busy {busy_ms:.3f} ms of the unprofiled "
+          f"frame's {one_ms:.3f} ms (idle share {1 - busy_ms / one_ms:.1%}); "
+          f"the {SPP} spp frame {sum(e.count for e in full)} kernels; by "
+          f"kernel (count, ms, name): {by_name} | {card}", flush=True)
 
     entries = []
     for name, fn in kernels.items():
@@ -2678,11 +2994,14 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
               f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}), launches "
               f"on the main path {launches[name]} | {card}", flush=True)
         entries.append({
-            "name": name, "route": "cuda", "source": WAVE_SOURCE,
-            "replaces": WAVE_REPLACES[name], "launches": launches[name],
+            "name": name, "route": "cuda",
+            "source": BOUNCE_SOURCE if name in BOUNCE_REPLACES else WAVE_SOURCE,
+            "replaces": {**WAVE_REPLACES, **BOUNCE_REPLACES}[name],
+            "launches": launches[name],
             "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by,
-            # No single PyTorch call computes a nearest-hit ray test.
+            # No single PyTorch call computes a nearest-hit ray test, a
+            # sample's ray generation or a bounce's shading.
             "library_ms": None})
     print(f"phase 13 done in {time.perf_counter() - t_phase:.1f} s",
           flush=True)

@@ -16,13 +16,15 @@ with seeds 1, 2, ...: the default-config headline frame through
 block-split mesh (3, 1) through ``render_frame_sharded_pallas`` on
 ``cuda:0``. Per cell it prints the p50 ms, the segments per frame and the
 kernel's ms (CUDA events, mean of 3 launches of ``render_tiles`` on the
-cell's inputs; for the mesh the sum over its 3 shards) as JSON.
+cell's inputs; for the mesh the sum over its 3 shards) as JSON; the
+first arm of each tree saves its seed-1 frames.
 ``--exact-rng`` passes ``exact_rng=True`` to both trees' renderers and
 kernel launches, which holds the exact PCG path of a tree whose default
 draws from the fast path against an older tree's. ``--phase-fuse N`` sets
 the block fusion ``PHASE_FUSE`` of both trees' kernels (a tree from before
 its port has none and ignores it). The last lines give the card (name,
-power limit) and each tree's p50s and kernel ms per cell. Needs one CUDA
+power limit), each tree's p50s and kernel ms per cell, and each cell's
+max |d| (image, depth) and segments between the trees. Needs one CUDA
 card; the two trees must share the public API.
 """
 
@@ -52,9 +54,10 @@ t0 = time.perf_counter()
 build.extension()
 build_s = time.perf_counter() - t0
 rng = dict({rng})
+saved = {{}}
 
 
-def frames(render):
+def frames(name, render):
     render(0)
     torch.cuda.synchronize()
     times, segments = [], []
@@ -64,6 +67,9 @@ def frames(render):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         segments.append(int(frame.rays_traced))
+        if i == 0:
+            saved[name] = (frame.image.cpu(), frame.rt_depth.cpu(),
+                           segments[0])
     return {{"p50_ms": sorted(times)[len(times) // 2], "ms": times,
              "segments": segments}}
 
@@ -94,7 +100,8 @@ scene = world.extract(with_bvh=False)
 cam = world.camera_state(aspect=1920 / 1080)
 headline = RenderConfig(1920, 1080, 16, 4, level=3)
 renderer = FusedRenderer(headline, **rng)
-cells = {{"headline": frames(lambda s: renderer.render(scene, cam, seed=s))}}
+cells = {{"headline": frames("headline", lambda s: renderer.render(
+    scene, cam, seed=s))}}
 kscene = renderer.prepare(scene)
 cells["headline"].update(mode=renderer.last_mode,
                          fuse=getattr(renderer, "last_fuse", 1),
@@ -111,17 +118,19 @@ cam5 = world5.camera_state(aspect=16 / 9)
 scene5 = world5.extract(with_bvh=False)
 rc, rd = raster_layer(world5, cam5, config5)
 renderer5 = FusedRenderer(config5, **rng)
-cells["config5"] = frames(lambda s: renderer5.render(
+cells["config5"] = frames("config5", lambda s: renderer5.render(
     scene5, cam5, seed=s, raster_color=rc, raster_depth=rd))
 cells["config5"].update(fuse=getattr(renderer5, "last_fuse", 1),
                         kernel_ms=kernel_ms(renderer5.prepare(scene5), cam5,
                                             config5))
 
 mesh = make_mesh(3, 1, devices=["cuda:0"] * 3)
-cells["mesh31"] = frames(lambda s: render_frame_sharded_pallas(
+cells["mesh31"] = frames("mesh31", lambda s: render_frame_sharded_pallas(
     mesh, scene, cam, headline, s))
 cells["mesh31"]["kernel_ms"] = kernel_ms(
     kscene, cam, headline, [(170 * i, 170) for i in range(3)])
+if {save!r}:
+    torch.save(saved, {save!r})
 print(json.dumps({{"cells": cells, "build_s": build_s}}))
 """
 
@@ -141,11 +150,14 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
+    out_dir = ROOT / "build" / "headline_ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
     runs = {"other": [], "this": []}
     for arm, tree in (("other", other), ("this", ROOT), ("this", ROOT),
                       ("other", other)):
+        save = str(out_dir / f"{arm}.pt") if not runs[arm] else ""
         out = subprocess.run([sys.executable, "-c",
-                              ARM.format(frames=args.frames, rng=(
+                              ARM.format(frames=args.frames, save=save, rng=(
                                   "exact_rng=True" if args.exact_rng
                                   else ""), fuse=(
                                   f"megakernel.PHASE_FUSE = {args.phase_fuse}"
@@ -162,6 +174,15 @@ def main() -> int:
                                    for key in ("p50_ms", "kernel_ms")}
                             for cell in rs[0]["cells"]}
                       for arm, rs in runs.items()}))
+    import torch
+
+    got, want = (torch.load(out_dir / f"{arm}.pt") for arm in ("this",
+                                                               "other"))
+    print(json.dumps({"max_abs_diff_this_vs_other": {
+        cell: {"image": float((got[cell][0] - want[cell][0]).abs().max()),
+               "depth": float((got[cell][1] - want[cell][1]).abs().max()),
+               "segments": [got[cell][2], want[cell][2]]}
+        for cell in got}}))
     return 0
 
 

@@ -20,9 +20,9 @@ times the raster layer (p50 of 5 calls after a first) and takes the census
 of host waits for the card (``bench/timing.py`` ``host_syncs``) over one
 headline frame at 1 spp, one 4,971-sphere "bvh" frame and one config-5
 round (``raster_layer`` + ``FusedRenderer.render``), and the card's busy
-time (torch's profiler: the summed durations of its kernels) over one
-1-spp frame of the headline, config 5 and the cube field, which the
-host's launch rate does not enter. Then it times the
+time (torch's profiler: the summed durations of its kernels), which the
+host's launch rate does not enter, and the kernels it ran, over one 1-spp
+frame of the headline, config 5 and the cube field. Then it times the
 ray tests alone (K1-K4 of ``kernels/cuda/csrc/wavefront.cu``) through the
 calls a frame makes (``engine.renderer.make_intersect_fn``, the
 triangle wrappers), on the rays that bounces 0 and 2 of sample 0 hand
@@ -157,6 +157,7 @@ one = dataclasses.replace(headline, samples_per_pixel=1)
 one5 = dataclasses.replace(config5, samples_per_pixel=1)
 
 
+# [the card's busy ms, the kernels it ran] over one frame.
 def busy_ms(render):
     render(3)
     torch.cuda.synchronize()
@@ -164,8 +165,10 @@ def busy_ms(render):
                              ProfilerActivity.CUDA]) as prof:
         render(3)
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    return [sum(e.self_device_time_total for e in device) / 1e3,
+            sum(e.count for e in device)]
 
 
 busy = {{
@@ -314,9 +317,9 @@ def main() -> int:
                                               for r in rs]
                                        for cell in rs[0]["cells"]},
                             "raster_p50_ms": [r["raster_p50_ms"] for r in rs],
-                            "busy_ms_1spp": {cell: [r["busy_ms_1spp"][cell]
-                                                    for r in rs]
-                                             for cell in rs[0]["busy_ms_1spp"]},
+                            "busy_ms_and_kernels_1spp": {
+                                cell: [r["busy_ms_1spp"][cell] for r in rs]
+                                for cell in rs[0]["busy_ms_1spp"]},
                             "host_syncs": rs[0]["host_syncs"],
                             "ray_test_ms": {name: [r["ray_tests"][name]["ms"]
                                                    for r in rs]
