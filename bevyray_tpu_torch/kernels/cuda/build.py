@@ -2,11 +2,12 @@
 
 ``extension()`` compiles ``csrc/megakernel.cu`` (the fused kernel),
 ``csrc/wavefront.cu`` (the wavefront renderer's ray tests),
-``csrc/bounce.cu`` (its ray generation and shading) and
-``csrc/binding.cpp`` with ``torch.utils.cpp_extension.load`` for ``sm_90a``
-into ``build/torch_ext/`` at the repository root, and loads the result;
-later calls in the process return the loaded module, and later processes
-reuse the build while its sources are unchanged. Only ``binding.cpp``
+``csrc/bounce.cu`` (its ray generation and shading), ``csrc/denoise.cu``
+(the à-trous denoiser), ``csrc/raster.cu`` (the raster layer's rays and
+shading) and ``csrc/binding.cpp`` with ``torch.utils.cpp_extension.load``
+for ``sm_90a`` into ``build/torch_ext/`` at the repository root, and loads
+the result; later calls in the process return the loaded module, and later
+processes reuse the build while its sources are unchanged. Only ``binding.cpp``
 includes PyTorch's headers, which keeps the nvcc part of the build short;
 the ``.cu`` files share ``csrc/common.cuh``, and the fused kernel and the
 bounce kernels ``csrc/shade.cuh``. Contraction into multiply-adds is off
@@ -35,8 +36,8 @@ def extension():
         _extension = load(
             name="bevyray_tpu_torch_cuda",
             sources=[str(_CSRC / name) for name in (
-                "megakernel.cu", "wavefront.cu", "bounce.cu",
-                "binding.cpp")],
+                "megakernel.cu", "wavefront.cu", "bounce.cu", "denoise.cu",
+                "raster.cu", "binding.cpp")],
             build_directory=str(BUILD_DIR), extra_cuda_cflags=CUDA_FLAGS,
             extra_cflags=["-O2"])
     return _extension

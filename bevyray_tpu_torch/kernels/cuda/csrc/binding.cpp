@@ -1,10 +1,12 @@
 // Python binding of the fused path-tracing kernel (megakernel.cu), the
-// wavefront ray tests (wavefront.cu) and the wavefront bounce body
-// (bounce.cu). The one source that includes PyTorch's headers: it checks the
+// wavefront ray tests (wavefront.cu), the wavefront bounce body (bounce.cu)
+// and the image kernels: the denoiser (denoise.cu) and the raster layer
+// (raster.cu). The one source that includes PyTorch's headers: it checks the
 // tensors, launches on PyTorch's current stream and checks the launch.
 
 #include <torch/extension.h>
 
+#include <algorithm>
 #include <map>
 #include <vector>
 #include <string>
@@ -14,6 +16,7 @@
 #include <c10/cuda/CUDAStream.h>
 
 #include "bounce.h"
+#include "image.h"
 #include "megakernel.h"
 #include "wavefront.h"
 
@@ -519,6 +522,121 @@ std::map<std::string, std::map<std::string, int64_t>> wavefront_info(int64_t dev
   return out;
 }
 
+// ---- the image kernels -------------------------------------------------------
+
+int32_t side(int64_t n, const char* name) {
+  TORCH_CHECK(n > 0 && n < (int64_t{1} << 31), name, " must be a positive int32");
+  return static_cast<int32_t>(n);
+}
+
+// K7: one à-trous iteration at `stride` of `img` (float32, [h, w, 3]) guided
+// by `z` (float32, [h, w]) into `out` (float32, [h, w, 3]), all contiguous
+// on one card, `out` apart from `img`.
+void atrous_pass(const torch::Tensor& img, const torch::Tensor& z, torch::Tensor out,
+                 int64_t stride, double inv_2sc2, double inv_2sz2) {
+  check_f32(img, img, "img");
+  check_f32(z, img, "z");
+  check_f32(out, img, "out");
+  TORCH_CHECK(img.dim() == 3 && img.size(2) == 3, "img must be (H, W, 3)");
+  const int32_t h = side(img.size(0), "H");
+  const int32_t w = side(img.size(1), "W");
+  TORCH_CHECK(z.dim() == 2 && z.size(0) == h && z.size(1) == w, "z must be (H, W)");
+  TORCH_CHECK(out.sizes() == img.sizes(), "out must have img's shape");
+  TORCH_CHECK(out.data_ptr<float>() != img.data_ptr<float>(), "out must not be img");
+  TORCH_CHECK(stride >= 1 && 2 * stride < std::min(h, w),
+              "stride must be >= 1 with 2 * stride < min(H, W)");
+  const c10::cuda::CUDAGuard guard(img.device());
+  launch_atrous_pass(img.data_ptr<float>(), z.data_ptr<float>(), out.data_ptr<float>(), h, w,
+                     static_cast<int>(stride), static_cast<float>(inv_2sc2),
+                     static_cast<float>(inv_2sz2), c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// K8: the centre ray of each pixel of a `width` x `height` frame from the
+// camera row (CAM_FLOATS float32) into `rays`: ox, oy, oz, dx, dy, dz
+// (float32, width * height each).
+void raster_rays(const torch::Tensor& camera, const std::vector<torch::Tensor>& rays,
+                 int64_t width, int64_t height) {
+  const int32_t w = side(width, "width");
+  const int32_t h = side(height, "height");
+  const int64_t n = static_cast<int64_t>(w) * h;
+  rows(n, "pixels");
+  TORCH_CHECK(rays.size() == 6, "rays must be ox, oy, oz, dx, dy, dz");
+  const torch::Tensor& like = rays[0];
+  RasterRays r{};
+  float** cols[] = {&r.ox, &r.oy, &r.oz, &r.dx, &r.dy, &r.dz};
+  for (int k = 0; k < 6; ++k) *cols[k] = lane_floats(rays[k], n, like, "ray columns");
+  const float* cam = column(camera, CAM_FLOATS, like, "camera");
+  const c10::cuda::CUDAGuard guard(like.device());
+  launch_raster_rays(cam, r, w, h, c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// K9: the shade and depth of each ray from the triangle test's `t`
+// (float32) / `index` (int64) and its direction `dirs` (dx, dy, dz,
+// float32), n each; `tris`: the nine corner columns (float32, T each);
+// `colors` (float32, [T, 6]); the camera row and `near` (one float32);
+// `clear` (r, g, b) and `ambient` as Python floats; `out`: r, g, b, depth
+// (float32, n each).
+void raster_shade(const torch::Tensor& t, const torch::Tensor& index,
+                  const std::vector<torch::Tensor>& dirs, const std::vector<torch::Tensor>& tris,
+                  const torch::Tensor& colors, const torch::Tensor& camera,
+                  const torch::Tensor& near, std::vector<double> clear, double ambient,
+                  const std::vector<torch::Tensor>& out) {
+  const int64_t n = t.numel();
+  RasterShade a{};
+  a.n = rows(n, "rays");
+  a.t = column(t, n, t, "t");
+  a.index = longs(index, n, t, "index");
+  TORCH_CHECK(dirs.size() == 3, "dirs must be dx, dy, dz");
+  a.dx = column(dirs[0], n, t, "dx");
+  a.dy = column(dirs[1], n, t, "dy");
+  a.dz = column(dirs[2], n, t, "dz");
+  TORCH_CHECK(tris.size() == 9, "tris must be ax, ay, az, bx, by, bz, cx, cy, cz");
+  const int64_t n_tri = tris[0].numel();
+  TORCH_CHECK(n_tri > 0, "the triangle table must have rows");
+  for (int k = 0; k < 9; ++k) a.tri[k] = column(tris[k], n_tri, t, "triangle corners");
+  a.rows = rows(n_tri, "triangles");
+  check_f32(colors, t, "colors");
+  TORCH_CHECK(colors.dim() == 2 && colors.size(0) == n_tri && colors.size(1) == 6,
+              "colors must be (T, 6)");
+  a.colors = colors.data_ptr<float>();
+  a.camera = column(camera, CAM_FLOATS, t, "camera");
+  check_f32(near, t, "near");
+  TORCH_CHECK(near.numel() == 1, "near must be one float");
+  a.near = near.data_ptr<float>();
+  TORCH_CHECK(clear.size() == 3, "clear must be r, g, b");
+  for (int k = 0; k < 3; ++k) a.clear[k] = static_cast<float>(clear[k]);
+  a.ambient = static_cast<float>(ambient);
+  TORCH_CHECK(out.size() == 4, "out must be r, g, b, depth");
+  a.out_r = lane_floats(out[0], n, t, "out r");
+  a.out_g = lane_floats(out[1], n, t, "out g");
+  a.out_b = lane_floats(out[2], n, t, "out b");
+  a.out_depth = lane_floats(out[3], n, t, "out depth");
+  const c10::cuda::CUDAGuard guard(t.device());
+  launch_raster_shade(a, c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// Registers, spills, shared memory and resident blocks per SM of K7, K8 and
+// K9 on CUDA device `device`.
+std::map<std::string, std::map<std::string, int64_t>> image_info(int64_t device) {
+  const c10::cuda::CUDAGuard guard(static_cast<c10::DeviceIndex>(device));
+  std::map<std::string, std::map<std::string, int64_t>> out;
+  const char* names[] = {"atrous_pass", "raster_rays", "raster_shade"};
+  for (int which = 0; which < 3; ++which) {
+    WaveKernelInfo info{};
+    C10_CUDA_CHECK(which == 0 ? ::atrous_kernel_info(&info)
+                              : ::raster_kernel_info(which - 1, &info));
+    out[names[which]] = {{"num_regs", info.num_regs},
+                         {"local_bytes", info.local_bytes},
+                         {"static_smem", info.static_smem},
+                         {"dynamic_smem", info.dynamic_smem},
+                         {"blocks_per_sm", info.blocks_per_sm}};
+  }
+  return out;
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -541,4 +659,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "A sample's start state of every lane (K5), the segment count zeroed");
   m.def("shade_bounce", &shade_bounce,
         "One bounce's shading of every lane (K6), the harvest on the last");
+  m.def("atrous_pass", &atrous_pass, "One a-trous denoising iteration (K7)");
+  m.def("raster_rays", &raster_rays, "The raster layer's centre ray of every pixel (K8)");
+  m.def("raster_shade", &raster_shade,
+        "The raster layer's ambient shade and reverse-Z depth of every ray (K9)");
+  m.def("image_info", &image_info,
+        "Registers, spills, shared memory and occupancy of the K7, K8 and K9 kernels");
 }

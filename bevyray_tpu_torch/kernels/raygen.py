@@ -3,8 +3,9 @@
 
 Counterpart of ``bevyray_tpu/kernels/raygen.py``: the whole frame as one flat
 batch of rays, in the JAX package's order of operations. The fused kernel has
-its own per-thread copy (:mod:`.cuda.megakernel`); the raster layer
-(:mod:`..engine.raster`) casts its center rays with these.
+its own per-thread copy (:mod:`.cuda.megakernel`), and so do the wavefront
+path's K5 (:mod:`.bounce`) and the raster layer's K8 (:mod:`..engine.raster`),
+whose plain versions call these.
 """
 
 from __future__ import annotations

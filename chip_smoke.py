@@ -24,7 +24,8 @@ every lane whose target is 0.
 
 Phase 6 drives BASELINE config 5 (scripts/bench_matrix.py:101-114) at full
 size: the final scene with a metallic cube mesh, the raster layer on the
-card, 1280x720, 16 spp, 4 bounces, level 2, through the default-config
+card (K8, K2 and K9 once each a call, no plain run), 1280x720, 16 spp, 4
+bounces, level 2, through the default-config
 ``FusedRenderer`` (one kernel launch per frame, no plain run), then the
 kernel against its plain version at those shapes with the triangle tests in
 the bound. Phase 2 holds the kernel's triangle branch against its plain
@@ -60,7 +61,8 @@ its defaults (final scene, 1280x720, 16 spp, 4 bounces, level 3): (a)
 bit-equal to ``Renderer.render``; (b) ``--backend bvh`` within 1e-6 of (a)
 with equal segments; (c) ``--backend pallas``, one launch of the CUDA
 kernel, bit-equal to ``FusedRenderer.render``; (d) ``--denoise 3`` equal to
-``atrous_denoise`` of (a)'s frame; (e) ``accumulate --adaptive-tolerance``
+``atrous_denoise`` of (a)'s frame, three K7 launches and no plain run; (e)
+``accumulate --adaptive-tolerance``
 on a scene that carries a BVH, and ``bench --backend pallas``, whose JSON
 names the card; (f) 4,971 spheres at 640x360, 4 spp, where "auto" walks the
 BVH of the native builder, against "brute".
@@ -111,6 +113,18 @@ bound (the dense tests' also at the issue rate); (c) ``host_syncs`` over
 ``Renderer`` frames (brute, bvh, mesh) and a config-5 round, which must
 be empty; (d) the kernels of a 1-spp and a 16-spp wavefront frame and
 the card's busy time (torch's profiler).
+
+Phase 14 holds the image kernels, which replace the JAX package's jitted
+``atrous_denoise`` and ``rasterize_impl``: K7 ``atrous_pass``
+(``kernels/cuda/csrc/denoise.cu``, one launch an iteration) on 10(d)'s
+frame at 0, 1, 3 and 5 iterations, at an odd size, where the stride rule
+ends the filter after 1 and 2 iterations and on a depth with misses at the
+far fallback; K8 ``raster_rays`` and K9 ``raster_shade``
+(``csrc/raster.cu``, around K2) on config 5's camera at 1280x720 and
+1920x1080, the kitchen sink at level 2, a rotated raster cube and a view
+where every pixel misses; each bit-equal to its plain version
+(``engine/denoise.py``, ``engine/raster.py``), with its time beside its
+bound and the plain version's.
 
 Each phase prints its lines; the line before the last is the kernel table
 as JSON, and the last line is ``{"ok": true, "device": {...}}``. Any failed
@@ -276,6 +290,37 @@ RAYGEN_LANE_BYTES = 8 + 4 + 4 + 4 * 12 + 1 + 4 + 4
 # both kernels by several times these.
 RAYGEN_LANE_OPS = 80
 SHADE_HIT_OPS, SHADE_MISS_OPS = 500, 30
+
+# Phase 14. The image kernels: K7 ``atrous_pass`` (csrc/denoise.cu) and the
+# raster layer's K8 ``raster_rays`` and K9 ``raster_shade`` (csrc/raster.cu),
+# each held against its plain version (engine/denoise.py, engine/raster.py)
+# to the bit on the same CUDA tensors. They replace XLA code of the JAX
+# package, not a pallas_call: the jitted atrous_denoise and rasterize_impl.
+IMAGE_SOURCES = {
+    "atrous_pass": "bevyray_tpu_torch/kernels/cuda/csrc/denoise.cu",
+    "raster_rays": "bevyray_tpu_torch/kernels/cuda/csrc/raster.cu",
+    "raster_shade": "bevyray_tpu_torch/kernels/cuda/csrc/raster.cu"}
+IMAGE_REPLACES = {"atrous_pass": "bevyray_tpu/engine/denoise.py:46",
+                  "raster_rays": "bevyray_tpu/engine/raster.py:83",
+                  "raster_shade": "bevyray_tpu/engine/raster.py:88"}
+RASTER_SIZES = ((1280, 720), (1920, 1080))   # config 5's camera at each
+IMAGE_REPS = 20         # launches per CUDA-event timing
+ODD_IMAGE = (37, 53)    # (H, W) off every block's multiple
+# Operations a pixel, each issued fp32 instruction one operation: a K7 tap
+# is 8 for the colour difference, 2 for the depth's, 4 for the exponent's
+# argument, expf's 10 (its range reduction, polynomial and the MUFU.EX2),
+# 2 for the weight and 7 for the sums; the pixel adds the clamp and three
+# IEEE divisions (~10 each). K8: the uv divisions and generate_rays (~50);
+# K9 a hit's shade (~130). Address arithmetic is left out: a floor.
+ATROUS_PIXEL_OPS = 25 * 33 + 31
+RASTER_RAYS_OPS, RASTER_SHADE_OPS = 50, 130
+# Bytes: K7 reads the image and depth and writes the image (28 a pixel);
+# K8 writes the origin and direction (24); K9 reads t (4) and writes the
+# colour and depth (16) a pixel, and on a hit also the index and the
+# direction (20); each table row once (nine corners and six colours).
+ATROUS_PIXEL_BYTES, RAYS_PIXEL_BYTES = 28, 24
+SHADE_PIXEL_BYTES, SHADE_HIT_BYTES, SHADE_ROW_BYTES = 20, 20, 60
+
 
 def mesh_scene(copies=1):
     """The simple scene with a metallic cube mesh in front of a sphere,
@@ -451,6 +496,29 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+@contextlib.contextmanager
+def plain_calls(module, names):
+    """Count the calls of ``module``'s plain versions ``names`` while the
+    block runs: yields {name: calls}, which a main-path run must leave at
+    0."""
+    calls = dict.fromkeys(names, 0)
+    real = {name: getattr(module, name) for name in names}
+
+    def counted(name):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return real[name](*args, **kwargs)
+        return call
+
+    for name in names:
+        setattr(module, name, counted(name))
+    try:
+        yield calls
+    finally:
+        for name in names:
+            setattr(module, name, real[name])
 
 
 def compare(config, got, want, mask=None) -> dict:
@@ -749,17 +817,20 @@ def main() -> int:
     map_entry, map_pass = accumulation_phase(world, scene, cam, headline,
                                              card)
     entries.append(map_entry)
-    entries.append(hybrid_phase(card))
+    hybrid_entry, raster_launches = hybrid_phase(card)
+    entries.append(hybrid_entry)
     fast_entries = fast_phase(scene, cam, headline, card)
     entries += fast_entries
     entries.append(shard_phase(scene, cam, headline, card,
                                fast_entries[0]["bound_ms"],
                                fast_entries[0]["bound_by"]))
     probe_phase(scene, cam, headline, card, map_pass)
-    cli_phase(card, dev)
+    denoise_inputs, denoise_launches = cli_phase(card, dev)
     oracle_phase(card, dev)
     bench_phase(scene, cam, headline, card, dev)
     entries += wavefront_phase(scene, cam, headline, card, dev)
+    entries += image_phase(card, dev, raster_launches, denoise_inputs,
+                           denoise_launches)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -975,18 +1046,20 @@ def accumulation_phase(world, scene, cam, headline, card) -> dict:
             "library_ms": None}, (spp_map, share)
 
 
-def hybrid_phase(card) -> dict:
+def hybrid_phase(card) -> tuple:
     """Phase 6: BASELINE config 5 at full size (scripts/bench_matrix.py:
     101-114) through the public entry points: the raster layer on the card,
     then the default-config ``FusedRenderer``, which must take the mode the
     JAX gate picks (the port's copies of ``shortlists_for`` and
     ``use_candidate_walk``) and launch the kernel once per frame with no
     plain run; then the kernel against its plain version at these shapes.
-    Returns the kernels-line entry of the triangle branch."""
+    Returns the kernels-line entry of the triangle branch and the raster
+    layer's launches (K8, K2, K9) over its timed calls."""
     import torch
 
     from bevyray_tpu_torch import FusedRenderer
-    from bevyray_tpu_torch.engine.raster import raster_layer
+    from bevyray_tpu_torch.engine import raster
+    from bevyray_tpu_torch.kernels import intersect
     from bevyray_tpu_torch.kernels.cuda.megakernel import (
         TILE, block_grid, kernel_mode, pack_camera, render_tiles,
         render_tiles_reference, use_candidate_walk)
@@ -997,15 +1070,31 @@ def hybrid_phase(card) -> dict:
     cam = world.camera_state(aspect=16 / 9)
     scene = world.extract(with_bvh=False)
 
-    # The raster layer: a set-up per camera (host extraction, upload and the
-    # center-ray pass), host clock around a synchronised call.
+    # The raster layer: a set-up per camera (host extraction, upload and K8
+    # -> K2 -> K9, one launch each a call, no plain run), host clock around
+    # a synchronised call.
     raster_times = []
-    for _ in range(1 + RASTER_REPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rc, rd = raster_layer(world, cam, config)
-        torch.cuda.synchronize()
-        raster_times.append((time.perf_counter() - t0) * 1e3)
+    raster.raster_rays.launches = raster.raster_shade.launches = 0
+    k2_before = intersect.intersect_triangles.launches
+    with plain_calls(raster, ("rasterize_impl_reference",
+                              "raster_rays_reference",
+                              "raster_shade_reference")) as plain:
+        for _ in range(1 + RASTER_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc, rd = raster.raster_layer(world, cam, config)
+            torch.cuda.synchronize()
+            raster_times.append((time.perf_counter() - t0) * 1e3)
+    raster_launches = {
+        "raster_rays": raster.raster_rays.launches,
+        "raster_shade": raster.raster_shade.launches,
+        "intersect_triangles": (intersect.intersect_triangles.launches
+                                - k2_before)}
+    if set(raster_launches.values()) != {1 + RASTER_REPS} or sum(
+            plain.values()):
+        raise SystemExit(f"phase 6: the raster layer launched "
+                         f"{raster_launches} and ran the plain versions "
+                         f"{plain} in {1 + RASTER_REPS} calls")
     raster_p50 = sorted(raster_times[1:])[RASTER_REPS // 2]
     if (rd.device != scene.spheres.cx.device
             or tuple(rd.shape) != (width * height,)
@@ -1060,7 +1149,8 @@ def hybrid_phase(card) -> dict:
           f"{segments / (p50_ms * 1e-3) / 1e6:.2f} Mrays/s, {segments:.0f} "
           f"segments/frame, frame ms {[round(t * 1e3, 3) for t in times]}; "
           f"raster layer p50 {raster_p50:.3f} ms of "
-          f"{[round(t, 3) for t in raster_times]} (first call included), "
+          f"{[round(t, 3) for t in raster_times]} (first call included; "
+          f"launches {raster_launches}), "
           f"raster wins {raster_wins} of {width * height} pixels | {card}",
           flush=True)
 
@@ -1099,7 +1189,7 @@ def hybrid_phase(card) -> dict:
             "replaces": f"{TPU_KERNEL}:1346", "launches": launches,
             "max_abs_err": stats["max_abs"], "ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None}
+            "library_ms": None}, raster_launches
 
 
 def box_mean_abs(a, b) -> float:
@@ -1804,7 +1894,7 @@ def probe_phase(scene, cam, headline, card, map_pass) -> None:
         raise SystemExit("phase 9(c): no MUFU.RSQ in the default instance")
 
 
-def cli_phase(card, dev) -> None:
+def cli_phase(card, dev) -> tuple:
     """Phase 10: the port's command line in-process (``app.cli.main``) at
     its defaults, each run held against a direct call of the renderer it
     drives: (a) ``render`` (backend auto: a BVH is extracted, 508 spheres
@@ -1812,10 +1902,12 @@ def cli_phase(card, dev) -> None:
     bvh`` within BVH_TOL of (a) with equal segments; (c) ``--backend
     pallas``, which must launch the CUDA kernel, bit-equal to
     ``FusedRenderer.render``; (d) ``--denoise`` equal to ``atrous_denoise``
-    of (a)'s frame with the CLI's guide; (e) ``accumulate`` with adaptive
-    sampling on a scene that carries a BVH, and ``bench --backend pallas``,
-    whose JSON names the card; (f) through the API, 4,971 spheres, where
-    "auto" walks the BVH built by the native builder, against "brute"."""
+    of (a)'s frame with the CLI's guide, K7 launched once an iteration and
+    its plain version never; (e) ``accumulate`` with adaptive sampling on a
+    scene that carries a BVH, and ``bench --backend pallas``, whose JSON
+    names the card; (f) through the API, 4,971 spheres, where "auto" walks
+    the BVH built by the native builder, against "brute". Returns (d)'s
+    denoiser inputs (the frame's image and depth) and its K7 launches."""
     import io
     import tempfile
 
@@ -1826,6 +1918,7 @@ def cli_phase(card, dev) -> None:
     from bevyray_tpu_torch.app import cli
     from bevyray_tpu_torch.bvh import build as bvh_build
     from bevyray_tpu_torch.engine import renderer as renderer_mod
+    from bevyray_tpu_torch.engine import denoise as denoise_mod
     from bevyray_tpu_torch.engine.denoise import atrous_denoise
     from bevyray_tpu_torch.kernels.cuda.megakernel import render_tiles
     from bevyray_tpu_torch.utils import png
@@ -1938,10 +2031,19 @@ def cli_phase(card, dev) -> None:
               f"{ms_c:.3f} ms (the first of the CLI's renderer) | {card}",
               flush=True)
 
-        # (d) the denoiser, guided by rt_depth (level 3: no raster layer).
-        t0 = time.perf_counter()
-        line = run("render", "--denoise", str(CLI_DENOISE))
-        ms_d = (time.perf_counter() - t0) * 1e3
+        # (d) the denoiser, guided by rt_depth (level 3: no raster layer):
+        # K7 once an iteration, no plain run.
+        atrous_denoise.launches = 0
+        with plain_calls(denoise_mod, ("atrous_denoise_reference",)) as plain:
+            t0 = time.perf_counter()
+            line = run("render", "--denoise", str(CLI_DENOISE))
+            ms_d = (time.perf_counter() - t0) * 1e3
+        denoise_launches = atrous_denoise.launches
+        if (denoise_launches != CLI_DENOISE
+                or plain["atrous_denoise_reference"]):
+            raise SystemExit(f"phase 10(d): {denoise_launches} K7 launches "
+                             f"and {plain['atrous_denoise_reference']} plain "
+                             f"runs for {CLI_DENOISE} iterations")
         den = atrous_denoise(frame_a.image, frame_a.rt_depth,
                              iterations=CLI_DENOISE)
         torch.cuda.synchronize()
@@ -1953,9 +2055,11 @@ def cli_phase(card, dev) -> None:
                 torch.equal(torch.as_tensor(written[0]), den.cpu())):
             raise SystemExit("phase 10(d): the denoised PNG is not "
                              "atrous_denoise of the frame")
+        denoise_inputs = (frame_a.image, frame_a.rt_depth)
         print(f"phase 10(d) render --denoise {CLI_DENOISE}: equal to "
-              f"atrous_denoise of (a)'s frame; denoise {ms_den:.3f} ms per "
-              f"call, the whole command {ms_d:.1f} ms | {card}", flush=True)
+              f"atrous_denoise of (a)'s frame, K7 launches "
+              f"{denoise_launches}; denoise {ms_den:.3f} ms per call, the "
+              f"whole command {ms_d:.1f} ms | {card}", flush=True)
 
         # (e) adaptive accumulation on a scene with a BVH, and the bench.
         render_tiles.launches = 0
@@ -2027,6 +2131,7 @@ def cli_phase(card, dev) -> None:
         raise SystemExit("phase 10(f): bvh against brute past the bar")
     print(f"phase 10 done in {time.perf_counter() - t_phase:.1f} s",
           flush=True)
+    return denoise_inputs, denoise_launches
 
 
 def oracle_phase(card, dev) -> None:
@@ -3040,6 +3145,227 @@ def wave_bound(name, args, o, n_active, work) -> tuple:
         return bound + (None, None)
     return bound + (ops / ISSUE_RATE * 1e3, n_active * int(table.valid.sum()))
 
+
+def image_phase(card, dev, raster_launches, denoise_inputs,
+                denoise_launches) -> list:
+    """Phase 14: the image kernels against their plain versions on the
+    same CUDA tensors, every output compared as bits. K7 ``atrous_pass``
+    (csrc/denoise.cu, through ``engine.denoise.atrous_denoise``) on 10(d)'s
+    frame and depth at 0, 1, 3 and 5 iterations, at an odd size, at sizes
+    where the stride rule ends the filter after 1 and 2 iterations (least
+    side 4 and 8), and on a depth with a band of misses at the far
+    fallback, each with its launch count. K8 ``raster_rays`` and K9
+    ``raster_shade`` (csrc/raster.cu, through ``engine.raster``) on config
+    5's camera at 1280x720 and 1920x1080, the kitchen-sink world at level
+    2, a rotated raster cube and a view in which every pixel misses: K8's
+    rays against ``raster_rays_reference``, K9 on K2's hits against
+    ``raster_shade_reference``, and the whole ``rasterize_impl`` against
+    ``rasterize_impl_reference``. Then each kernel's time by CUDA events
+    at 1280x720 and 1920x1080 beside its bound and its plain version's
+    time. Returns the kernels-line entries; their launches are phase 6's
+    (K8, K9) and 10(d)'s (K7)."""
+    import numpy as np
+    import torch
+
+    import bevyray_tpu_torch as port
+    from bevyray_tpu_torch.core.types import make_triangles_np, upload
+    from bevyray_tpu_torch.engine import denoise, raster
+    from bevyray_tpu_torch.kernels import intersect
+    from bevyray_tpu_torch.kernels.bounce import camera_row
+    from bevyray_tpu_torch.kernels.cuda.build import extension
+
+    t_phase = time.perf_counter()
+    max_err = dict.fromkeys(IMAGE_REPLACES, 0.0)
+
+    def check_bits(name, label, got, want):
+        for g, w in zip(got, want):
+            w = w.expand_as(g).contiguous()
+            err = float((g - w).abs().nan_to_num(0.0).max()) if g.numel() else 0.0
+            max_err[name] = max(max_err[name], err)
+            if g.shape != w.shape or not torch.equal(g.view(torch.int32),
+                                                     w.view(torch.int32)):
+                raise SystemExit(f"phase 14 {name} {label}: not bit-equal to "
+                                 f"its plain version (max |d| {err})")
+
+    def host_ms(fn, reps=3):
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times)[reps // 2]
+
+    # K7 on the CLI's frame and on seeded inputs.
+    rng = np.random.default_rng(14)
+
+    def seeded(h, w, misses=False):
+        image = rng.random((h, w, 3), dtype=np.float32)
+        depth = rng.uniform(1.0, 20.0, (h, w)).astype(np.float32)
+        depth[:, w // 2:] += 30.0
+        if misses:
+            depth[h // 3:h // 2] = 999.0
+        return (torch.as_tensor(image, device=dev),
+                torch.as_tensor(depth, device=dev))
+
+    frame_image, frame_depth = denoise_inputs
+    cases = [(f"10(d)'s frame {tuple(frame_image.shape[:2])}", frame_image,
+              frame_depth, it) for it in (0, 1, 3, 5)]
+    cases += [(f"odd {ODD_IMAGE}", *seeded(*ODD_IMAGE), 3),
+              ("least side 4 (4, 9)", *seeded(4, 9), 3),
+              ("least side 8 (11, 8)", *seeded(11, 8), 3),
+              ("far-fallback misses (72, 128)", *seeded(72, 128, True), 3)]
+    for label, image, depth, iterations in cases:
+        h, w = image.shape[:2]
+        runs = 0   # the iterations that the stride rule lets run
+        while runs < iterations and 2 * (1 << runs) < min(h, w):
+            runs += 1
+        before = denoise.atrous_denoise.launches
+        got = denoise.atrous_denoise(image, depth, iterations=iterations)
+        launches = denoise.atrous_denoise.launches - before
+        want = denoise.atrous_denoise_reference(image, depth,
+                                                iterations=iterations)
+        torch.cuda.synchronize()
+        if launches != runs or (runs == 0 and got is not image):
+            raise SystemExit(f"phase 14 atrous_pass {label}: {launches} "
+                             f"launches for {runs} iterations that run")
+        check_bits("atrous_pass", label, [got], [want])
+        print(f"phase 14 atrous_pass {label}, {iterations} iterations: "
+              f"{launches} launches, bit-equal", flush=True)
+
+    # K8 and K9: config 5's camera at two sizes, the kitchen sink at level
+    # 2, a rotated raster cube and an all-miss view.
+    world5, config5 = config5_world()
+    rotated = golden_world(port, "cube")
+    rotated.spawn_raster_mesh(
+        port.Transform.from_xyz(1.3, 0.4, 0.5).with_rotation(
+            port.Transform.rotation_axis_angle((1.0, 1.0, 0.0), 0.7)),
+        port.cube_mesh(0.6),
+        port.StandardMaterial(base_color=(0.9, 0.6, 0.2), metallic=1.0,
+                              perceptual_roughness=0.3, reflectance=0.8))
+    away = golden_world(port, "cube")
+    away.set_camera(port.Transform.from_xyz(0.0, 1.0, 4.0).looking_at(
+        (0.0, 1.5, 9.0)))
+    views = [(f"config 5 {w}x{h}", world5,
+              dataclasses.replace(config5, width=w, height=h))
+             for w, h in RASTER_SIZES]
+    views += [("kitchen sink level 2", golden_world(port, "kitchen_sink"),
+               port.RenderConfig(640, 360, 1, 1, level=2)),
+              ("rotated raster cube", rotated,
+               port.RenderConfig(640, 360, 1, 1, level=1)),
+              ("all pixels miss", away,
+               port.RenderConfig(640, 360, 1, 1, level=1))]
+    clear = (1.0, 1.0, 1.0)
+    timing = {}
+    for label, world, config in views:
+        cam = world.camera_state(aspect=config.width / config.height,
+                                 device=dev)
+        va, vb, vc, colors = world.extract_raster_host()
+        tris = make_triangles_np(va, vb, vc, np.zeros(va.shape[0], np.int32),
+                                 capacity=va.shape[0], device=dev)
+        colors = upload(colors, dev)
+        row = camera_row(cam, config, dev)
+        origin, direction = raster.raster_rays(row, config)
+        p_origin, p_direction = raster.raster_rays_reference(cam, config, dev)
+        check_bits("raster_rays", label, [*origin, *direction],
+                   [*p_origin, *p_direction])
+        t, idx = intersect.intersect_triangles(origin, direction, tris)
+        color, depth = raster.raster_shade(t, idx, direction, tris, colors,
+                                           row, cam.near, clear)
+        p_color, p_depth = raster.raster_shade_reference(
+            t, idx, direction, tris, colors, cam, clear)
+        check_bits("raster_shade", label, [*color, depth],
+                   [*p_color, p_depth])
+        got = raster.rasterize_impl(tris, colors, cam, config, clear)
+        want = raster.rasterize_impl_reference(tris, colors, cam, config,
+                                               clear)
+        check_bits("raster_shade", label + " (whole call)",
+                   [*got[0], got[1]], [*want[0], want[1]])
+        hits = int((depth > 0).sum())
+        if (hits == 0) != (label == "all pixels miss"):
+            raise SystemExit(f"phase 14 {label}: {hits} raster hits")
+        print(f"phase 14 raster_rays, raster_shade {label}: bit-equal, "
+              f"{hits} of {config.width * config.height} pixels hit "
+              f"{va.shape[0]} triangles", flush=True)
+        if label.startswith("config 5"):
+            n = config.width * config.height
+            shade = lambda: raster.raster_shade(   # noqa: E731
+                t, idx, direction, tris, colors, row, cam.near, clear)
+            timing[(config.width, config.height)] = {
+                "raster_rays": (
+                    cuda_ms(lambda: raster.raster_rays(row, config),
+                            IMAGE_REPS),
+                    host_ms(lambda: raster.raster_rays_reference(
+                        cam, config, dev)),
+                    n * RAYS_PIXEL_BYTES + 4 * len(row),
+                    n * RASTER_RAYS_OPS),
+                "raster_shade": (
+                    cuda_ms(shade, IMAGE_REPS),
+                    host_ms(lambda: raster.raster_shade_reference(
+                        t, idx, direction, tris, colors, cam, clear)),
+                    n * SHADE_PIXEL_BYTES + hits * SHADE_HIT_BYTES
+                    + va.shape[0] * SHADE_ROW_BYTES,
+                    hits * RASTER_SHADE_OPS)}
+
+    # K7's time at each size: a 3-iteration call (the CLI's), per launch.
+    for w, h in RASTER_SIZES:
+        image, depth = ((frame_image, frame_depth)
+                        if tuple(frame_image.shape[:2]) == (h, w)
+                        else seeded(h, w, True))
+        call = lambda: denoise.atrous_denoise(   # noqa: E731
+            image, depth, iterations=CLI_DENOISE)
+        call()
+        one_ms = cuda_ms(lambda: denoise.atrous_denoise(image, depth,
+                                                        iterations=1),
+                         IMAGE_REPS)
+        call_ms = cuda_ms(call, IMAGE_REPS)
+        plain_call = host_ms(lambda: denoise.atrous_denoise_reference(
+            image, depth, iterations=CLI_DENOISE))
+        timing[(w, h)]["atrous_pass"] = (
+            call_ms / CLI_DENOISE, plain_call / CLI_DENOISE,
+            w * h * ATROUS_PIXEL_BYTES, w * h * ATROUS_PIXEL_OPS)
+        print(f"phase 14 atrous_pass {w}x{h}: a {CLI_DENOISE}-iteration call "
+              f"{call_ms:.4f} ms ({call_ms / CLI_DENOISE:.4f} a launch), "
+              f"iteration 1 alone {one_ms:.4f} ms; the plain call "
+              f"{plain_call:.3f} ms; an iteration's bound "
+              f"{w * h * ATROUS_PIXEL_OPS / PEAK_FP32 * 1e3:.4f} ms "
+              f"(operations; {w * h * ATROUS_PIXEL_OPS / ISSUE_RATE * 1e3:.4f}"
+              f" at the issue rate), bytes "
+              f"{w * h * ATROUS_PIXEL_BYTES / PEAK_BYTES * 1e3:.4f} ms | {card}",
+              flush=True)
+
+    info = extension().image_info(dev.index or 0)
+    launches = {"atrous_pass": denoise_launches, **raster_launches}
+    entries = []
+    for name in IMAGE_REPLACES:
+        for size in RASTER_SIZES:
+            ms, plain_ms, n_bytes, ops = timing[size][name]
+            by_ops, by_bytes = ops / PEAK_FP32 * 1e3, n_bytes / PEAK_BYTES * 1e3
+            b_ms, b_by = ((by_ops, "operations") if by_ops >= by_bytes
+                          else (by_bytes, "bytes"))
+            print(f"phase 14 {name} {size[0]}x{size[1]}: kernel {ms:.4f} ms "
+                  f"a launch, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by}; the other {min(by_ops, by_bytes):.4f}), "
+                  f"{json.dumps(dict(info[name]))}, launches on the main "
+                  f"path {launches[name]}, max |d| {max_err[name]} | {card}",
+                  flush=True)
+            if size == RASTER_SIZES[0]:   # the main path's (10(d), phase 6)
+                entry = {
+                    "name": name, "route": "cuda",
+                    "source": IMAGE_SOURCES[name],
+                    "replaces": IMAGE_REPLACES[name],
+                    "launches": launches[name], "max_abs_err": max_err[name],
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                    "bound_by": b_by,
+                    # No single PyTorch call computes a bilateral a-trous
+                    # pass, a frame's centre rays or Bevy's ambient shade.
+                    "library_ms": None}
+        entries.append(entry)
+    print(f"phase 14 done in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return entries
 
 if __name__ == "__main__":
     sys.exit(main())
