@@ -30,9 +30,9 @@ import torch
 from ..core.types import (CameraState, RenderConfig, SceneBuffers,
                           camera_key, resolve_device)
 from ..core.vec import Vec3
-from ..kernels.bounce import new_state
+from ..kernels.bounce import FrameSums, new_state, new_sums
 from ..kernels.cuda.megakernel import KernelScene, render_tiles, unshuffle_blocks
-from ..kernels.raygen import pixel_uv
+from ..kernels.frame import fold_pass
 from .fused_renderer import FusedRenderer
 from .renderer import FrameResult, frame_result, trace_sample
 
@@ -94,10 +94,10 @@ def resolve_impl(film: Film, cam: CameraState, config: RenderConfig,
                  raster_depth=None) -> FrameResult:
     """The estimate of ``film`` (a Film or an AdaptiveFilm: sums over
     per-pixel counts, at least 1) composited at ``config.level``; the raster
-    layer defaults to white at reverse-Z depth 0."""
-    inv = 1.0 / torch.clamp(film.n_samples, min=1.0)
-    return frame_result(config, cam, film.color_sum.scale(inv),
-                        film.depth_sum * inv, film.rays_traced, raster_color,
+    layer defaults to white at reverse-Z depth 0. One launch of K10 on the
+    card (:func:`...kernels.frame.resolve_frame`)."""
+    return frame_result(config, cam, (*film.color_sum, film.depth_sum),
+                        film.rays_traced, film.n_samples, raster_color,
                         raster_depth)
 
 
@@ -108,31 +108,28 @@ def accumulate_impl(film: Film, scene: SceneBuffers, cam: CameraState,
     through the wavefront :func:`.renderer.trace_sample`, sample indices
     ``sample_offset + i`` (mod 2^32), folded into ``film`` one sample at a
     time, as the JAX package's pass folds them (a new film; the old one is
-    not changed)."""
+    not changed): the first sample's shading adds it to the old film's sums
+    into new ones, and each later sample's adds it to those in place."""
     dev = film.depth_sum.device
     n = config.n_pixels
-    u, v = pixel_uv(config.width, config.height, device=dev)
-    pixel_ids = torch.arange(n, device=dev)
-    color_sum, depth_sum = film.color_sum, film.depth_sum
-    segments = film.rays_traced
     state = new_state(n, cam, config, dev)
+    sums = new_sums(n, dev)
+    old = FrameSums(film.color_sum, film.depth_sum, film.rays_traced)
     for i in range(config.samples_per_pixel):
-        color, depth, segs = trace_sample(scene, cam, config, pixel_ids, u, v,
-                                          (sample_offset + i) & _M32,
-                                          frame_seed, state=state)
-        color_sum = color_sum + color
-        depth_sum = depth_sum + depth
-        segments = segments + segs
-    return Film(color_sum=color_sum, depth_sum=depth_sum,
+        trace_sample(scene, cam, config, 0, None, None,
+                     (sample_offset + i) & _M32, frame_seed, state=state,
+                     sums=sums, base=sums if i else old)
+    return Film(color_sum=sums.color, depth_sum=sums.depth,
                 n_samples=film.n_samples + config.samples_per_pixel,
-                rays_traced=segments)
+                rays_traced=sums.segments)
 
 
 def trace_pass(kscene: KernelScene, cam: CameraState, config: RenderConfig,
                frame_seed: int, sample_offset: int, sl=None, slmeta=None,
-               spp_map=None):
+               spp_map=None, blocks: bool = False):
     """One fused-kernel pass of an accumulating film: (r, g, b, depth) sums
-    in row-major pixel order and the segment count. ``sample_offset`` wraps
+    in row-major pixel order (``blocks``: in the kernel's block order, as it
+    gives them) and the segment count. ``sample_offset`` wraps
     mod 2^32, as the kernel's add does. The draw path is the kernel's
     default for the scene's device
     (:func:`...kernels.cuda.megakernel.resolve_exact_rng`), as the JAX
@@ -141,7 +138,9 @@ def trace_pass(kscene: KernelScene, cam: CameraState, config: RenderConfig,
         kscene, cam, config, frame_seed & _M32,
         sample_offset=sample_offset & _M32, normalize=False, sl=sl,
         slmeta=slmeta, spp_map=spp_map)
-    r, g, b, depth = (unshuffle_blocks(x, config) for x in (r, g, b, depth))
+    if not blocks:
+        r, g, b, depth = (unshuffle_blocks(x, config)
+                          for x in (r, g, b, depth))
     return Vec3(r, g, b), depth, segs
 
 
@@ -149,13 +148,13 @@ def pallas_accumulate_impl(film: Film, kscene: KernelScene, cam: CameraState,
                            config: RenderConfig, frame_seed: int,
                            sample_offset: int, sl=None, slmeta=None) -> Film:
     """One pass of ``config.samples_per_pixel`` fresh samples for every pixel,
-    folded into ``film`` (a new film; the old one is not changed)."""
+    folded into ``film`` (a new film; the old one is not changed): the
+    fused kernel's sums, then one launch of K11 on the card
+    (:func:`...kernels.frame.fold_pass`)."""
     color, depth, segs = trace_pass(kscene, cam, config, frame_seed,
-                                    sample_offset, sl, slmeta)
-    return Film(color_sum=film.color_sum + color,
-                depth_sum=film.depth_sum + depth,
-                n_samples=film.n_samples + config.samples_per_pixel,
-                rays_traced=film.rays_traced + segs)
+                                    sample_offset, sl, slmeta, blocks=True)
+    return Film(*fold_pass(film.color_sum, film.depth_sum, film.n_samples,
+                           film.rays_traced, (*color, depth), segs, config))
 
 
 def check_scene_and_camera(owner, scene: SceneBuffers,

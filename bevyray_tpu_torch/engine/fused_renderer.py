@@ -1,6 +1,8 @@
 """Fused-kernel renderer front-end: the twin of the JAX package's
 ``PallasRenderer`` (``bevyray_tpu/engine/pallas_renderer.py``), with its hot
-path in :mod:`..kernels.cuda.megakernel`."""
+path in :mod:`..kernels.cuda.megakernel` and its tail (the block order
+undone, the composite, the image) in one launch of
+:func:`..kernels.frame.resolve_frame`."""
 
 from __future__ import annotations
 
@@ -12,8 +14,7 @@ from ..core.vec import Vec3
 from ..kernels.cuda.megakernel import (KernelScene, kernel_fuse,
                                        kernel_mode, kernel_scene_cache_key,
                                        morton_order, prepare_kernel_scene,
-                                       render_tiles, resolve_exact_rng,
-                                       unshuffle_blocks)
+                                       render_tiles, resolve_exact_rng)
 from ..kernels.cuda.primary import device_shortlists_for
 from .renderer import FrameResult, frame_result, passthrough_frame
 
@@ -107,6 +108,5 @@ class FusedRenderer:
         self.last_mode = kernel_mode(kscene, config, sl)
         self.last_fuse = kernel_fuse(kscene, config, sl)
         self.last_exact_rng = resolve_exact_rng(self.exact_rng, dev)
-        r, g, b, depth = (unshuffle_blocks(x, config) for x in (r, g, b, depth))
-        return frame_result(config, cam, Vec3(r, g, b), depth, segs,
-                            raster_color, raster_depth)
+        return frame_result(config, cam, (r, g, b, depth), segs, None,
+                            raster_color, raster_depth, blocks=True)

@@ -18,9 +18,13 @@ The bounce loop is JAX's ``while_loop`` body run masked: every lane, every
 one of the ``bounces + 1`` iterations, with each update under the lane's
 ``active`` flag (a dead lane adds nothing and its ray tests return at
 once). A sample's lanes live in a :class:`..kernels.bounce.SampleState`,
-allocated once a frame and updated in place. Nothing in a frame reads a
-value back to the host, so the host queues a whole frame without waiting
-for the card.
+allocated once a frame and updated in place; the samples fold into the frame's
+sums (:class:`..kernels.bounce.FrameSums`) where the last bounce's shading
+writes its harvest, and the frame's tail is one more kernel
+(:func:`..kernels.frame.resolve_frame`, K10 of ``kernels/cuda/csrc/
+frame.cu``): the mean, the composite over the raster layer and the image.
+Nothing in a frame reads a value back to the host, so the host queues a
+whole frame without waiting for the card.
 """
 
 from __future__ import annotations
@@ -32,10 +36,12 @@ import torch
 
 from ..core.types import CameraState, RenderConfig, SceneBuffers
 from ..core.vec import Vec3
-from ..kernels.bounce import new_state, raygen_sample, shade_bounce
-from ..kernels.composite import composite
+from ..kernels.bounce import new_state, new_sums, raygen_sample, shade_bounce
+from ..kernels.frame import _pixels, resolve_frame
 from ..kernels.intersect import intersect_spheres, intersect_triangles
-from ..kernels.raygen import pixel_uv
+# pixel_uv is not used here; it stays importable from this module, as from
+# the JAX package's engine/renderer.py.
+from ..kernels.raygen import pixel_uv  # noqa: F401
 from ..kernels.traverse import intersect_bvh, intersect_bvh_triangles
 
 _M32 = 0xFFFFFFFF
@@ -47,23 +53,19 @@ class FrameResult(NamedTuple):
     rays_traced: torch.Tensor  # 0-d int64 — path segments traced this frame
 
 
-def frame_result(config: RenderConfig, cam: CameraState, rt_color: Vec3,
-                 rt_depth: torch.Tensor, rays_traced: torch.Tensor,
-                 raster_color: Optional[Vec3] = None,
-                 raster_depth=None) -> FrameResult:
-    """The traced layer (row-major ``[N]`` color and depth) composited over
-    the raster layer at ``config.level``; the raster layer defaults to white
-    at reverse-Z depth 0."""
-    dev = rt_depth.device
-    h, w = config.height, config.width
-    if raster_color is None:
-        raster_color = Vec3.splat(1.0, device=dev)
-    if raster_depth is None:
-        raster_depth = torch.zeros((), dtype=torch.float32, device=dev)
-    out = composite(config.level, rt_color, rt_depth, cam.near.to(dev),
-                    cam.far.to(dev), raster_color, raster_depth)
-    return FrameResult(image=_pixels(out, h * w).reshape(h, w, 3),
-                       rt_depth=rt_depth.reshape(h, w), rays_traced=rays_traced)
+def frame_result(config: RenderConfig, cam: CameraState, sums,
+                 rays_traced: torch.Tensor, scale=None,
+                 raster_color: Optional[Vec3] = None, raster_depth=None,
+                 blocks: bool = False) -> FrameResult:
+    """The traced layer's sums (r, g, b, depth: row-major ``[N]``, or in the
+    fused kernel's block order where ``blocks``) times ``scale`` (None, a
+    float or a count tensor), composited over the raster layer at
+    ``config.level``; the raster layer defaults to white at reverse-Z depth
+    0. One launch of K10 on the card
+    (:func:`..kernels.frame.resolve_frame`)."""
+    image, depth = resolve_frame(config, cam.near, cam.far, sums, scale,
+                                 raster_color, raster_depth, blocks)
+    return FrameResult(image=image, rt_depth=depth, rays_traced=rays_traced)
 
 
 def passthrough_frame(config: RenderConfig, raster_color: Optional[Vec3],
@@ -77,11 +79,6 @@ def passthrough_frame(config: RenderConfig, raster_color: Optional[Vec3],
         image=_pixels(raster_color, h * w).reshape(h, w, 3),
         rt_depth=torch.zeros((h, w), dtype=torch.float32, device=device),
         rays_traced=torch.zeros((), dtype=torch.int64, device=device))
-
-
-def _pixels(color: Vec3, n: int) -> torch.Tensor:
-    """[n, 3] from a Vec3 whose components broadcast to [n]."""
-    return torch.stack([torch.broadcast_to(c, (n,)) for c in color], dim=-1)
 
 
 def resolve_intersect_backend(scene: SceneBuffers,
@@ -120,11 +117,14 @@ def make_intersect_fn(scene: SceneBuffers, config: RenderConfig):
 
 
 def trace_sample(scene: SceneBuffers, cam: CameraState, config: RenderConfig,
-                 pixel_ids: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
-                 sample_index: int, frame_seed: int, intersect_fn=None,
-                 fixed_trip_count: bool = False, state=None):
+                 pixel_ids, u, v, sample_index: int, frame_seed: int,
+                 intersect_fn=None, fixed_trip_count: bool = False,
+                 state=None, sums=None, base=None):
     """Trace one sample of every pixel in ``pixel_ids`` (row-major ids, with
-    their ``u``/``v``). Returns (gamma-space color: Vec3, depth: [N], the
+    their ``u``/``v``; or an int: the first of the frame's pixels, which the
+    lanes take in row-major order, as many as ``state`` holds or the rest
+    of the frame, their ``u``/``v`` computed with the draws and the
+    arguments unread). Returns (gamma-space color: Vec3, depth: [N], the
     segments traced: 0-d int64).
 
     Twin of one iteration of ``trace_multisampled`` + ``raytrace``
@@ -143,7 +143,10 @@ def trace_sample(scene: SceneBuffers, cam: CameraState, config: RenderConfig,
     raises), reused from an earlier sample (allocated here when None); the
     returned tensors are its harvest and count, which the next sample
     traced into it overwrites. Every caller with a sample loop passes one
-    state a pass.
+    state a pass. ``sums``: a :class:`..kernels.bounce.FrameSums` of as
+    many lanes that receives ``base`` + this sample (its harvest and its
+    segments; ``base`` None: zeros, and ``base`` may be ``sums``), folded
+    in by the ray generation and the last bounce's shading.
 
     The loop is the JAX body (bevyray_tpu/engine/renderer.py:149-200) over
     every lane with updates under ``active``: ray generation, then per
@@ -156,9 +159,13 @@ def trace_sample(scene: SceneBuffers, cam: CameraState, config: RenderConfig,
     tri_bvh = (scene.tri_bvh
                if resolve_intersect_backend(scene, config) == "bvh" else None)
     if state is None:
-        state = new_state(pixel_ids.shape[0], cam, config, u.device)
+        if isinstance(pixel_ids, torch.Tensor):
+            n, dev = pixel_ids.shape[0], u.device
+        else:
+            n, dev = config.n_pixels - int(pixel_ids), scene.spheres.cx.device
+        state = new_state(n, cam, config, dev)
     raygen_sample(state, pixel_ids, u, v, cam, config, sample_index,
-                  frame_seed)
+                  frame_seed, sums, base)
     o, d, active = state.origin, state.direction, state.active
     for bounce in range(config.bounces + 1):          # wgsl:189
         t, idx = intersect_fn(o, d, active)
@@ -171,7 +178,8 @@ def trace_sample(scene: SceneBuffers, cam: CameraState, config: RenderConfig,
             else:
                 tt, ti = intersect_triangles(o, d, scene.triangles,
                                              active=active)
-        shade_bounce(state, bounce, t, idx, tt, ti, scene, config)
+        shade_bounce(state, bounce, t, idx, tt, ti, scene, config, sums,
+                     base)
     return state.color, state.depth, state.segments
 
 
@@ -185,24 +193,16 @@ def render_impl(scene: SceneBuffers, cam: CameraState, config: RenderConfig,
     if config.level == 0:
         return passthrough_frame(config, raster_color, dev)
     n = config.n_pixels
-    u, v = pixel_uv(config.width, config.height, device=dev)
-    pixel_ids = torch.arange(n, device=dev)
-    color_sum = Vec3.full((n,), 0.0, 0.0, 0.0, device=dev)
-    depth_sum = torch.zeros(n, dtype=torch.float32, device=dev)
-    segments = torch.zeros((), dtype=torch.int64, device=dev)
     intersect_fn = make_intersect_fn(scene, config)
     state = new_state(n, cam, config, dev)
+    sums = new_sums(n, dev)
     for i in range(config.samples_per_pixel):
-        color, depth, segs = trace_sample(scene, cam, config, pixel_ids, u, v,
-                                          i, frame_seed, intersect_fn,
-                                          state=state)
-        color_sum = color_sum + color
-        depth_sum = depth_sum + depth
-        segments = segments + segs
+        trace_sample(scene, cam, config, 0, None, None, i, frame_seed,
+                     intersect_fn, state=state, sums=sums,
+                     base=sums if i else None)
     inv_spp = float(np.float32(1.0 / config.samples_per_pixel))
-    return frame_result(config, cam, color_sum.scale(inv_spp),   # wgsl:169
-                        depth_sum * inv_spp, segments, raster_color,
-                        raster_depth)
+    return frame_result(config, cam, (*sums.color, sums.depth),   # wgsl:169
+                        sums.segments, inv_spp, raster_color, raster_depth)
 
 
 class Renderer:

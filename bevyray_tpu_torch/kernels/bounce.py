@@ -14,7 +14,11 @@ sample's segment count and its harvest (gamma colour and depth), beside the
 camera row (:func:`camera_row`), the frame's camera scalars computed once
 by torch on the lanes' device, and the camera and config it was made for:
 ray generation takes its camera from the state and raises when handed
-another.
+another. A frame's or a film pass's samples fold into a :class:`FrameSums`
+(:func:`new_sums`): ray generation starts its segment total and the last
+bounce's shading adds each lane's harvest, so no pass over the lanes
+follows a sample; a frame's lanes take its pixels in row-major order from
+an offset, their coordinates computed with the draws.
 
 :func:`raygen_sample` and :func:`shade_bounce` are wrappers: on CPU tensors
 they run the plain versions :func:`raygen_sample_reference` and
@@ -38,7 +42,7 @@ from ..engine import slots
 from .composite import background_gradient, linear_to_gamma
 from .intersect import (gather_materials, make_hit_info, merge_hits,
                         triangle_hit_info)
-from .raygen import _f32, generate_rays
+from .raygen import _f32, generate_rays, pixel_range
 from .shade import scatter
 
 _M32 = 0xFFFFFFFF
@@ -77,6 +81,37 @@ class SampleState(NamedTuple):
         return [*self.origin, *self.direction, *self.ray_color,
                 *self.radiance, self.active, self.first_depth, self.stream,
                 self.segments, *self.color, self.depth, self.camera]
+
+
+class FrameSums(NamedTuple):
+    """The sums a frame's or a film pass's samples fold into, updated in
+    place by :func:`raygen_sample` and :func:`shade_bounce`."""
+
+    color: Vec3                # [n] sums of the samples' gamma colours
+    depth: torch.Tensor        # [n] sums of their depths
+    segments: torch.Tensor     # 0-d int64: the segments traced
+
+    def columns(self) -> list:
+        """The tensors in the order of the binding's ``sums``."""
+        return [*self.color, self.depth, self.segments]
+
+
+def new_sums(n: int, device) -> FrameSums:
+    """Uninitialised :class:`FrameSums` of ``n`` lanes on ``device``: the
+    first sample folded in writes them."""
+    f = torch.empty((4, n), dtype=torch.float32, device=device)
+    return FrameSums(color=Vec3(f[0], f[1], f[2]), depth=f[3],
+                     segments=torch.empty((), dtype=torch.int64,
+                                          device=device))
+
+
+def _fold_args(sums, base) -> tuple:
+    """The binding's ``sums`` and ``base`` lists."""
+    if sums is None:
+        if base is not None:
+            raise ValueError("a base needs sums to fold into")
+        return [], []
+    return sums.columns(), [] if base is None else base.columns()
 
 
 def camera_row(cam: CameraState, config: RenderConfig,
@@ -135,17 +170,26 @@ def _draw_ball(stream, base: int, first_slot: int) -> Vec3:
           for k in range(rng.BALL_DRAWS)))
 
 
-def raygen_sample_reference(state: SampleState, pixel_ids: torch.Tensor,
-                            u: torch.Tensor, v: torch.Tensor,
+def raygen_sample_reference(state: SampleState, pixel_ids, u, v,
                             cam: CameraState, config: RenderConfig,
-                            sample_index: int, frame_seed: int) -> None:
-    """The plain version of :func:`raygen_sample`: the stream word of each
-    (pixel, ``sample_index``, ``frame_seed``), the jitter draws and under
-    ``config.defocus`` the lens draws, :func:`.raygen.generate_rays`, and
-    the carry's start (throughput 1, radiance 0, every lane active, first
-    depth INF, no segments), written into ``state``. ``state`` must have
-    been made for ``cam`` and ``config`` (:func:`new_state`)."""
+                            sample_index: int, frame_seed: int,
+                            sums: FrameSums = None,
+                            base: FrameSums = None) -> None:
+    """The plain version of :func:`raygen_sample`: for an int
+    ``pixel_ids`` the pixels of :func:`.raygen.pixel_range`, the stream
+    word of each (pixel, ``sample_index``, ``frame_seed``), the jitter
+    draws and under ``config.defocus`` the lens draws,
+    :func:`.raygen.generate_rays`, and the carry's start (throughput 1,
+    radiance 0, every lane active, first depth INF, no segments), written
+    into ``state``; the segment total of ``sums`` set to ``base``'s (0
+    without a base) unless ``base`` is ``sums``. ``state`` must have been
+    made for ``cam`` and ``config`` (:func:`new_state`)."""
     _check_camera(state, cam, config)
+    _fold_args(sums, base)
+    if not isinstance(pixel_ids, torch.Tensor):
+        pixel_ids, u, v = pixel_range(int(pixel_ids), state.active.numel(),
+                                      config.width, config.height,
+                                      state.active.device)
     stream = rng.stream_init(pixel_ids.to(torch.int64),
                              int(sample_index) & _M32, int(frame_seed) & _M32)
     ju = rng.draw(stream, slots.JITTER_U)
@@ -168,10 +212,17 @@ def raygen_sample_reference(state: SampleState, pixel_ids: torch.Tensor,
     state.stream.copy_(torch.where(stream > 0x7FFFFFFF, stream - (1 << 32),
                                    stream))
     state.segments.zero_()
+    if sums is not None and base is not sums:
+        if base is None:
+            sums.segments.zero_()
+        else:
+            sums.segments.copy_(base.segments)
 
 
 def shade_bounce_reference(state: SampleState, bounce: int, t, idx, tt, ti,
-                           scene: SceneBuffers, config: RenderConfig) -> None:
+                           scene: SceneBuffers, config: RenderConfig,
+                           sums: FrameSums = None,
+                           base: FrameSums = None) -> None:
     """The plain version of :func:`shade_bounce`: the JAX ``while_loop``
     body (bevyray_tpu/engine/renderer.py:149-200) after its ray tests, in
     its order of operations, on ``state`` in place. ``t``/``idx`` are the
@@ -180,9 +231,15 @@ def shade_bounce_reference(state: SampleState, bounce: int, t, idx, tt, ti,
     adds the lanes active at entry; at bounce 0 every lane's first depth
     is the merged hit's t; on the last bounce (``config.bounces``) the
     harvest takes each lane's gamma colour and its depth (the fallback
-    where no first hit)."""
+    where no first hit). With ``sums``, the segments are added to their
+    total too, and on the last bounce ``sums`` = ``base`` + the harvest
+    (``base`` None: zeros + the harvest; ``base`` may be ``sums``)."""
+    _fold_args(sums, base)
     o, d, active = state.origin, state.direction, state.active
-    state.segments.add_(active.sum())
+    n_active = active.sum()
+    state.segments.add_(n_active)
+    if sums is not None:
+        sums.segments.add_(n_active)
     hit = make_hit_info(o, d, t, idx, scene.spheres)
     if tt is not None:
         hit = merge_hits(hit, triangle_hit_info(o, d, tt, ti,
@@ -200,12 +257,12 @@ def shade_bounce_reference(state: SampleState, bounce: int, t, idx, tt, ti,
     radiance = Vec3.where(active_hit, radiance + ray_color * mat.emissive,
                           radiance)
     stream = state.stream.to(torch.int64) & _M32
-    base = slots.bounce_base(bounce)
-    sc = scatter(d, hit, mat, rng.draw(stream, base + slots.S_METAL),
-                 rng.draw(stream, base + slots.S_TRANS),
-                 rng.draw(stream, base + slots.S_REFLECT),
-                 _draw_ball(stream, base, slots.S_BALL1),
-                 _draw_ball(stream, base, slots.S_BALL2),
+    slot0 = slots.bounce_base(bounce)
+    sc = scatter(d, hit, mat, rng.draw(stream, slot0 + slots.S_METAL),
+                 rng.draw(stream, slot0 + slots.S_TRANS),
+                 rng.draw(stream, slot0 + slots.S_REFLECT),
+                 _draw_ball(stream, slot0, slots.S_BALL1),
+                 _draw_ball(stream, slot0, slots.S_BALL2),
                  diffuse_mode=config.diffuse_sampling)   # wgsl:203-211
     cont = active_hit & ~sc.absorbed
     new_color = Vec3.where(cont, ray_color * sc.attenuation, ray_color)
@@ -224,45 +281,67 @@ def shade_bounce_reference(state: SampleState, bounce: int, t, idx, tt, ti,
         state.depth.copy_(torch.where(state.first_depth >= INF,
                                       state.camera[CAM_FALLBACK],
                                       state.first_depth))
+        if sums is not None:
+            dst = [*sums.color, sums.depth]
+            if base is None:
+                src = [c.zero_() for c in dst]
+            else:
+                src = [*base.color, base.depth]
+            for out, a, b in zip(dst, src, [*state.color, state.depth]):
+                torch.add(a, b, out=out)
 
 
-def raygen_sample(state: SampleState, pixel_ids: torch.Tensor,
-                  u: torch.Tensor, v: torch.Tensor, cam: CameraState,
-                  config: RenderConfig, sample_index: int,
-                  frame_seed: int) -> None:
+def raygen_sample(state: SampleState, pixel_ids, u, v, cam: CameraState,
+                  config: RenderConfig, sample_index: int, frame_seed: int,
+                  sums: FrameSums = None, base: FrameSums = None) -> None:
     """Write sample ``sample_index`` of the pixels ``pixel_ids`` (row-major
-    ids, with their ``u``/``v``) into ``state``: the values of
+    ids, with their ``u``/``v``; or an int, the first of the frame's pixels
+    that the lanes take in row-major order, ``u``/``v`` then unread) into
+    ``state``, and with ``sums`` start their segment total at ``base``'s
+    (0 without a base; unchanged when ``base`` is ``sums``): the values of
     :func:`raygen_sample_reference`. On CPU tensors this runs the plain
     version; on CUDA tensors it launches K5 of ``cuda/csrc/bounce.cu``
-    (which reads the camera row of ``state``) or raises. Either raises
-    unless ``state`` was made for ``cam`` and ``config``.
-    ``raygen_sample.launches`` counts the launches."""
-    dev = u.device
+    (which reads the camera row of ``state`` and computes an int
+    ``pixel_ids``' coordinates) or raises. Either raises unless ``state``
+    was made for ``cam`` and ``config``. ``raygen_sample.launches`` counts
+    the launches."""
+    dev = (u.device if isinstance(pixel_ids, torch.Tensor)
+           else state.active.device)
     if dev.type == "cpu":
         raygen_sample_reference(state, pixel_ids, u, v, cam, config,
-                                sample_index, frame_seed)
+                                sample_index, frame_seed, sums, base)
         return
     _check_cuda(dev, "raygen_sample")
     _check_camera(state, cam, config)
     from .cuda.build import extension
 
+    fold = _fold_args(sums, base)
+    if isinstance(pixel_ids, torch.Tensor):
+        ids = (pixel_ids.to(torch.int64).contiguous(), u.contiguous(),
+               v.contiguous(), False, 0)
+    else:
+        empty = torch.empty(0, device=dev)
+        ids = (empty.to(torch.int64), empty, empty, True, int(pixel_ids))
     extension().raygen_sample(
-        state.columns(), pixel_ids.to(torch.int64).contiguous(),
-        u.contiguous(), v.contiguous(), int(sample_index) & _M32,
-        int(frame_seed) & _M32, bool(config.defocus))
+        state.columns(), *ids, config.width, config.height,
+        int(sample_index) & _M32, int(frame_seed) & _M32,
+        bool(config.defocus), *fold)
     raygen_sample.launches += 1
 
 
 def shade_bounce(state: SampleState, bounce: int, t, idx, tt, ti,
-                 scene: SceneBuffers, config: RenderConfig) -> None:
+                 scene: SceneBuffers, config: RenderConfig,
+                 sums: FrameSums = None, base: FrameSums = None) -> None:
     """Shade bounce ``bounce`` of every lane of ``state`` in place from its
-    ray tests' results: the values of :func:`shade_bounce_reference`. On
-    CPU tensors this runs the plain version; on CUDA tensors it launches
-    K6 of ``cuda/csrc/bounce.cu`` or raises. ``shade_bounce.launches``
-    counts the launches."""
+    ray tests' results, with ``sums`` adding its segments to their total
+    and on the last bounce ``base`` + the harvest into them: the values of
+    :func:`shade_bounce_reference`. On CPU tensors this runs the plain
+    version; on CUDA tensors it launches K6 of ``cuda/csrc/bounce.cu`` or
+    raises. ``shade_bounce.launches`` counts the launches."""
     dev = t.device
     if dev.type == "cpu":
-        shade_bounce_reference(state, bounce, t, idx, tt, ti, scene, config)
+        shade_bounce_reference(state, bounce, t, idx, tt, ti, scene, config,
+                               sums, base)
         return
     _check_cuda(dev, "shade_bounce")
     from .cuda.build import extension
@@ -285,7 +364,7 @@ def shade_bounce(state: SampleState, bounce: int, t, idx, tt, ti,
             mats.base_r, mats.base_g, mats.base_b, mats.metallic,
             mats.roughness, mats.ior, mats.specular_transmission,
             mats.emissive_r, mats.emissive_g, mats.emissive_b)],
-        int(bounce), int(bounce) == config.bounces,
+        *_fold_args(sums, base), int(bounce), int(bounce) == config.bounces,
         config.diffuse_sampling == "cosine")
     shade_bounce.launches += 1
 

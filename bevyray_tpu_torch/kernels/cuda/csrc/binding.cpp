@@ -1,7 +1,7 @@
 // Python binding of the fused path-tracing kernel (megakernel.cu), the
-// wavefront ray tests (wavefront.cu), the wavefront bounce body (bounce.cu)
-// and the image kernels: the denoiser (denoise.cu) and the raster layer
-// (raster.cu). The one source that includes PyTorch's headers: it checks the
+// wavefront ray tests (wavefront.cu), the wavefront bounce body (bounce.cu),
+// the image kernels: the denoiser (denoise.cu) and the raster layer
+// (raster.cu), and the frame's tail and the film pass's fold (frame.cu). The one source that includes PyTorch's headers: it checks the
 // tensors, launches on PyTorch's current stream and checks the launch.
 
 #include <torch/extension.h>
@@ -16,6 +16,7 @@
 #include <c10/cuda/CUDAStream.h>
 
 #include "bounce.h"
+#include "frame.h"
 #include "image.h"
 #include "megakernel.h"
 #include "wavefront.h"
@@ -425,19 +426,69 @@ WaveState wave_state(const std::vector<torch::Tensor>& state) {
   return s;
 }
 
+// `sums`: r, g, b, depth (float32, n each) and the segment total (one
+// int64), or empty (no fold); `base`: the same five of the sums the sample
+// adds to, or empty (zero); `base` may be `sums` itself.
+SumColumns sum_columns(const std::vector<torch::Tensor>& sums,
+                       const std::vector<torch::Tensor>& base, int64_t n,
+                       const torch::Tensor& like) {
+  SumColumns c{};
+  if (sums.empty()) {
+    TORCH_CHECK(base.empty(), "a base needs sums to add into");
+    return c;
+  }
+  auto total = [&like](const torch::Tensor& t, const char* name) {
+    TORCH_CHECK(t.is_cuda() && t.device() == like.device() &&
+                    t.scalar_type() == torch::kInt64 && t.numel() == 1,
+                name, " must be one int64 on the state's device");
+    return reinterpret_cast<unsigned long long*>(t.data_ptr<int64_t>());
+  };
+  TORCH_CHECK(sums.size() == 5, "sums must be r, g, b, depth and the segment total");
+  c.r = lane_floats(sums[0], n, like, "sums r");
+  c.g = lane_floats(sums[1], n, like, "sums g");
+  c.b = lane_floats(sums[2], n, like, "sums b");
+  c.depth = lane_floats(sums[3], n, like, "sums depth");
+  c.segments = total(sums[4], "the sums' segment total");
+  if (!base.empty()) {
+    TORCH_CHECK(base.size() == 5, "base must be r, g, b, depth and the segment total");
+    c.base_r = column(base[0], n, like, "base r");
+    c.base_g = column(base[1], n, like, "base g");
+    c.base_b = column(base[2], n, like, "base b");
+    c.base_depth = column(base[3], n, like, "base depth");
+    c.base_segments = total(base[4], "the base's segment total");
+  }
+  return c;
+}
+
+// Lane i takes pixel `pixel_ids[i]` at `u[i]`, `v[i]`, or with `by_index`
+// pixel `first` + i of the `width` x `height` frame (the three tensors then
+// unread).
 void raygen_sample(const std::vector<torch::Tensor>& state, const torch::Tensor& pixel_ids,
-                   const torch::Tensor& u, const torch::Tensor& v, int64_t sample,
-                   int64_t seed, bool defocus) {
+                   const torch::Tensor& u, const torch::Tensor& v, bool by_index,
+                   int64_t first, int64_t width, int64_t height, int64_t sample, int64_t seed,
+                   bool defocus, const std::vector<torch::Tensor>& sums,
+                   const std::vector<torch::Tensor>& base) {
   const WaveState s = wave_state(state);
   const torch::Tensor& like = state[0];
-  const int64_t* ids = longs(pixel_ids, s.n, like, "pixel_ids");
-  const float* pu = column(u, s.n, like, "u");
-  const float* pv = column(v, s.n, like, "v");
+  const int64_t* ids = nullptr;
+  const float* pu = nullptr;
+  const float* pv = nullptr;
+  if (by_index) {
+    TORCH_CHECK(width > 0 && height > 0 && width * height < (int64_t{1} << 31) && first >= 0 &&
+                    first + s.n <= width * height,
+                "the lanes must be pixels of the frame: first + n <= width * height < 2^31");
+  } else {
+    ids = longs(pixel_ids, s.n, like, "pixel_ids");
+    pu = column(u, s.n, like, "u");
+    pv = column(v, s.n, like, "v");
+  }
   TORCH_CHECK(sample >= 0 && sample <= 0xFFFFFFFFLL && seed >= 0 && seed <= 0xFFFFFFFFLL,
               "sample and seed must be u32 words");
+  const SumColumns c = sum_columns(sums, base, s.n, like);
   const c10::cuda::CUDAGuard guard(like.device());
-  launch_raygen_sample(s, ids, pu, pv, static_cast<uint32_t>(sample),
-                       static_cast<uint32_t>(seed), defocus,
+  launch_raygen_sample(s, ids, pu, pv, static_cast<int>(first), static_cast<int>(width),
+                       static_cast<int>(height), static_cast<uint32_t>(sample),
+                       static_cast<uint32_t>(seed), defocus, c,
                        c10::cuda::getCurrentCUDAStream().stream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
@@ -447,12 +498,14 @@ void raygen_sample(const std::vector<torch::Tensor>& state, const torch::Tensor&
 // cy, cz (float32), material_id (int32); `tris`: the nine corner columns
 // (float32) and material_id (int32), or empty without triangles;
 // `materials`: base r, g, b, metallic, roughness, ior, transmission,
-// emissive r, g, b (float32).
+// emissive r, g, b (float32). `sums` and `base` as raygen_sample's.
 void shade_bounce(const std::vector<torch::Tensor>& state, const torch::Tensor& t,
                   const torch::Tensor& index, const torch::Tensor& tri_t,
                   const torch::Tensor& tri_index, const std::vector<torch::Tensor>& spheres,
                   const std::vector<torch::Tensor>& tris,
-                  const std::vector<torch::Tensor>& materials, int64_t bounce, bool last,
+                  const std::vector<torch::Tensor>& materials,
+                  const std::vector<torch::Tensor>& sums,
+                  const std::vector<torch::Tensor>& base, int64_t bounce, bool last,
                   bool cosine) {
   const WaveState s = wave_state(state);
   const torch::Tensor& like = state[0];
@@ -484,8 +537,9 @@ void shade_bounce(const std::vector<torch::Tensor>& state, const torch::Tensor& 
   for (int k = 0; k < 10; ++k) sc.mat[k] = column(materials[k], n_mat, like, "materials");
   sc.n_materials = rows(n_mat, "materials");
   TORCH_CHECK(bounce >= 0 && bounce < (int64_t{1} << 24), "bounce must be a small count");
+  const SumColumns c = sum_columns(sums, base, s.n, like);
   const c10::cuda::CUDAGuard guard(like.device());
-  launch_shade_bounce(s, hit, sc, static_cast<int>(bounce), last, cosine,
+  launch_shade_bounce(s, hit, sc, c, static_cast<int>(bounce), last, cosine,
                       c10::cuda::getCurrentCUDAStream().stream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
@@ -637,6 +691,151 @@ std::map<std::string, std::map<std::string, int64_t>> image_info(int64_t device)
   return out;
 }
 
+// ---- the frame's tail and the film pass's fold --------------------------------
+
+// One float32 a frame or one a pixel (`n`) on `like`'s device: the stride.
+int per_pixel(const torch::Tensor& t, int64_t n, const torch::Tensor& like, const char* name) {
+  check_f32(t, like, name);
+  TORCH_CHECK(t.numel() == 1 || (t.dim() == 1 && t.numel() == n), name,
+              " must hold one float or one a pixel");
+  return t.numel() == 1 ? 0 : 1;
+}
+
+const float* one_float(const torch::Tensor& t, const torch::Tensor& like, const char* name) {
+  check_f32(t, like, name);
+  TORCH_CHECK(t.numel() == 1, name, " must be one float");
+  return t.data_ptr<float>();
+}
+
+// The pixels of a `width` x `height` frame and its block grid's width, with
+// the block-ordered sums' lanes checked: whole 64 x 64 blocks covering it.
+int64_t frame_pixels(int64_t width, int64_t height, int64_t nbx, int64_t lanes) {
+  TORCH_CHECK(width > 0 && height > 0 && width * height < (int64_t{1} << 31),
+              "the frame must have between 1 and 2^31 pixels");
+  if (nbx > 0) {
+    const int64_t nby = (height + 63) / 64;
+    TORCH_CHECK(nbx == (width + 63) / 64 && lanes >= nbx * nby * kTile &&
+                    lanes < (int64_t{1} << 31),
+                "block-ordered sums must cover the frame's 64x64 block grid");
+  }
+  return width * height;
+}
+
+// K10: `sums` r, g, b, depth (float32, row-major width * height each, or
+// with `nbx` > 0 block-ordered over the frame's block grid); `count` empty
+// or one float32 / one a pixel; `inv` read when `has_inv` and `count` is
+// empty; `near`/`far` one float32 each; `raster` empty (white) or three
+// columns of one float / one a pixel; `raster_depth` empty (0) or one
+// float / one a pixel; `image` [height, width, 3] and `depth` [height,
+// width] float32.
+void resolve_frame(const std::vector<torch::Tensor>& sums, int64_t nbx, bool has_inv,
+                   double inv, const torch::Tensor& count, int64_t level,
+                   const torch::Tensor& near, const torch::Tensor& far,
+                   const std::vector<torch::Tensor>& raster, const torch::Tensor& raster_depth,
+                   torch::Tensor image, torch::Tensor depth, int64_t width, int64_t height) {
+  TORCH_CHECK(sums.size() == 4, "sums must be r, g, b, depth");
+  const torch::Tensor& like = sums[3];
+  const int64_t n = frame_pixels(width, height, nbx, like.numel());
+  FrameTail a{};
+  for (int k = 0; k < 4; ++k) {
+    a.sum[k] = column(sums[k], nbx > 0 ? like.numel() : n, like, "sums");
+  }
+  a.nbx = static_cast<int>(nbx);
+  a.has_inv = has_inv;
+  a.inv = static_cast<float>(inv);
+  if (count.numel() > 0) {
+    a.count_stride = per_pixel(count, n, like, "count");
+    a.count = count.data_ptr<float>();
+  }
+  TORCH_CHECK(level >= 0 && level < (int64_t{1} << 24), "level must be a small count");
+  a.level = static_cast<int>(level);
+  a.near = one_float(near, like, "near");
+  a.far = one_float(far, like, "far");
+  if (!raster.empty()) {
+    TORCH_CHECK(raster.size() == 3, "raster must be r, g, b");
+    for (int k = 0; k < 3; ++k) {
+      a.raster_stride[k] = per_pixel(raster[k], n, like, "raster colour");
+      a.raster[k] = raster[k].data_ptr<float>();
+    }
+  }
+  if (raster_depth.numel() > 0) {
+    a.raster_depth_stride = per_pixel(raster_depth, n, like, "raster depth");
+    a.raster_depth = raster_depth.data_ptr<float>();
+  }
+  check_f32(image, like, "image");
+  check_f32(depth, like, "depth");
+  TORCH_CHECK(image.dim() == 3 && image.size(0) == height && image.size(1) == width &&
+                  image.size(2) == 3,
+              "image must be (height, width, 3)");
+  TORCH_CHECK(depth.dim() == 2 && depth.size(0) == height && depth.size(1) == width,
+              "depth must be (height, width)");
+  a.image = image.data_ptr<float>();
+  a.depth = depth.data_ptr<float>();
+  a.width = static_cast<int>(width);
+  a.height = static_cast<int>(height);
+  const c10::cuda::CUDAGuard guard(like.device());
+  launch_resolve_frame(a, c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// K11: `film` r, g, b, depth (float32, width * height each, row-major);
+// `pass` the pass's r, g, b, depth in block order; `out` four new float32
+// columns like the film's; `n_in`/`n_out` one float32 each, `total_in`,
+// `segments`, `total_out` one int64 each.
+void fold_pass(const std::vector<torch::Tensor>& film, const std::vector<torch::Tensor>& pass,
+               const std::vector<torch::Tensor>& out, const torch::Tensor& n_in,
+               torch::Tensor n_out, double spp, const torch::Tensor& total_in,
+               const torch::Tensor& segments, torch::Tensor total_out, int64_t nbx,
+               int64_t width, int64_t height) {
+  TORCH_CHECK(film.size() == 4 && pass.size() == 4 && out.size() == 4,
+              "film, pass and out must each be r, g, b, depth");
+  const torch::Tensor& like = film[3];
+  TORCH_CHECK(nbx > 0, "the pass's sums are block-ordered");
+  const int64_t n = frame_pixels(width, height, nbx, pass[3].numel());
+  PassFold a{};
+  for (int k = 0; k < 4; ++k) {
+    a.film[k] = column(film[k], n, like, "film sums");
+    a.pass[k] = column(pass[k], pass[3].numel(), like, "pass sums");
+    a.out[k] = lane_floats(out[k], n, like, "out");
+  }
+  a.n_in = one_float(n_in, like, "n_in");
+  a.n_out = const_cast<float*>(one_float(n_out, like, "n_out"));
+  a.spp = static_cast<float>(spp);
+  auto total = [&like](const torch::Tensor& t, const char* name) {
+    TORCH_CHECK(t.is_cuda() && t.device() == like.device() &&
+                    t.scalar_type() == torch::kInt64 && t.numel() == 1,
+                name, " must be one int64 on the film's device");
+    return t.data_ptr<int64_t>();
+  };
+  a.total_in = total(total_in, "total_in");
+  a.segments = total(segments, "segments");
+  a.total_out = total(total_out, "total_out");
+  a.nbx = static_cast<int>(nbx);
+  a.width = static_cast<int>(width);
+  a.height = static_cast<int>(height);
+  const c10::cuda::CUDAGuard guard(like.device());
+  launch_fold_pass(a, c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// Registers, spills, shared memory and resident blocks per SM of K10 and
+// K11 on CUDA device `device`.
+std::map<std::string, std::map<std::string, int64_t>> frame_info(int64_t device) {
+  const c10::cuda::CUDAGuard guard(static_cast<c10::DeviceIndex>(device));
+  std::map<std::string, std::map<std::string, int64_t>> out;
+  const char* names[] = {"resolve_frame", "fold_pass"};
+  for (int which = 0; which < 2; ++which) {
+    WaveKernelInfo info{};
+    C10_CUDA_CHECK(::frame_kernel_info(which, &info));
+    out[names[which]] = {{"num_regs", info.num_regs},
+                         {"local_bytes", info.local_bytes},
+                         {"static_smem", info.static_smem},
+                         {"dynamic_smem", info.dynamic_smem},
+                         {"blocks_per_sm", info.blocks_per_sm}};
+  }
+  return out;
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -665,4 +864,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "The raster layer's ambient shade and reverse-Z depth of every ray (K9)");
   m.def("image_info", &image_info,
         "Registers, spills, shared memory and occupancy of the K7, K8 and K9 kernels");
+  m.def("resolve_frame", &resolve_frame,
+        "A frame's sums resolved and composited into its image and depth (K10)");
+  m.def("fold_pass", &fold_pass, "A fused film pass folded into a new film (K11)");
+  m.def("frame_info", &frame_info,
+        "Registers, spills, shared memory and occupancy of the K10 and K11 kernels");
 }

@@ -5,15 +5,20 @@
 // jitted `trace_sample` of bevyray_tpu/engine/renderer.py, which XLA fuses
 // into a few passes over the lanes a bounce.
 //
-// - raygen_sample (K5): the stream, jitter and lens draws and
-//   `generate_rays` (renderer.py:103-112, kernels/raygen.py:40-70) and the
-//   carry's init (:130-139);
+// - raygen_sample (K5): the pixel's centre coordinates `pixel_uv`
+//   (kernels/raygen.py:29-38) where a frame's lanes take its pixels in
+//   order, the stream, jitter and lens draws and `generate_rays`
+//   (renderer.py:103-112, kernels/raygen.py:40-70) and the carry's init
+//   (:130-139);
 // - shade_bounce (K6): the `while_loop` body (:149-200) without its ray
 //   tests: the sphere and triangle hit records and their merge, the first
 //   hit's depth, the sky on a miss, the material gather and emission,
 //   `scatter` (kernels/shade.py) and the carry's update, with the segment
 //   count; on the last bounce the sample's harvest (:207-212): its gamma
-//   colour and its depth.
+//   colour and its depth. With the frame's (or film's) sums, each bounce
+//   adds its segments to their total and the last bounce adds the harvest
+//   to them: the per-sample adds of `render_impl` (:215-236) and
+//   `accumulate_impl` (engine/film.py:80-95).
 //
 // Each computes what its plain PyTorch version in kernels/bounce.py
 // computes, term for term, in IEEE float32 with no contraction
@@ -31,14 +36,22 @@
 // (the draws' integer hashes and one branch's transcendentals); a miss
 // reads only d, the throughput, the radiance and the t's, and writes the
 // radiance and the flag; a lane that is inactive at entry reads its flag
-// and writes nothing but the harvest on the last bounce. K5 writes 57 bytes a lane and reads 16. What the design
+// and writes nothing but the harvest on the last bounce; with sums, the last
+// bounce also reads the base's 16 bytes a lane (none on a frame's first
+// sample) and writes the sums' 16. K5 writes 57 bytes a lane and reads 16,
+// or 0 where it takes a frame's pixels in order. What the design
 // does about it:
 //
 // - each column is read and written once a bounce, coalesced (lane i at
 //   thread i), and the tables (spheres, triangles, materials) are gathered
 //   through the read-only cache;
 // - the segment count is one __syncthreads_count and one 64-bit atomicAdd
-//   a block: an integer sum, exact and the same in every run;
+//   a block (two with sums): an integer sum, exact and the same in every
+//   run;
+// - a frame's lanes compute their pixel and its coordinates from the lane
+//   index (IEEE division, as `pixel_uv`), so no id or coordinate column is
+//   made or read; the sums are added where the harvest is written, so no
+//   pass over the lanes follows a sample;
 // - the stream word is computed once a sample (K5) and kept as 4 bytes a
 //   lane, cheaper than the pixel id's 8 that K6 would hash again.
 
@@ -79,13 +92,33 @@ __device__ __forceinline__ int clamp_id(int id, int rows) { return min(max(id, 0
 // K5: raygen_sample_reference, one thread a lane.
 __global__ void __launch_bounds__(kThreads)
     raygen_kernel(WaveState s, const int64_t* __restrict__ pixel_ids,
-                  const float* __restrict__ u, const float* __restrict__ v, uint32_t sample,
-                  uint32_t seed, bool defocus) {
+                  const float* __restrict__ u, const float* __restrict__ v, int first, int width,
+                  int height, uint32_t sample, uint32_t seed, bool defocus, SumColumns sums) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i == 0) *s.segments = 0ull;
+  if (i == 0) {
+    *s.segments = 0ull;
+    if (sums.r != nullptr && sums.base_segments != sums.segments) {
+      *sums.segments = sums.base_segments != nullptr ? *sums.base_segments : 0ull;
+    }
+  }
   if (i >= s.n) return;
   const float* cam = s.camera;
-  const uint32_t stream = stream_init(static_cast<uint32_t>(pixel_ids[i]), sample, seed);
+  uint32_t pixel;
+  float pu, pv;
+  if (pixel_ids != nullptr) {
+    pixel = static_cast<uint32_t>(pixel_ids[i]);
+    pu = u[i];
+    pv = v[i];
+  } else {
+    // pixel_uv (kernels/raygen.py): (x + 0.5) / width, (y + 0.5) / height.
+    const int p = first + i;
+    const int y = p / width;
+    const int x = p - y * width;
+    pixel = static_cast<uint32_t>(p);
+    pu = (static_cast<float>(x) + 0.5f) / static_cast<float>(width);
+    pv = (static_cast<float>(y) + 0.5f) / static_cast<float>(height);
+  }
+  const uint32_t stream = stream_init(pixel, sample, seed);
   const ExactDraws draws(stream, 0);
   const V3 cam_pos = {__ldg(cam + CAM_POS_X), __ldg(cam + CAM_POS_Y), __ldg(cam + CAM_POS_Z)};
   const V3 cam_dir = {__ldg(cam + CAM_DIR_X), __ldg(cam + CAM_DIR_Y), __ldg(cam + CAM_DIR_Z)};
@@ -97,8 +130,8 @@ __global__ void __launch_bounds__(kThreads)
   // generate_rays (kernels/raygen.py): w = h * aspect is the row's.
   const float ju = draws.jitter(0);
   const float jv = draws.jitter(1);
-  const float ndc_x = (u[i] * 2.0f - 1.0f) + (ju - 0.5f) / __ldg(cam + CAM_WIDTH);
-  const float ndc_y = (1.0f - v[i] * 2.0f) + (jv - 0.5f) / __ldg(cam + CAM_HEIGHT);
+  const float ndc_x = (pu * 2.0f - 1.0f) + (ju - 0.5f) / __ldg(cam + CAM_WIDTH);
+  const float ndc_y = (1.0f - pv * 2.0f) + (jv - 0.5f) / __ldg(cam + CAM_HEIGHT);
   V3 d = normalize(add(add(cam_dir, scale(right, ndc_x * aspect * c_scale)),
                        scale(up, ndc_y * c_scale)));
   V3 o = cam_pos;
@@ -123,8 +156,8 @@ __global__ void __launch_bounds__(kThreads)
 
 // K6: shade_bounce_reference, one thread a lane.
 __global__ void __launch_bounds__(kThreads)
-    shade_kernel(WaveState s, HitColumns hit, ShadeScene sc, int bounce, bool last,
-                 bool cosine) {
+    shade_kernel(WaveState s, HitColumns hit, ShadeScene sc, SumColumns sums, int bounce,
+                 bool last, bool cosine) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   const bool in = i < s.n;
   const bool live = in && s.active[i];
@@ -132,6 +165,7 @@ __global__ void __launch_bounds__(kThreads)
   const int count = __syncthreads_count(live);
   if (threadIdx.x == 0 && count > 0) {
     atomicAdd(s.segments, static_cast<unsigned long long>(count));
+    if (sums.r != nullptr) atomicAdd(sums.segments, static_cast<unsigned long long>(count));
   }
   if (!in) return;
 
@@ -227,10 +261,20 @@ __global__ void __launch_bounds__(kThreads)
     // The sample's harvest: gamma per sample and the depth's fallback.
     if (!live) rad = load3(s.rad_r, s.rad_g, s.rad_b, i);
     const float first = bounce == 0 ? hit_t : s.first_depth[i];
-    store3(s.out_r, s.out_g, s.out_b, i,
-           {sqrtf(max_nan(rad.x, 0.0f)), sqrtf(max_nan(rad.y, 0.0f)),
-            sqrtf(max_nan(rad.z, 0.0f))});
-    s.out_depth[i] = first >= kInf ? __ldg(s.camera + CAM_FALLBACK) : first;
+    const V3 c = {sqrtf(max_nan(rad.x, 0.0f)), sqrtf(max_nan(rad.y, 0.0f)),
+                  sqrtf(max_nan(rad.z, 0.0f))};
+    const float depth = first >= kInf ? __ldg(s.camera + CAM_FALLBACK) : first;
+    store3(s.out_r, s.out_g, s.out_b, i, c);
+    s.out_depth[i] = depth;
+    if (sums.r != nullptr) {
+      // base + harvest; a frame's first sample adds to 0.0f, as torch's
+      // zeros + harvest does (a -0.0 harvest gives +0.0).
+      const bool base = sums.base_r != nullptr;
+      sums.r[i] = (base ? sums.base_r[i] : 0.0f) + c.x;
+      sums.g[i] = (base ? sums.base_g[i] : 0.0f) + c.y;
+      sums.b[i] = (base ? sums.base_b[i] : 0.0f) + c.z;
+      sums.depth[i] = (base ? sums.base_depth[i] : 0.0f) + depth;
+    }
   }
 }
 
@@ -253,17 +297,20 @@ cudaError_t facts(Kernel kernel, WaveKernelInfo* out) {
 }  // namespace
 
 void launch_raygen_sample(const WaveState& s, const int64_t* pixel_ids, const float* u,
-                          const float* v, uint32_t sample, uint32_t seed, bool defocus,
+                          const float* v, int first, int width, int height, uint32_t sample,
+                          uint32_t seed, bool defocus, const SumColumns& sums,
                           cudaStream_t stream) {
   // At least one block: thread 0 zeroes the segment count.
-  raygen_kernel<<<grid_for(s.n), kThreads, 0, stream>>>(s, pixel_ids, u, v, sample, seed,
-                                                        defocus);
+  raygen_kernel<<<grid_for(s.n), kThreads, 0, stream>>>(s, pixel_ids, u, v, first, width,
+                                                        height, sample, seed, defocus, sums);
 }
 
 void launch_shade_bounce(const WaveState& s, const HitColumns& hit, const ShadeScene& scene,
-                         int bounce, bool last, bool cosine, cudaStream_t stream) {
+                         const SumColumns& sums, int bounce, bool last, bool cosine,
+                         cudaStream_t stream) {
   if (s.n == 0) return;
-  shade_kernel<<<grid_for(s.n), kThreads, 0, stream>>>(s, hit, scene, bounce, last, cosine);
+  shade_kernel<<<grid_for(s.n), kThreads, 0, stream>>>(s, hit, scene, sums, bounce, last,
+                                                       cosine);
 }
 
 cudaError_t bounce_kernel_info(int which, WaveKernelInfo* out) {

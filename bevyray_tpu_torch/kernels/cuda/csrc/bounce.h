@@ -49,6 +49,23 @@ struct WaveState {
   int n;
 };
 
+// The sums a sample folds into (kernels/bounce.py FrameSums): r, g, b and
+// depth, n each, and the segment total (one int64); null `r`: no fold. The
+// sample adds its harvest and its segments to `base` (null: zero), which
+// may be these sums themselves (in place).
+struct SumColumns {
+  float* r;
+  float* g;
+  float* b;
+  float* depth;
+  unsigned long long* segments;
+  const float* base_r;
+  const float* base_g;
+  const float* base_b;
+  const float* base_depth;
+  const unsigned long long* base_segments;
+};
+
 // A bounce's ray test results: the sphere test's (t, index) and, for a
 // scene with triangles, the triangle test's (null without).
 struct HitColumns {
@@ -74,15 +91,22 @@ struct ShadeScene {
   int n_materials;
 };
 
-// K5: the sample's start state of every lane (`pixel_ids` int64, `u`/`v`
-// its pixel's coordinates), and the segment count zeroed. K6: bounce
-// `bounce` of every lane, the harvest written when `last`. Both launch on
-// `stream` and allocate nothing; the caller checks the launch.
+// K5: the sample's start state of every lane, and the segment count
+// zeroed: lane i takes pixel `pixel_ids[i]` (int64) at `u[i]`, `v[i]`, or
+// where `pixel_ids` is null pixel `first` + i of the `width` x `height`
+// frame in row-major order, at its centre's coordinates. With `sums`, the
+// segment total starts at the base's (0 without one) unless the sums are
+// their own base. K6: bounce `bounce` of every lane, its segments added to
+// the total of `sums` too; when `last`, the harvest written and, with
+// `sums`, added to the base into the sums. Both launch on `stream` and
+// allocate nothing; the caller checks the launch.
 void launch_raygen_sample(const WaveState& s, const int64_t* pixel_ids, const float* u,
-                          const float* v, uint32_t sample, uint32_t seed, bool defocus,
+                          const float* v, int first, int width, int height, uint32_t sample,
+                          uint32_t seed, bool defocus, const SumColumns& sums,
                           cudaStream_t stream);
 void launch_shade_bounce(const WaveState& s, const HitColumns& hit, const ShadeScene& scene,
-                         int bounce, bool last, bool cosine, cudaStream_t stream);
+                         const SumColumns& sums, int bounce, bool last, bool cosine,
+                         cudaStream_t stream);
 
 // The facts of K5 (which 0) or K6 (which 1).
 cudaError_t bounce_kernel_info(int which, WaveKernelInfo* out);

@@ -38,6 +38,18 @@ def pixel_uv(width: int, height: int, device=None):
     return u, v
 
 
+def pixel_range(first: int, n: int, width: int, height: int, device=None):
+    """Pixels ``first .. first + n`` of a ``width`` x ``height`` frame in
+    row-major order, as (int64 ids, u, v): the coordinates of
+    :func:`pixel_uv` (the same operations, so the same bits as its slice),
+    computed from the ids as the wavefront path's K5 computes them."""
+    ids = torch.arange(first, first + n, device=device)
+    xs = (ids % width).to(torch.float32)
+    ys = (ids // width).to(torch.float32)
+    return (ids, (xs + 0.5) / _f32(width, device),
+            (ys + 0.5) / _f32(height, device))
+
+
 def generate_rays(u, v, jitter_u, jitter_v, cam: CameraState, height: int,
                   lens_u=None, lens_v=None):
     """Jittered perspective primary rays (raytrace.wgsl:139-156) as

@@ -40,14 +40,12 @@ from ..core.types import (CameraState, RenderConfig, SceneBuffers, Spheres,
                           camera_key, host_array, host_camera, upload)
 from ..core.vec import Vec3
 from ..engine.renderer import FrameResult, frame_result, trace_sample
-from ..kernels.bounce import new_state
+from ..kernels.bounce import new_state, new_sums
 from ..kernels.cuda.megakernel import (KernelScene, block_grid,
                                        kernel_scene_cache_key, morton_order,
-                                       prepare_kernel_scene, render_tiles,
-                                       unshuffle_blocks)
+                                       prepare_kernel_scene, render_tiles)
 from ..kernels.cuda.primary import shortlists_for
 from ..kernels.intersect import intersect_spheres
-from ..kernels.raygen import pixel_uv
 
 AXES = ("sp", "dp", "tp")
 _M32 = 0xFFFFFFFF
@@ -180,8 +178,9 @@ def render_frame_sharded(mesh: Mesh, scene: SceneBuffers, cam: CameraState,
     """One frame of the wavefront step over ``mesh``: shard (sp_i, dp_i)
     traces samples ``dp_i * spp/dp ..`` of pixel range sp_i (the pixel count
     must divide by sp), its sphere tests split over tp (every bounce runs,
-    as in the JAX package). The color and depth sums are added over dp,
-    averaged and composited on the mesh's first device."""
+    as in the JAX package), its samples folded into the shard's sums by
+    the shading. The color and depth sums are added over dp, averaged and
+    composited on the mesh's first device."""
     sp, dp, tp = (mesh.shape[a] for a in AXES)
     n = config.n_pixels
     if n % sp:
@@ -189,30 +188,23 @@ def render_frame_sharded(mesh: Mesh, scene: SceneBuffers, cam: CameraState,
     local_spp = _check_spp(config, dp)
     n_local = n // sp
     seed = int(frame_seed) & _M32
-    u, v = pixel_uv(config.width, config.height, device=mesh.device(0, 0))
-    ids = torch.arange(n, device=mesh.device(0, 0))
     parts = {}
     for sp_i in range(sp):
-        rows = slice(sp_i * n_local, (sp_i + 1) * n_local)
         for dp_i in range(dp):
             dev = mesh.device(sp_i, dp_i)
             scene_d, cam_d = _scene_on(scene, dev), _camera_on(cam, dev)
-            u_d, v_d, ids_d = (x[rows].to(dev) for x in (u, v, ids))
             intersect_fn = (_tp_intersect_fn(scene, config, mesh, sp_i, dp_i)
                             if tp > 1 else None)
-            color_sum = Vec3.full((n_local,), 0.0, 0.0, 0.0, device=dev)
-            depth_sum = torch.zeros(n_local, dtype=torch.float32, device=dev)
-            segments = torch.zeros((), dtype=torch.int64, device=dev)
             state = new_state(n_local, cam_d, config, dev)
+            sums = new_sums(n_local, dev)
             for k in range(local_spp):
-                color, depth, segs = trace_sample(
-                    scene_d, cam_d, config, ids_d, u_d, v_d,
-                    dp_i * local_spp + k, seed, intersect_fn=intersect_fn,
-                    fixed_trip_count=tp > 1, state=state)
-                color_sum = color_sum + color
-                depth_sum = depth_sum + depth
-                segments = segments + segs
-            parts[sp_i, dp_i] = color_sum, depth_sum, segments
+                # The shard's pixels from sp_i * n_local, in row-major order.
+                trace_sample(scene_d, cam_d, config, sp_i * n_local, None,
+                             None, dp_i * local_spp + k, seed,
+                             intersect_fn=intersect_fn,
+                             fixed_trip_count=tp > 1, state=state, sums=sums,
+                             base=sums if k else None)
+            parts[sp_i, dp_i] = sums.color, sums.depth, sums.segments
     return _reduce_and_composite(mesh, parts, config, cam, raster_color,
                                  raster_depth, blocks=False)
 
@@ -222,8 +214,10 @@ def _reduce_and_composite(mesh: Mesh, parts: dict, config: RenderConfig,
                           blocks: bool) -> FrameResult:
     """Sum each sp shard's (color, depth) over dp in ascending order and
     the segments over every shard, on the mesh's first device; join the sp
-    shards, scale by 1/spp, put the fused step's pixel blocks (``blocks``)
-    back in scanline order and crop, and composite."""
+    shards; then one launch of K10 on the card
+    (:func:`..engine.renderer.frame_result`): scale by 1/spp, put the fused
+    step's pixel blocks (``blocks``) back in scanline order and crop, and
+    composite."""
     sp, dp = mesh.shape["sp"], mesh.shape["dp"]
     dev0 = mesh.device(0, 0)
     colors, depths = [], []
@@ -232,13 +226,10 @@ def _reduce_and_composite(mesh: Mesh, parts: dict, config: RenderConfig,
         depths.append(_psum([parts[sp_i, k][1] for k in range(dp)], dev0))
     segments = _psum([p[2] for p in parts.values()], dev0)
     inv_spp = float(np.float32(1.0 / config.samples_per_pixel))
-    rt = [torch.cat([c[k] for c in colors]) * inv_spp for k in range(3)]
-    rt_depth = torch.cat(depths) * inv_spp
-    if blocks:
-        rt = [unshuffle_blocks(x, config) for x in rt]
-        rt_depth = unshuffle_blocks(rt_depth, config)
-    return frame_result(config, _camera_on(cam, dev0), Vec3(*rt), rt_depth,
-                        segments, raster_color, raster_depth)
+    sums = [torch.cat([c[k] for c in colors]) for k in range(3)]
+    return frame_result(config, _camera_on(cam, dev0),
+                        (*sums, torch.cat(depths)), segments, inv_spp,
+                        raster_color, raster_depth, blocks=blocks)
 
 
 # ---------------------------------------------------------------------------

@@ -97,7 +97,8 @@ taking the dense test, 80 K2 launches), the wavefront sharded step on
 mesh (2, 1, 2) and a ``ProgressiveRenderer(backend="xla")`` pass (K5 and
 K6 in every run), each frame equal (image, depth, segments) to the one
 with the plain bounce body patched in, and the headline frame equal to
-the one with every plain version patched in; (b) each kernel against its
+the one with every plain version (the tail's too) patched in, each run one
+launch of the frame's tail K10; (b) each kernel against its
 plain version on the same CUDA tensors: the ray tests t max |d| 0 and
 index equal on every lane, at bounces 0 and 2 of real frames with their
 active masks (K2 and K4 also on the cube field), on the leaf-4 BVH, a
@@ -105,11 +106,14 @@ active masks (K2 and K4 also on the cube field), on the leaf-4 BVH, a
 masks, rows twice, every third triangle row invalid and the raster
 layer's call; K5 on the headline's pixels (all, the first
 ``ODD_LANES``, a shard's half at another sample) and the night scene's
-lens, K6 on the states of bounces 0, 2 and 4 of the headline, config 5
-(also at level 1), the cube field, 4,971 spheres by the BVH, the night
-scene (lens, emission, cosine lobes) and odd lanes, every column of the
-state bit-equal and the segments equal; each with its time beside its
-bound (the dense tests' also at the issue rate); (c) ``host_syncs`` over
+lens, by id tensor and by index (a frame's pixels in order from an
+offset) folding into the frame's sums, K6 on the states of bounces 0, 2
+and 4 of the headline, config 5 (also at level 1), the cube field, 4,971
+spheres by the BVH, the night scene (lens, emission, cosine lobes) and odd
+lanes, without sums and folding into them (from zero, from another film's
+and in place), every column of the state and the sums bit-equal and the
+segments equal; each with its time beside its bound (the dense tests'
+also at the issue rate); (c) ``host_syncs`` over
 ``Renderer`` frames (brute, bvh, mesh) and a config-5 round, which must
 be empty; (d) the kernels of a 1-spp and a 16-spp wavefront frame and
 the card's busy time (torch's profiler).
@@ -125,6 +129,21 @@ far fallback; K8 ``raster_rays`` and K9 ``raster_shade``
 where every pixel misses; each bit-equal to its plain version
 (``engine/denoise.py``, ``engine/raster.py``), with its time beside its
 bound and the plain version's.
+
+Phase 15 holds the frame's tail and the fused film pass's fold
+(``kernels/cuda/csrc/frame.cu``), which replace the tails of the JAX
+package's jitted frame programs and ``pallas_accumulate_impl``'s fold:
+K10 ``resolve_frame`` (the block order undone, the mean, the composite
+and the image; one launch a frame of either renderer and a film's
+resolve, counted in phases 3, 5 and 13(a)) on the fused and wavefront
+headline, BASELINE config 4's film (a fresh one and after two passes), an
+``AdaptiveFilm`` (counts a pixel), config 5 at levels 2, 1 and 0 over its
+raster layer and ``ODD_IMAGE`` at every level over three raster layers;
+K11 ``fold_pass`` (one launch a fused film pass, counted in phase 5) on
+config 4's passes and at ``ODD_IMAGE``, the old film unchanged; each
+bit-equal to its plain version (``kernels/frame.py``), with its time
+beside its bound and the plain version's, and the kernels and busy time of
+a fused headline frame and of a config-4 film pass (torch's profiler).
 
 Each phase prints its lines; the line before the last is the kernel table
 as JSON, and the last line is ``{"ok": true, "device": {...}}``. Any failed
@@ -144,6 +163,9 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+# K10 and K11 launches in the main-path runs of phases 3, 5 and 13(a), each
+# between a zeroing of the counts and their reading.
+TAIL_LAUNCHES = collections.Counter()
 KERNEL_SOURCE = "bevyray_tpu_torch/kernels/cuda/csrc/megakernel.cu"
 TPU_KERNEL = "bevyray_tpu/kernels/pallas/megakernel.py"
 # The branch of the TPU kernel that each (primary, intersect) mode replaces.
@@ -320,6 +342,24 @@ RASTER_RAYS_OPS, RASTER_SHADE_OPS = 50, 130
 # direction (20); each table row once (nine corners and six colours).
 ATROUS_PIXEL_BYTES, RAYS_PIXEL_BYTES = 28, 24
 SHADE_PIXEL_BYTES, SHADE_HIT_BYTES, SHADE_ROW_BYTES = 20, 20, 60
+# Phase 15. The frame's tail (K10 ``resolve_frame``) and the fused film
+# pass's fold (K11 ``fold_pass``) of csrc/frame.cu, each held against its
+# plain version (kernels/frame.py) to the bit on the same CUDA tensors. They
+# replace XLA code of the JAX package, not a pallas_call: the tails of its
+# jitted frame programs (render_impl's, pallas_render_impl's, resolve_impl)
+# and pallas_accumulate_impl's fold.
+TAIL_SOURCE = "bevyray_tpu_torch/kernels/cuda/csrc/frame.cu"
+TAIL_REPLACES = {"resolve_frame": "bevyray_tpu/engine/renderer.py:242",
+                 "fold_pass": "bevyray_tpu/engine/film.py:127"}
+TAIL_REPS = 20          # launches per CUDA-event timing
+ODD_PIXELS = (53, 37)   # (W, H): ODD_IMAGE as a frame
+# Bytes a pixel: K10 reads four sums and writes the image and the depth
+# (32); a count a pixel adds 4, a raster depth a pixel 4 at levels 1-2, a
+# raster colour a pixel 12 where the raster layer wins (every pixel at
+# level 0). K11 reads the film's and the pass's sums and writes the new
+# sums (48). Their operations (a scale, a division, two compares) are a
+# few a pixel: the bytes bound both.
+TAIL_PIXEL_BYTES, FOLD_PIXEL_BYTES = 32, 48
 
 
 def mesh_scene(copies=1):
@@ -615,6 +655,7 @@ def main() -> int:
     from bevyray_tpu_torch import (FusedRenderer, RaytracedCamera,
                                    RaytracedSphere, RenderConfig,
                                    StandardMaterial, Transform, rtiow)
+    from bevyray_tpu_torch.kernels import frame as frame_mod
     from bevyray_tpu_torch.kernels.cuda import build
     from bevyray_tpu_torch.kernels.cuda.megakernel import (
         TILE, block_grid, kernel_mode, pack_camera, prepare_kernel_scene,
@@ -742,6 +783,7 @@ def main() -> int:
         torch.cuda.synchronize()
         render_tiles.launches = 0
         render_tiles_reference.calls = 0
+        frame_mod.resolve_frame.launches = 0
         times, rays = [], []
         for i in range(n_frames):
             t0 = time.perf_counter()
@@ -750,11 +792,14 @@ def main() -> int:
             times.append(time.perf_counter() - t0)
             rays.append(int(frame.rays_traced))
         launches, plain_calls = render_tiles.launches, render_tiles_reference.calls
-        if (launches != n_frames or plain_calls
+        tails = frame_mod.resolve_frame.launches
+        TAIL_LAUNCHES["resolve_frame"] += tails
+        if (launches != n_frames or plain_calls or tails != n_frames
                 or renderer.last_mode != mode):
             raise SystemExit(f"phase 3 {mode}: {launches} kernel launches, "
-                             f"{plain_calls} plain calls and mode "
-                             f"{renderer.last_mode} in {n_frames} frames")
+                             f"{tails} tail launches (K10), {plain_calls} "
+                             f"plain calls and mode {renderer.last_mode} in "
+                             f"{n_frames} frames")
         image = frame.image
         if (tuple(image.shape) != (HEIGHT, WIDTH, 3)
                 or not bool(torch.isfinite(image).all())
@@ -831,6 +876,7 @@ def main() -> int:
     entries += wavefront_phase(scene, cam, headline, card, dev)
     entries += image_phase(card, dev, raster_launches, denoise_inputs,
                            denoise_launches)
+    entries += tail_phase(world, scene, cam, headline, card, dev)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -869,6 +915,7 @@ def accumulation_phase(world, scene, cam, headline, card) -> dict:
     from bevyray_tpu_torch import (AdaptiveRenderer, FusedRenderer,
                                    ProgressiveRenderer)
     from bevyray_tpu_torch.engine.film import resolve_impl
+    from bevyray_tpu_torch.kernels import frame as frame_mod
     from bevyray_tpu_torch.kernels.cuda.megakernel import (
         TILE, block_grid, kernel_fuse, kernel_mode, pack_camera, render_tiles,
         render_tiles_reference, shuffle_blocks)
@@ -877,6 +924,18 @@ def accumulation_phase(world, scene, cam, headline, card) -> dict:
         render_tiles.launches = 0
         render_tiles.launches_by.clear()
         render_tiles_reference.calls = 0
+        frame_mod.resolve_frame.launches = 0
+        frame_mod.fold_pass.launches = 0
+
+    def check_tail(what, passes):
+        """Each pass of a film folded by one K11 launch and resolved by one
+        K10 launch."""
+        got = (frame_mod.fold_pass.launches, frame_mod.resolve_frame.launches)
+        TAIL_LAUNCHES.update(fold_pass=got[0], resolve_frame=got[1])
+        if got != (passes, passes):
+            raise SystemExit(f"phase 5 {what}: {got[0]} fold (K11) and "
+                             f"{got[1]} tail (K10) launches, expected "
+                             f"{passes} each")
 
     def check_counts(what, launches):
         if (render_tiles.launches, render_tiles_reference.calls) != (
@@ -917,6 +976,7 @@ def accumulation_phase(world, scene, cam, headline, card) -> dict:
     film_frame = prog.step(scene, cam, seed=9)
     torch.cuda.synchronize()
     check_counts("2 x 8 spp film", 2)
+    check_tail("2 x 8 spp film", 2)
     kscene = prog._renderer.prepare(scene)
     half_mode = kernel_mode(kscene, half,
                             prog._renderer.shortlists(kscene, cam)[0])
@@ -934,6 +994,7 @@ def accumulation_phase(world, scene, cam, headline, card) -> dict:
     counts_zeroed()
     uniform = timed_passes(prog, scene, cam, range(1, PASSES + 1))
     check_counts("progressive passes", PASSES)
+    check_tail("progressive passes", PASSES)
     uniform_frame = resolve_impl(prog.film, cam, headline)
     check_frame("progressive film", uniform_frame)
     pass_ms = sorted(ms for ms, _, _ in uniform)
@@ -2378,12 +2439,12 @@ def capture_states(scene, cam, config, dev, seed=1) -> tuple:
     real = renderer_mod.shade_bounce
     captured = {}
 
-    def record(state, b, t, idx, tt, ti, scn, cfg):
+    def record(state, b, t, idx, tt, ti, scn, cfg, *fold):
         if b in SHADE_BOUNCES:
             captured[b] = (clone_state(state), t.clone(), idx.clone(),
                            None if tt is None else tt.clone(),
                            None if ti is None else ti.clone())
-        return real(state, b, t, idx, tt, ti, scn, cfg)
+        return real(state, b, t, idx, tt, ti, scn, cfg, *fold)
 
     u, v = pixel_uv(config.width, config.height, device=dev)
     ids = torch.arange(config.n_pixels, device=dev)
@@ -2430,7 +2491,8 @@ def state_diff(got, want) -> tuple:
     return err, same
 
 
-def shade_bound(state, after, t, tt, bounce, last, scene) -> tuple:
+def shade_bound(state, after, t, tt, bounce, last, scene,
+                fold=None) -> tuple:
     """(ms, "bytes" | "operations") of one K6 call: each input byte read
     once and each output byte written once by the lanes this call's data
     needs (every lane's flag; at bounce 0 every lane's t and first depth;
@@ -2438,8 +2500,10 @@ def shade_bound(state, after, t, tt, bounce, last, scene) -> tuple:
     with triangles), its radiance and flag written; a hit's origin, the
     winning test's index, stream word, position and direction; a
     continuing path's throughput; on the last bounce every lane's harvest
-    and the radiance and first depth it reads), the tables once; against
-    the operations of its hits and misses at the fp32 peak."""
+    and the radiance and first depth it reads), the tables once; with sums
+    (``fold`` "zero", "film" or "self") the total's 8 bytes, and on the
+    last bounce the sums written and a base's read; against the operations
+    of its hits and misses at the fp32 peak."""
     from bevyray_tpu_torch.core.constants import INF
 
     n = t.numel()
@@ -2454,6 +2518,10 @@ def shade_bound(state, after, t, tt, bounce, last, scene) -> tuple:
         n_bytes += (n - n_act) * (8 if tri else 4) + n * 4
     if last:
         n_bytes += n * 16 + (n - n_act) * 12 + (0 if bounce == 0 else n * 4)
+        if fold is not None:
+            n_bytes += n * 16 + (0 if fold == "zero" else n * 16)
+    if fold is not None:
+        n_bytes += 8
     n_bytes += scene.spheres.capacity * 16 + scene.materials.capacity * 40
     if tri:
         n_bytes += scene.triangles.capacity * 40
@@ -2553,6 +2621,7 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
                                               make_triangles_np)
     from bevyray_tpu_torch.core.vec import Vec3
     from bevyray_tpu_torch.kernels import bounce as bounce_mod
+    from bevyray_tpu_torch.kernels import frame as frame_mod
     from bevyray_tpu_torch.kernels import intersect, traverse
     from bevyray_tpu_torch.kernels.cuda import wavefront as wavefront_mod
     from bevyray_tpu_torch.kernels.intersect import on_active
@@ -2578,9 +2647,11 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
     def zero():
         for fn in kernels.values():
             fn.launches = 0
+        frame_mod.resolve_frame.launches = 0
 
     def counts():
-        return {name: fn.launches for name, fn in kernels.items()}
+        return {name: fn.launches for name, fn in
+                {**kernels, "resolve_frame": frame_mod.resolve_frame}.items()}
 
     def frame_of(renderer, scn, camera, **kw):
         return lambda seed: renderer.render(scn, camera, seed=seed, **kw)
@@ -2657,6 +2728,7 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
             stack_size, max_leaf_size),
         "raygen_sample": plain["raygen_sample"],
         "shade_bounce": plain["shade_bounce"],
+        "resolve_frame": frame_mod.resolve_frame_reference,
     }
 
     @contextlib.contextmanager
@@ -2679,7 +2751,11 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
         frame, ms = timed(render)
         got = counts()
         launches.update(got)
+        TAIL_LAUNCHES["resolve_frame"] += got["resolve_frame"]
         frames[name] = frame
+        if got["resolve_frame"] != 1:
+            raise SystemExit(f"phase 13(a) {name}: {got['resolve_frame']} "
+                             "tail launches (K10), not one")
         if not (bool(torch.isfinite(frame.image).all())
                 and bool(torch.isfinite(frame.rt_depth).all())
                 and int(frame.rays_traced) > 0):
@@ -2912,31 +2988,74 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
     # K5 and K6 against their plain versions on the same CUDA tensors: K5
     # on a frame's pixels (all of the headline's, the first ODD_LANES, the
     # second half at sample 5 as a pixel shard takes it, the night scene
-    # with the lens), K6 on the state and the ray tests' results that each
-    # bounce of SHADE_BOUNCES hands it in sample 0 of real frames, their
-    # own active masks: the headline, config 5 (triangles; again at level
-    # 1), the cube field, 4,971 spheres by the BVH, the night scene (lens,
-    # emission, cosine lobes) and the headline's first ODD_LANES lanes.
-    # Every column of the state bit-equal, the segment counts equal.
-    def hold_raygen(case, ids, u, v, camera, config, sample, time_it=False):
-        base = bounce_mod.new_state(ids.shape[0], camera, config, dev)
+    # with the lens), by id tensor and by index (the lanes take the frame's
+    # pixels in order from an offset, as every frame now does), the latter
+    # folding into sums (FOLDS: from zero, from another film's, in place);
+    # K6 on the state and the ray tests' results that each bounce of
+    # SHADE_BOUNCES hands it in sample 0 of real frames, their own active
+    # masks: the headline, config 5 (triangles; again at level 1), the cube
+    # field, 4,971 spheres by the BVH, the night scene (lens, emission,
+    # cosine lobes) and the headline's first ODD_LANES lanes, each without
+    # sums and folding into sums in place (at the last bounce also from
+    # zero and from another film's). Every column of the state and of the sums
+    # bit-equal, the segment counts equal.
+    def fold_pair(n, fold, seed):
+        """Two equal (sums, base) pairs of ``n`` lanes on the card for
+        ``fold``: None (no sums), "zero" (no base), "film" (another film's
+        sums) or "self" (the sums are their own base); seeded sums and
+        totals, so that every write shows."""
+        if fold is None:
+            return [(None, None), (None, None)]
+        rng = np.random.default_rng(seed)
+        host = rng.random((2, 4, n), dtype=np.float32) * 8
+
+        def sums(k, total):
+            cols = torch.as_tensor(host[k], device=dev)
+            return bounce_mod.FrameSums(
+                Vec3(cols[0], cols[1], cols[2]), cols[3],
+                torch.tensor(total, dtype=torch.int64, device=dev))
+
+        pairs = []
+        for _ in range(2):
+            out = sums(0, 12345)
+            base = {"zero": None, "self": out,
+                    "film": sums(1, 777)}[fold]
+            pairs.append((out, base))
+        return pairs
+
+    def sums_diff(got, want) -> tuple:
+        if got is None:
+            return 0.0, True
+        return state_diff(got, want)
+
+    def hold_raygen(case, n, ids, u, v, camera, config, sample,
+                    time_it=False, fold=None):
+        base = bounce_mod.new_state(n, camera, config, dev)
         got, want = clone_state(base), clone_state(base)
-        bounce_mod.raygen_sample(got, ids, u, v, camera, config, sample, 1)
+        (g_sums, g_base), (w_sums, w_base) = fold_pair(n, fold, sample)
+        bounce_mod.raygen_sample(got, ids, u, v, camera, config, sample, 1,
+                                 g_sums, g_base)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        plain["raygen_sample"](want, ids, u, v, camera, config, sample, 1)
+        plain["raygen_sample"](want, ids, u, v, camera, config, sample, 1,
+                               w_sums, w_base)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         err, same = state_diff(got, want)
+        s_err, s_same = sums_diff(g_sums, w_sums)
+        err, same = max(err, s_err), same and s_same
         max_err["raygen_sample"] = max(max_err["raygen_sample"], err)
-        line = (f"phase 13(b) raygen_sample {case}: {ids.shape[0]} lanes, "
-                f"max |d| {err:.3g}, bit-equal {same}")
+        by_index = not isinstance(ids, torch.Tensor)
+        line = (f"phase 13(b) raygen_sample {case}: {n} lanes "
+                f"{'by index' if by_index else 'by id'}, sums {fold}, max "
+                f"|d| {err:.3g}, bit-equal {same}")
         if time_it:
             ms = cuda_ms(lambda: bounce_mod.raygen_sample(
-                got, ids, u, v, camera, config, sample, 1), WAVE_REPS)
-            n = ids.shape[0]
-            by_bytes = ((n * RAYGEN_LANE_BYTES + 4 * bounce_mod.CAM_FLOATS + 8)
-                        / PEAK_BYTES * 1e3)
+                got, ids, u, v, camera, config, sample, 1, g_sums, g_base),
+                WAVE_REPS)
+            lane_bytes = RAYGEN_LANE_BYTES - (16 if by_index else 0)
+            by_bytes = ((n * lane_bytes + 4 * bounce_mod.CAM_FLOATS + 8
+                         + (8 if fold else 0)) / PEAK_BYTES * 1e3)
             by_ops = n * RAYGEN_LANE_OPS / PEAK_FP32 * 1e3
             bound = ((by_ops, "operations") if by_ops >= by_bytes
                      else (by_bytes, "bytes"))
@@ -2948,7 +3067,8 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
             raise SystemExit(f"phase 13(b) raygen_sample {case}: the kernel "
                              "differs from its plain version")
 
-    def hold_shade(case, entry, scn, config, b, lanes=None, time_it=False):
+    def hold_shade(case, entry, scn, config, b, lanes=None, time_it=False,
+                   fold=None):
         state, t, idx, tt, ti = entry
         if lanes is not None:
             state = clone_state(state, lanes)
@@ -2957,30 +3077,38 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
                 tt, ti = tt[:lanes].contiguous(), ti[:lanes].contiguous()
         args = (b, t, idx, tt, ti, scn, config)
         got, want = clone_state(state), clone_state(state)
-        bounce_mod.shade_bounce(got, *args)
+        (g_sums, g_base), (w_sums, w_base) = fold_pair(t.numel(), fold, b)
+        bounce_mod.shade_bounce(got, *args, g_sums, g_base)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        plain["shade_bounce"](want, *args)
+        plain["shade_bounce"](want, *args, w_sums, w_base)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         err, same = state_diff(got, want)
+        s_err, s_same = sums_diff(g_sums, w_sums)
+        err, same = max(err, s_err), same and s_same
         max_err["shade_bounce"] = max(max_err["shade_bounce"], err)
-        line = (f"phase 13(b) shade_bounce {case} bounce {b}: "
+        line = (f"phase 13(b) shade_bounce {case} bounce {b}, sums {fold}: "
                 f"{t.numel()} lanes, {int(state.active.sum())} active, max "
                 f"|d| {err:.3g}, bit-equal {same}, segments "
                 f"{int(got.segments)} / {int(want.segments)}")
+        if fold is not None:
+            line += (f", total {int(g_sums.segments)} / "
+                     f"{int(w_sums.segments)}")
         if time_it:
-            ms = shade_ms(bounce_mod.shade_bounce, state, args, WAVE_REPS)
+            ms = shade_ms(lambda st, *a: bounce_mod.shade_bounce(
+                st, *a, g_sums, g_base), state, args, WAVE_REPS)
             bound = shade_bound(state, want, t, tt, b, b == config.bounces,
-                                scn)
+                                scn, fold)
             timing.setdefault("shade_bounce", (ms, plain_ms, bound,
                                                f"{case} bounce {b}"))
             line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
                      f"{bound[0]:.4f} ms ({bound[1]})")
         print(line + f" | {card}", flush=True)
         if not same:
-            raise SystemExit(f"phase 13(b) shade_bounce {case} bounce {b}: "
-                             "the kernel differs from its plain version")
+            raise SystemExit(f"phase 13(b) shade_bounce {case} bounce {b} "
+                             f"(sums {fold}): the kernel differs from its "
+                             "plain version")
 
     night = matrix_configs()[3]
     night_cfg = dataclasses.replace(night.config, width=NIGHT_SIZE[0],
@@ -2989,16 +3117,29 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
     night_cam = night.world.camera_state(aspect=night.aspect, device=dev)
     level1 = dataclasses.replace(brute5, level=1)
     (ids, u, v), _ = capture_states(scene, cam, headline, dev)
-    half = ids.shape[0] // 2
-    hold_raygen("headline", ids, u, v, cam, headline, 0, time_it=True)
-    hold_raygen(f"headline, first {ODD_LANES} lanes", ids[:ODD_LANES],
-                u[:ODD_LANES], v[:ODD_LANES], cam, headline, 0)
-    hold_raygen("headline, second half at sample 5", ids[half:], u[half:],
-                v[half:], cam, headline, 5)
+    n_head = ids.shape[0]
+    half = n_head // 2
+    hold_raygen("headline, the frame's pixels folding into its sums", n_head,
+                0, None, None, cam, headline, 0, time_it=True, fold="zero")
+    hold_raygen("headline", n_head, ids, u, v, cam, headline, 0)
+    hold_raygen("headline at sample 3, the frame's pixels, sums in place",
+                n_head, 0, None, None, cam, headline, 3, fold="self")
+    hold_raygen(f"headline, first {ODD_LANES} lanes", ODD_LANES,
+                ids[:ODD_LANES], u[:ODD_LANES], v[:ODD_LANES], cam, headline,
+                0)
+    hold_raygen(f"headline, first {ODD_LANES} lanes by index", ODD_LANES, 0,
+                None, None, cam, headline, 0, fold="zero")
+    hold_raygen("headline, second half at sample 5", n_head - half,
+                ids[half:], u[half:], v[half:], cam, headline, 5)
+    hold_raygen("headline, second half at sample 5 by index, a film's sums",
+                n_head - half, half, None, None, cam, headline, 5,
+                fold="film")
     (n_ids, n_u, n_v), _ = capture_states(night_scene, night_cam, night_cfg,
                                           dev)
-    hold_raygen("night scene (lens)", n_ids, n_u, n_v, night_cam, night_cfg,
-                0)
+    hold_raygen("night scene (lens)", n_ids.shape[0], n_ids, n_u, n_v,
+                night_cam, night_cfg, 0)
+    hold_raygen("night scene (lens) by index", n_ids.shape[0], 0, None, None,
+                night_cam, night_cfg, 0, fold="zero")
     shade_cases = [
         ("headline", scene, cam, headline, {}),
         ("config 5", scene5, cam5, brute5, {}),
@@ -3013,8 +3154,27 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
     for case, scn, camera, config, kw in shade_cases:
         _, states = capture_states(scn, camera, config, dev)
         for b in SHADE_BOUNCES:
-            hold_shade(case, states[b], scn, config, b,
-                       time_it=case == "headline" and b == 0, **kw)
+            folds = ((None, "film", "zero", "self") if b == config.bounces
+                     else (None, "self"))
+            for fold in folds:
+                head = case == "headline" and fold == "self"
+                hold_shade(case, states[b], scn, config, b,
+                           time_it=head and b == 0, fold=fold, **kw)
+            if case == "headline" and b == config.bounces:
+                # The last bounce as a frame's later samples run it,
+                # printed beside its bound (the entry's time is bounce 0's).
+                state, t, idx, tt, ti = states[b]
+                args = (b, t, idx, tt, ti, scn, config)
+                (g_sums, _), _ = fold_pair(t.numel(), "self", b)
+                ms = shade_ms(lambda st, *a: bounce_mod.shade_bounce(
+                    st, *a, g_sums, g_sums), state, args, WAVE_REPS)
+                after = clone_state(state)
+                bounce_mod.shade_bounce(after, *args)
+                b_ms, b_by = shade_bound(state, after, t, tt, b, True, scn,
+                                         "self")
+                print(f"phase 13(b) shade_bounce headline last bounce {b}, "
+                      f"sums in place: kernel {ms:.4f} ms, bound {b_ms:.4f} "
+                      f"ms ({b_by}) | {card}", flush=True)
         del states
     print(f"phase 13(b) K5 and K6 instances: "
           f"{json.dumps({k: v for k, v in wavefront_mod.kernel_info(dev, 1).items() if k in BOUNCE_REPLACES})}"
@@ -3366,6 +3526,310 @@ def image_phase(card, dev, raster_launches, denoise_inputs,
     print(f"phase 14 done in {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return entries
+
+
+def tail_phase(world, scene, cam, headline, card, dev) -> list:
+    """Phase 15: K10 ``resolve_frame`` and K11 ``fold_pass``
+    (csrc/frame.cu, through ``kernels.frame``) against their plain versions
+    on the same CUDA tensors, every output compared as bits, with one
+    launch a call: K10 on the fused headline's tail (block order, means,
+    level 3), the wavefront headline's sums (row-major, 1/spp), BASELINE
+    config 4's film after two passes (a count a frame) and a fresh film
+    (count 0), an ``AdaptiveFilm`` fresh and after three passes (a count a
+    pixel), config 5's fused and wavefront sums at levels 2, 1 and 0 over
+    its raster layer (a value a pixel), and ODD_IMAGE's fused and wavefront
+    sums at every level over white, over a raster layer of one value and of
+    one a pixel; K11 on config 4's second film pass (the film unchanged)
+    and at ODD_IMAGE. Each kernel's time by CUDA events beside its bound
+    (bytes) and its plain version's time, and the kernels and busy time of
+    a fused headline frame and of a config-4 film pass (torch's profiler).
+    Returns the kernels-line entries; their launches are the main-path
+    runs' (phases 3, 5 and 13(a))."""
+    import numpy as np
+    import torch
+
+    from bevyray_tpu_torch import (AdaptiveRenderer, FusedRenderer,
+                                   ProgressiveRenderer, RenderConfig)
+    from bevyray_tpu_torch.bench.matrix import matrix_configs
+    from bevyray_tpu_torch.core.vec import Vec3
+    from bevyray_tpu_torch.engine import film as film_mod
+    from bevyray_tpu_torch.engine import renderer as renderer_mod
+    from bevyray_tpu_torch.engine.raster import raster_layer
+    from bevyray_tpu_torch.kernels import frame as frame_mod
+    from bevyray_tpu_torch.kernels.bounce import new_state, new_sums
+    from bevyray_tpu_torch.kernels.cuda.build import extension
+    from bevyray_tpu_torch.kernels.cuda.megakernel import render_tiles
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    max_err = dict.fromkeys(TAIL_REPLACES, 0.0)
+    timing = {}
+
+    def bits(got, want) -> tuple:
+        """(max |d| where both are numbers, every tensor bit-equal)."""
+        err, same = 0.0, True
+        for g, w in zip(got, want):
+            if g.dtype == torch.float32:
+                same = same and g.shape == w.shape and torch.equal(
+                    g.view(torch.int32), w.view(torch.int32))
+                d = (g - w).abs()
+                d = d[~torch.isnan(d)]
+                if d.numel():
+                    err = max(err, float(d.max()))
+            else:
+                same = same and torch.equal(g, w)
+        return err, same
+
+    def tail_bytes(config, camera, scale, rc, rd, depth) -> int:
+        """K10's bytes: each input byte read once and each output byte
+        written once, the raster colour where the raster layer wins."""
+        n = config.n_pixels
+        n_bytes = n * TAIL_PIXEL_BYTES + 8
+        if isinstance(scale, torch.Tensor):
+            n_bytes += 4 * scale.numel()
+        wins = n if config.level == 0 else 0
+        if config.level in (1, 2):
+            rdv = (torch.zeros((), device=dev) if rd is None else rd)
+            n_bytes += 4 * rdv.numel()
+            t = depth.reshape(-1)
+            rz = torch.where(t > camera.far, -1.0, camera.near / t)
+            wins = int((rdv > rz).sum())
+        if rc is not None:
+            n_bytes += sum(4 * (wins if c.numel() > 1 else 1) for c in rc)
+        return n_bytes
+
+    def hold_resolve(case, config, camera, sums, scale=None, rc=None,
+                     rd=None, blocks=False, time_it=False):
+        args = (config, camera.near, camera.far, sums, scale, rc, rd, blocks)
+        before = frame_mod.resolve_frame.launches
+        got = frame_mod.resolve_frame(*args)
+        launched = frame_mod.resolve_frame.launches - before
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = frame_mod.resolve_frame_reference(*args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err, same = bits(got, want)
+        max_err["resolve_frame"] = max(max_err["resolve_frame"], err)
+        kind = ("none" if scale is None else f"{scale:.6g}"
+                if isinstance(scale, float)
+                else f"count {'a pixel' if scale.numel() > 1 else 'a frame'}")
+        raster = ("white" if rc is None else
+                  "a value a pixel" if rc[0].numel() > 1 else "one value")
+        line = (f"phase 15 resolve_frame {case}: {config.width}x"
+                f"{config.height} level {config.level}, "
+                f"{'block order' if blocks else 'row-major'}, scale {kind}, "
+                f"raster {raster}: max |d| {err:.3g}, bit-equal {same}")
+        if time_it:
+            ms = cuda_ms(lambda: frame_mod.resolve_frame(*args), TAIL_REPS)
+            bound = (tail_bytes(config, camera, scale, rc, rd, want[1])
+                     / PEAK_BYTES * 1e3, "bytes")
+            timing.setdefault("resolve_frame", (ms, plain_ms, bound, case))
+            line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+                     f"{bound[0]:.4f} ms ({bound[1]})")
+        print(line + f" | {card}", flush=True)
+        if not same or launched != 1:
+            raise SystemExit(f"phase 15 resolve_frame {case}: {launched} "
+                             "launches, or the kernel differs from its plain "
+                             "version")
+
+    def hold_fold(case, config, film, pass_sums, segs, time_it=False):
+        args = (film.color_sum, film.depth_sum, film.n_samples,
+                film.rays_traced, pass_sums, segs, config)
+        old = [*film.color_sum, film.depth_sum, film.n_samples,
+               film.rays_traced]
+        kept = [x.clone() for x in old]
+        before = frame_mod.fold_pass.launches
+        got = frame_mod.fold_pass(*args)
+        launched = frame_mod.fold_pass.launches - before
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = frame_mod.fold_pass_reference(*args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err, same = bits((*got[0], *got[1:]), (*want[0], *want[1:]))
+        untouched = bits(old, kept)[1]
+        max_err["fold_pass"] = max(max_err["fold_pass"], err)
+        line = (f"phase 15 fold_pass {case}: {config.width}x{config.height}, "
+                f"{config.samples_per_pixel} spp: max |d| {err:.3g}, "
+                f"bit-equal {same}, the old film unchanged {untouched}, "
+                f"count {float(got[2]):g}, segments {int(got[3])}")
+        if time_it:
+            ms = cuda_ms(lambda: frame_mod.fold_pass(*args), TAIL_REPS)
+            bound = ((config.n_pixels * FOLD_PIXEL_BYTES + 24)
+                     / PEAK_BYTES * 1e3, "bytes")
+            timing.setdefault("fold_pass", (ms, plain_ms, bound, case))
+            line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+                     f"{bound[0]:.4f} ms ({bound[1]})")
+        print(line + f" | {card}", flush=True)
+        if not (same and untouched) or launched != 1:
+            raise SystemExit(f"phase 15 fold_pass {case}: {launched} "
+                             "launches, or the kernel differs from its plain "
+                             "version, or it changed the old film")
+        return film_mod.Film(*got)
+
+    def fused_sums(config, scn, camera, normalize=True, sample_offset=0):
+        renderer = FusedRenderer(config)
+        kscene = renderer.prepare(scn)
+        sl, slmeta = renderer.shortlists(kscene, camera)
+        return render_tiles(kscene, camera, config, 1, sl=sl, slmeta=slmeta,
+                            normalize=normalize, sample_offset=sample_offset)
+
+    def wave_sums(config, scn, camera):
+        """A wavefront frame's sums, folded as ``render_impl`` folds them."""
+        n = config.n_pixels
+        state, sums = new_state(n, camera, config, dev), new_sums(n, dev)
+        for i in range(config.samples_per_pixel):
+            renderer_mod.trace_sample(scn, camera, config, 0, None, None, i,
+                                      1, state=state, sums=sums,
+                                      base=sums if i else None)
+        return (*sums.color, sums.depth)
+
+    def inv_spp(config):
+        return float(np.float32(1.0 / config.samples_per_pixel))
+
+    def seeded(n, seed, scale=1.0):
+        rng = np.random.default_rng(seed)
+        return torch.as_tensor(rng.random(n, dtype=np.float32) * scale,
+                               device=dev)
+
+    print(f"phase 15 K10 and K11 instances: "
+          f"{json.dumps(extension().frame_info(dev.index or 0))} | {card}",
+          flush=True)
+
+    # The fused and the wavefront headline.
+    hold_resolve("fused headline", headline, cam,
+                 fused_sums(headline, scene, cam)[:4], blocks=True,
+                 time_it=True)
+    hold_resolve("wavefront headline", headline, cam,
+                 wave_sums(headline, scene, cam), inv_spp(headline),
+                 time_it=True)
+
+    # BASELINE config 4's film: a pass folded by K11, then resolved.
+    night = matrix_configs()[3]
+    cfg4 = night.config
+    scene4 = night.world.extract(device=dev)
+    cam4 = night.world.camera_state(aspect=night.aspect, device=dev)
+    fresh = film_mod.new_film(cfg4, dev)
+    hold_resolve("config 4, a fresh film (count 0)", cfg4, cam4,
+                 (*fresh.color_sum, fresh.depth_sum), fresh.n_samples)
+    r, g, b, d, segs = fused_sums(cfg4, scene4, cam4, normalize=False)
+    film = hold_fold("config 4 film, pass 1", cfg4, fresh, (r, g, b, d),
+                     segs)
+    r, g, b, d, segs = fused_sums(cfg4, scene4, cam4, normalize=False,
+                                  sample_offset=cfg4.samples_per_pixel)
+    film = hold_fold("config 4 film, pass 2", cfg4, film, (r, g, b, d), segs,
+                     time_it=True)
+    hold_resolve("config 4 film after 2 passes", cfg4, cam4,
+                 (*film.color_sum, film.depth_sum), film.n_samples,
+                 time_it=True)
+
+    # An adaptive film: a count a pixel, 0 before its first pass.
+    adap = AdaptiveRenderer(headline, tolerance=TOLERANCE,
+                            reprobe_every=REPROBE_EVERY)
+    hold_resolve("a fresh adaptive film (counts 0)", headline, cam,
+                 (*adap.film.color_sum, adap.film.depth_sum),
+                 adap.film.n_samples)
+    for seed in range(1, 4):
+        adap.step(scene, cam, seed=seed)
+    counts = adap.film.n_samples
+    hold_resolve(f"adaptive film after 3 passes (counts "
+                 f"{float(counts.min()):g}-{float(counts.max()):g})",
+                 headline, cam, (*adap.film.color_sum, adap.film.depth_sum),
+                 counts, time_it=True)
+
+    # Config 5: a raster layer of a value a pixel at levels 2, 1 and 0.
+    world5, config5 = config5_world()
+    cam5 = world5.camera_state(aspect=HYBRID_SIZE[0] / HYBRID_SIZE[1],
+                               device=dev)
+    scene5 = world5.extract(device=dev)
+    rc5, rd5 = raster_layer(world5, cam5, config5, device=dev)
+    fused5 = fused_sums(config5, scene5, cam5)[:4]
+    wave5 = wave_sums(config5, scene5, cam5)
+    for level in (2, 1, 0):
+        cfg = dataclasses.replace(config5, level=level)
+        hold_resolve("config 5 fused", cfg, cam5, fused5, rc=rc5, rd=rd5,
+                     blocks=True, time_it=level == 2)
+        hold_resolve("config 5 wavefront", cfg, cam5, wave5,
+                     inv_spp(config5), rc=rc5, rd=rd5)
+
+    # ODD_IMAGE: off every block, every level, three raster layers.
+    w, h = ODD_PIXELS
+    odd = RenderConfig(w, h, 4, BOUNCES, level=3)
+    cam_odd = world.camera_state(aspect=w / h)
+    fused_odd = fused_sums(odd, scene, cam_odd)[:4]
+    wave_odd = wave_sums(odd, scene, cam_odd)
+    one = Vec3(*(torch.tensor(v, device=dev) for v in (0.25, 0.5, 0.75)))
+    per_pixel = Vec3(*(seeded(w * h, k) for k in range(3)))
+    rd_pixel = seeded(w * h, 3, 1.2) - 0.1
+    rd_pixel[3::19] = float("nan")
+    layers = ((None, None), (one, torch.tensor(0.02, device=dev)),
+              (per_pixel, rd_pixel))
+    for level in range(4):
+        cfg = dataclasses.replace(odd, level=level)
+        for rc, rd in layers:
+            hold_resolve(f"ODD_IMAGE {ODD_IMAGE} fused", cfg, cam_odd,
+                         fused_odd, rc=rc, rd=rd, blocks=True)
+            hold_resolve(f"ODD_IMAGE {ODD_IMAGE} wavefront", cfg, cam_odd,
+                         wave_odd, inv_spp(odd), rc=rc, rd=rd)
+    film_odd = film_mod.Film(
+        Vec3(*(seeded(w * h, 10 + k, 8.0) for k in range(3))),
+        seeded(w * h, 13, 50.0), torch.tensor(8.0, device=dev),
+        torch.tensor(1234, dtype=torch.int64, device=dev))
+    r, g, b, d, segs = fused_sums(odd, scene, cam_odd, normalize=False)
+    hold_fold(f"ODD_IMAGE {ODD_IMAGE}", odd, film_odd, (r, g, b, d), segs)
+
+    # What a fused headline frame and a config-4 film pass run on the card.
+    def profiled(fn) -> tuple:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        return (sum(e.count for e in device),
+                sum(e.self_device_time_total for e in device) / 1e3,
+                sorted(((e.count, round(e.self_device_time_total / 1e3, 4),
+                         e.key[:48]) for e in device), reverse=True))
+
+    fused = FusedRenderer(headline)
+    n_kernels, busy, by_name = profiled(
+        lambda: fused.render(scene, cam, seed=3))
+    print(f"phase 15 a fused headline frame: {n_kernels} kernels on the "
+          f"card, busy {busy:.3f} ms; by kernel (count, ms, name): "
+          f"{by_name} | {card}", flush=True)
+    prog = ProgressiveRenderer(cfg4, backend="pallas")
+    n_kernels, busy, by_name = profiled(
+        lambda: prog.step(scene4, cam4, seed=3))
+    print(f"phase 15 a config-4 film pass and its resolve: {n_kernels} "
+          f"kernels on the card, busy {busy:.3f} ms; by kernel (count, ms, "
+          f"name): {by_name} | {card}", flush=True)
+
+    entries = []
+    for name in TAIL_REPLACES:
+        ms, plain_ms, (b_ms, b_by), case = timing[name]
+        print(f"phase 15 {name}: {case}, kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by}), launches on "
+              f"the main path {TAIL_LAUNCHES[name]} | {card}", flush=True)
+        entries.append({
+            "name": name, "route": "cuda", "source": TAIL_SOURCE,
+            "replaces": TAIL_REPLACES[name],
+            "launches": TAIL_LAUNCHES[name], "max_abs_err": max_err[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by,
+            # No single PyTorch call un-shuffles, scales and composites a
+            # frame's sums, or folds a block-ordered pass into a film.
+            "library_ms": None})
+    if min(TAIL_LAUNCHES[name] for name in TAIL_REPLACES) < 1:
+        raise SystemExit(f"phase 15: a kernel of the path launched no time: "
+                         f"{dict(TAIL_LAUNCHES)}")
+    print(f"phase 15 done in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return entries
+
 
 if __name__ == "__main__":
     sys.exit(main())

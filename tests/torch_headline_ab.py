@@ -16,15 +16,18 @@ with seeds 1, 2, ...: the default-config headline frame through
 block-split mesh (3, 1) through ``render_frame_sharded_pallas`` on
 ``cuda:0``. Per cell it prints the p50 ms, the segments per frame and the
 kernel's ms (CUDA events, mean of 3 launches of ``render_tiles`` on the
-cell's inputs; for the mesh the sum over its 3 shards) as JSON; the
-first arm of each tree saves its seed-1 frames.
+cell's inputs; for the mesh the sum over its 3 shards) as JSON, and the
+card's busy time and kernel count over one headline frame (torch's
+profiler: the summed durations of its kernels); the first arm of each tree
+saves its seed-1 frames.
 ``--exact-rng`` passes ``exact_rng=True`` to both trees' renderers and
 kernel launches, which holds the exact PCG path of a tree whose default
 draws from the fast path against an older tree's. ``--phase-fuse N`` sets
 the block fusion ``PHASE_FUSE`` of both trees' kernels (a tree from before
 its port has none and ignores it). The last lines give the card (name,
-power limit), each tree's p50s and kernel ms per cell, and each cell's
-max |d| (image, depth) and segments between the trees. Needs one CUDA
+power limit), each tree's p50s, kernel ms and headline busy time and
+kernel count, and each cell's max |d| (image, depth), whether its image
+and depth are bit-equal, and its segments between the trees. Needs one CUDA
 card; the two trees must share the public API.
 """
 
@@ -49,6 +52,8 @@ from bevyray_tpu_torch.kernels.cuda import build, megakernel
 from bevyray_tpu_torch.kernels.cuda.primary import device_shortlists_for
 from bevyray_tpu_torch.parallel.sharding import (make_mesh,
                                                  render_frame_sharded_pallas)
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 {fuse}
 t0 = time.perf_counter()
 build.extension()
@@ -103,6 +108,15 @@ renderer = FusedRenderer(headline, **rng)
 cells = {{"headline": frames("headline", lambda s: renderer.render(
     scene, cam, seed=s))}}
 kscene = renderer.prepare(scene)
+renderer.render(scene, cam, seed=3)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU,
+                         ProfilerActivity.CUDA]) as prof:
+    renderer.render(scene, cam, seed=3)
+    torch.cuda.synchronize()
+device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+busy = [sum(e.self_device_time_total for e in device) / 1e3,
+        sum(e.count for e in device)]
 cells["headline"].update(mode=renderer.last_mode,
                          fuse=getattr(renderer, "last_fuse", 1),
                          exact_rng=getattr(renderer, "last_exact_rng",
@@ -131,7 +145,8 @@ cells["mesh31"]["kernel_ms"] = kernel_ms(
     kscene, cam, headline, [(170 * i, 170) for i in range(3)])
 if {save!r}:
     torch.save(saved, {save!r})
-print(json.dumps({{"cells": cells, "build_s": build_s}}))
+print(json.dumps({{"cells": cells, "build_s": build_s,
+                   "headline_busy_ms_and_kernels": busy}}))
 """
 
 
@@ -170,9 +185,13 @@ def main() -> int:
         runs[arm].append(result)
         print(f"{arm} ({tree}): {json.dumps(result)}", flush=True)
     print(f"card: {card}")
-    print(json.dumps({arm: {cell: {key: [r["cells"][cell][key] for r in rs]
-                                   for key in ("p50_ms", "kernel_ms")}
-                            for cell in rs[0]["cells"]}
+    print(json.dumps({arm: {**{cell: {key: [r["cells"][cell][key]
+                                            for r in rs]
+                                      for key in ("p50_ms", "kernel_ms")}
+                               for cell in rs[0]["cells"]},
+                            "headline_busy_ms_and_kernels": [
+                                r["headline_busy_ms_and_kernels"]
+                                for r in rs]}
                       for arm, rs in runs.items()}))
     import torch
 
@@ -181,6 +200,10 @@ def main() -> int:
     print(json.dumps({"max_abs_diff_this_vs_other": {
         cell: {"image": float((got[cell][0] - want[cell][0]).abs().max()),
                "depth": float((got[cell][1] - want[cell][1]).abs().max()),
+               "bit_equal": all(torch.equal(g.view(torch.int32),
+                                            w.view(torch.int32))
+                                for g, w in zip(got[cell][:2],
+                                                want[cell][:2])),
                "segments": [got[cell][2], want[cell][2]]}
         for cell in got}}))
     return 0

@@ -35,7 +35,7 @@ buffers and ray test results; the last lines give the card (name, power
 limit), each tree's p50s, census and ray test times (and the dense tests'
 issue slots a (ray, row) pair at the ``--fmad=false`` issue rate, 132 SMs
 x 128 lanes x 1.98 GHz), and each cell's and ray test's max |d| between
-the trees.
+the trees, with whether each cell's image and depth are bit-equal.
 Needs one CUDA card; the two trees must share the public API.
 """
 
@@ -305,6 +305,10 @@ def main() -> int:
     tests_got, tests_want = got.pop("ray tests"), want.pop("ray tests")
     diffs = {cell: {"image": float((got[cell][0] - want[cell][0]).abs().max()),
                     "depth": float((got[cell][1] - want[cell][1]).abs().max()),
+                    "bit_equal": all(torch.equal(g.view(torch.int32),
+                                                 w.view(torch.int32))
+                                     for g, w in zip(got[cell][:2],
+                                                     want[cell][:2])),
                     "segments": [got[cell][2], want[cell][2]]}
              for cell in got}
     diffs.update({name: {"t": float((tests_got[name][0]
