@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from .constants import PI
-from .vec import Vec3
+from .vec import Vec3, sqrt
 
 _M32 = 0xFFFFFFFF
 
@@ -76,8 +76,8 @@ def unit_ball_from_uniforms(u1, u2, u3, u4, u5) -> Vec3:
     """
     u1 = torch.clamp(u1, min=1e-10)
     u3 = torch.clamp(u3, min=1e-10)
-    r1 = torch.sqrt(-2.0 * torch.log(u1))
-    r3 = torch.sqrt(-2.0 * torch.log(u3))
+    r1 = sqrt(-2.0 * torch.log(u1))
+    r3 = sqrt(-2.0 * torch.log(u3))
     g = Vec3(r1 * torch.cos(TWO_PI * u2), r1 * torch.sin(TWO_PI * u2),
              r3 * torch.cos(TWO_PI * u4))
     inv_len = 1.0 / torch.clamp(g.length(), min=1e-20)

@@ -27,7 +27,8 @@ import torch
 from ..core.types import (CameraState, RenderConfig, SceneBuffers,
                           resolve_device)
 from ..core.vec import Vec3
-from ..kernels.cuda.megakernel import KernelScene, shuffle_blocks
+from ..kernels.cuda.megakernel import KernelScene
+from ..kernels.passes import adaptive_map, fold_adaptive
 from .film import (begin_pass, film_arrays, film_from_arrays, resolve_impl,
                    trace_pass)
 from .fused_renderer import FusedRenderer
@@ -59,37 +60,15 @@ def adaptive_pass(film: AdaptiveFilm, kscene: KernelScene, cam: CameraState,
                   slmeta=None) -> AdaptiveFilm:
     """One pass: pixels with err >= tolerance (every pixel when ``reprobe``)
     trace ``config.samples_per_pixel`` fresh samples, the rest none. Returns
-    the updated film; plain tensor ops on the film's device, no host sync."""
-    spp = config.samples_per_pixel
-    want = film.err >= tolerance
-    if reprobe:
-        want = torch.ones_like(want)
-    spp_map = shuffle_blocks(torch.where(want, spp, 0).to(torch.int32),
-                             config, fill=0)
+    the updated film (a new one; the old one is not changed), with no host
+    sync: on the card K13 (the sample map), the fused kernel and K14 (the
+    fold, :mod:`...kernels.passes`)."""
+    spp_map = adaptive_map(film.err, tolerance, reprobe, config)
     color, depth, segs = trace_pass(kscene, cam, config, frame_seed,
-                                    sample_offset, sl, slmeta, spp_map)
-
-    took = want.to(torch.float32) * spp
-    # Inter-pass disagreement: |new pass mean - running mean| relative to the
-    # running mean's luminance, plus a floor so that black pixels converge.
-    old_n = torch.clamp(film.n_samples, min=1.0)
-    old_mean = film.color_sum.scale(1.0 / old_n)
-    new_mean = color.scale(1.0 / torch.clamp(took, min=1.0))
-    lum = (old_mean.x + old_mean.y + old_mean.z) * (1.0 / 3.0)
-    delta = (torch.abs(new_mean.x - old_mean.x)
-             + torch.abs(new_mean.y - old_mean.y)
-             + torch.abs(new_mean.z - old_mean.z)) * (1.0 / 3.0)
-    rel = delta / (lum + 0.05)
-    # A pixel's first pass keeps err at +inf, so every pixel gets a second
-    # look; afterwards err holds the latest disagreement of a sampled pixel.
-    seen = film.n_samples > 0.0
-    err = torch.where(want & seen, rel, film.err)
-    err = torch.where(want & ~seen, float("inf"), err)
-
-    return AdaptiveFilm(color_sum=film.color_sum + color,
-                        depth_sum=film.depth_sum + depth,
-                        n_samples=film.n_samples + took, err=err,
-                        rays_traced=film.rays_traced + segs)
+                                    sample_offset, sl, slmeta, spp_map,
+                                    blocks=True)
+    return AdaptiveFilm(*fold_adaptive(film, (*color, depth), segs,
+                                       tolerance, reprobe, config))
 
 
 class AdaptiveRenderer:

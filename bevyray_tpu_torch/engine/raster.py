@@ -36,7 +36,7 @@ from ..core.types import (CameraState, RenderConfig, Triangles,
                           camera_leaves, make_triangles_np, resolve_device,
                           upload)
 from ..core.vec import Vec3
-from ..kernels.bounce import camera_row
+from ..kernels.camera import camera_rows
 from ..kernels.cuda.wavefront import triangle_columns
 from ..kernels.intersect import intersect_triangles
 from ..kernels.raygen import generate_rays, pixel_uv
@@ -151,8 +151,8 @@ def check_kernel_args(tris: Triangles, tri_colors: torch.Tensor,
 def raster_rays(camera: torch.Tensor,
                 config: RenderConfig) -> Tuple[Vec3, Vec3]:
     """Launch K8 of ``kernels/cuda/csrc/raster.cu``: the values of
-    :func:`raster_rays_reference`, from ``camera``, the camera row of
-    :func:`..kernels.bounce.camera_row` on the card. CUDA tensors only;
+    :func:`raster_rays_reference`, from ``camera``, the wavefront camera row of
+    :func:`..kernels.camera.camera_rows` on the card. CUDA tensors only;
     ``raster_rays.launches`` counts the launches."""
     dev = camera.device
     _check_cuda(dev, "raster_rays")
@@ -171,7 +171,7 @@ def raster_shade(t: torch.Tensor, idx: torch.Tensor, direction: Vec3,
                  clear_color: Tuple[float, float, float]):
     """Launch K9 of ``kernels/cuda/csrc/raster.cu``: the values of
     :func:`raster_shade_reference`, the camera's direction read from
-    ``camera`` (:func:`..kernels.bounce.camera_row`) and ``near`` a 0-d
+    ``camera`` (:func:`..kernels.camera.camera_rows`) and ``near`` a 0-d
     tensor on the card. CUDA tensors only; ``raster_shade.launches``
     counts the launches."""
     dev = t.device
@@ -204,7 +204,7 @@ def rasterize_impl(tris: Triangles, tri_colors: torch.Tensor,
                                         clear_color)
     _check_cuda(dev, "rasterize_impl")
     check_kernel_args(tris, tri_colors, cam)
-    camera = camera_row(cam, config, dev)
+    camera = camera_rows(cam, config, fused=False, wavefront=True).wavefront
     origin, direction = raster_rays(camera, config)
     t, idx = intersect_triangles(origin, direction, tris)
     return raster_shade(t, idx, direction, tris, tri_colors, camera,
@@ -221,7 +221,7 @@ def _check_cuda(dev: torch.device, name: str) -> None:
 
 
 def _camera_on(cam: CameraState, device) -> CameraState:
-    """``cam`` with every tensor on ``device`` (as ``pack_camera``'s row is
+    """``cam`` with every tensor on ``device`` (as the fused camera row is
     moved to the scene's device)."""
     return CameraState(*(Vec3(*(c.to(device) for c in f)) if isinstance(f, Vec3)
                          else f.to(device) for f in cam))

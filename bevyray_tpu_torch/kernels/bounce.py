@@ -11,8 +11,9 @@ A sample's lanes live in a :class:`SampleState`, allocated once a frame
 (:func:`new_state`) and updated in place: the ray, its throughput and
 radiance, the active flag, the first hit's distance, the stream word, the
 sample's segment count and its harvest (gamma colour and depth), beside the
-camera row (:func:`camera_row`), the frame's camera scalars computed once
-by torch on the lanes' device, and the camera and config it was made for:
+wavefront camera row (:func:`.camera.camera_rows`), the frame's camera
+scalars computed once on the camera's device (K12 on the card) and copied
+to the lanes', and the camera and config it was made for:
 ray generation takes its camera from the state and raises when handed
 another. A frame's or a film pass's samples fold into a :class:`FrameSums`
 (:func:`new_sums`): ray generation starts its segment total and the last
@@ -39,19 +40,14 @@ from ..core.constants import INF
 from ..core.types import CameraState, RenderConfig, SceneBuffers
 from ..core.vec import Vec3
 from ..engine import slots
+from .camera import CAM_FALLBACK, CAM_FLOATS, camera_rows
 from .composite import background_gradient, linear_to_gamma
 from .intersect import (gather_materials, make_hit_info, merge_hits,
                         triangle_hit_info)
-from .raygen import _f32, generate_rays, pixel_range
+from .raygen import generate_rays, pixel_range
 from .shade import scatter
 
 _M32 = 0xFFFFFFFF
-
-# Slots of the camera row (csrc/bounce.h CAM_*).
-(CAM_POS, CAM_DIR, CAM_UP, CAM_RIGHT) = (0, 3, 6, 9)
-CAM_SCALE, CAM_ASPECT, CAM_HEIGHT, CAM_WIDTH = 12, 13, 14, 15
-CAM_APERTURE, CAM_FOCUS, CAM_FALLBACK = 16, 17, 18
-CAM_FLOATS = 19
 
 # float32 columns of a SampleState a lane: origin, direction, ray_color,
 # radiance (3 each), first_depth, the harvest's colour (3) and depth.
@@ -114,24 +110,6 @@ def _fold_args(sums, base) -> tuple:
     return sums.columns(), [] if base is None else base.columns()
 
 
-def camera_row(cam: CameraState, config: RenderConfig,
-               device) -> torch.Tensor:
-    """The frame's camera scalars as one float32 tensor on ``device``, each
-    computed by torch as :func:`.raygen.generate_rays` and the JAX body
-    compute it: position, direction, up, right = direction x up,
-    tan(fov / 2), aspect, the frame's height and height * aspect,
-    aperture, focus distance, and the miss depth ``far + 10`` at level 1,
-    ``far - 1`` otherwise (wgsl:177-182)."""
-    right = cam.direction.cross(cam.up)
-    h = _f32(config.height, device)
-    fallback = cam.far + 10.0 if config.level == 1 else cam.far - 1.0
-    parts = (*cam.position, *cam.direction, *cam.up, *right,
-             torch.tan(cam.fov * 0.5), cam.aspect, h, h * cam.aspect,
-             cam.aperture, cam.focus_distance, fallback)
-    return torch.stack([p.to(device=device, dtype=torch.float32).reshape(())
-                        for p in parts])
-
-
 def new_state(n: int, cam: CameraState, config: RenderConfig,
               device) -> SampleState:
     """An uninitialised :class:`SampleState` of ``n`` lanes on ``device``
@@ -145,7 +123,8 @@ def new_state(n: int, cam: CameraState, config: RenderConfig,
         first_depth=f[12],
         stream=torch.empty(n, dtype=torch.int32, device=device),
         segments=torch.empty((), dtype=torch.int64, device=device),
-        color=vec[4], depth=f[16], camera=camera_row(cam, config, device),
+        color=vec[4], depth=f[16], camera=camera_rows(
+            cam, config, fused=False, wavefront=True).wavefront.to(device),
         cam=cam, config=config)
 
 

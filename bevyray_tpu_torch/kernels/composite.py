@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.vec import Vec3
+from ..core.vec import Vec3, sqrt
 
 
 def background_gradient(direction: Vec3) -> Vec3:
@@ -22,9 +22,9 @@ def background_gradient(direction: Vec3) -> Vec3:
 
 def linear_to_gamma(color: Vec3) -> Vec3:
     """sqrt "gamma" (raytrace.wgsl:226-228)."""
-    return Vec3(torch.sqrt(torch.clamp(color.x, min=0.0)),
-                torch.sqrt(torch.clamp(color.y, min=0.0)),
-                torch.sqrt(torch.clamp(color.z, min=0.0)))
+    return Vec3(sqrt(torch.clamp(color.x, min=0.0)),
+                sqrt(torch.clamp(color.y, min=0.0)),
+                sqrt(torch.clamp(color.z, min=0.0)))
 
 
 def composite(level: int, rt_color: Vec3, rt_depth: torch.Tensor,

@@ -4,8 +4,9 @@
 ``csrc/wavefront.cu`` (the wavefront renderer's ray tests),
 ``csrc/bounce.cu`` (its ray generation and shading), ``csrc/denoise.cu``
 (the à-trous denoiser), ``csrc/raster.cu`` (the raster layer's rays and
-shading), ``csrc/frame.cu`` (the frame's tail and the film pass's fold) and
-``csrc/binding.cpp`` with ``torch.utils.cpp_extension.load``
+shading), ``csrc/frame.cu`` (the frame's tail and the film pass's fold),
+``csrc/camera.cu`` (the camera row), ``csrc/passes.cu`` (the adaptive
+pass's map and fold and the sharded step's sums) and ``csrc/binding.cpp`` with ``torch.utils.cpp_extension.load``
 for ``sm_90a`` into ``build/torch_ext/`` at the repository root, and loads
 the result; later calls in the process return the loaded module, and later
 processes reuse the build while its sources are unchanged. Only ``binding.cpp``
@@ -38,7 +39,8 @@ def extension():
             name="bevyray_tpu_torch_cuda",
             sources=[str(_CSRC / name) for name in (
                 "megakernel.cu", "wavefront.cu", "bounce.cu", "denoise.cu",
-                "raster.cu", "frame.cu", "binding.cpp")],
+                "raster.cu", "frame.cu", "camera.cu", "passes.cu",
+                "binding.cpp")],
             build_directory=str(BUILD_DIR), extra_cuda_cflags=CUDA_FLAGS,
             extra_cflags=["-O2"])
     return _extension

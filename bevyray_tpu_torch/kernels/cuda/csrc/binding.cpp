@@ -1,8 +1,11 @@
 // Python binding of the fused path-tracing kernel (megakernel.cu), the
 // wavefront ray tests (wavefront.cu), the wavefront bounce body (bounce.cu),
 // the image kernels: the denoiser (denoise.cu) and the raster layer
-// (raster.cu), and the frame's tail and the film pass's fold (frame.cu). The one source that includes PyTorch's headers: it checks the
-// tensors, launches on PyTorch's current stream and checks the launch.
+// (raster.cu), the frame's tail and the film pass's fold (frame.cu), the
+// camera row (camera.cu), and the adaptive pass's map and fold and the
+// sharded step's sums (passes.cu). The one source that includes PyTorch's
+// headers: it checks the tensors, launches on PyTorch's current stream and
+// checks the launch.
 
 #include <torch/extension.h>
 
@@ -16,9 +19,11 @@
 #include <c10/cuda/CUDAStream.h>
 
 #include "bounce.h"
+#include "camera.h"
 #include "frame.h"
 #include "image.h"
 #include "megakernel.h"
+#include "passes.h"
 #include "wavefront.h"
 
 namespace {
@@ -836,6 +841,144 @@ std::map<std::string, std::map<std::string, int64_t>> frame_info(int64_t device)
   return out;
 }
 
+// ---- the camera row, the adaptive pass and the sharded step's sums ------------
+
+// One int64 on `like`'s device.
+const int64_t* one_long(const torch::Tensor& t, const torch::Tensor& like, const char* name) {
+  TORCH_CHECK(t.is_cuda() && t.device() == like.device() &&
+                  t.scalar_type() == torch::kInt64 && t.numel() == 1,
+              name, " must be one int64 on the same device");
+  return t.data_ptr<int64_t>();
+}
+
+// K12: `leaves` the camera's fifteen values (float32, one each, in
+// camera_leaves order); `fused` empty or 24 float32, `wavefront` empty or
+// CAM_FLOATS float32 (not both empty).
+void camera_rows(const std::vector<torch::Tensor>& leaves, torch::Tensor fused,
+                 torch::Tensor wavefront, double width, double height, double npix,
+                 bool level1) {
+  TORCH_CHECK(leaves.size() == N_LEAVES, "the camera must be its fifteen values");
+  const torch::Tensor& like = leaves[L_FOV];
+  CameraArgs a{};
+  for (int k = 0; k < N_LEAVES; ++k) a.leaf[k] = one_float(leaves[k], like, "camera value");
+  TORCH_CHECK(fused.numel() > 0 || wavefront.numel() > 0, "camera_rows writes a row");
+  if (fused.numel() > 0) a.fused = lane_floats(fused, kNCam, like, "fused row");
+  if (wavefront.numel() > 0) a.wavefront = lane_floats(wavefront, CAM_FLOATS, like, "wavefront row");
+  a.width = static_cast<float>(width);
+  a.height = static_cast<float>(height);
+  a.npix = static_cast<float>(npix);
+  a.level1 = level1;
+  const c10::cuda::CUDAGuard guard(like.device());
+  launch_camera_rows(a, c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// K13: `err` float32 width * height; `out` int32, whole 64 x 64 blocks of
+// the frame's grid (`nbx` wide).
+void adaptive_map(const torch::Tensor& err, torch::Tensor out, double tolerance, bool reprobe,
+                  int64_t spp, int64_t nbx, int64_t width, int64_t height) {
+  const int64_t n = frame_pixels(width, height, nbx, out.numel());
+  AdaptiveMap a{};
+  a.err = column(err, n, err, "err");
+  TORCH_CHECK(out.is_cuda() && out.device() == err.device() &&
+                  out.scalar_type() == torch::kInt32 && out.is_contiguous() &&
+                  out.numel() % kTile == 0,
+              "the map must be whole blocks of contiguous int32 on err's device");
+  TORCH_CHECK(spp >= 0 && spp < (int64_t{1} << 24), "spp must be a small count");
+  a.out = out.data_ptr<int32_t>();
+  a.tolerance = static_cast<float>(tolerance);
+  a.reprobe = reprobe;
+  a.spp = static_cast<int>(spp);
+  a.nbx = static_cast<int>(nbx);
+  a.width = static_cast<int>(width);
+  a.height = static_cast<int>(height);
+  a.lanes = static_cast<int>(out.numel());
+  const c10::cuda::CUDAGuard guard(err.device());
+  launch_adaptive_map(a, c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// K14: `film` r, g, b, depth, n_samples, err (float32, width * height each,
+// row-major); `pass` the pass's r, g, b, depth in block order; `out` six new
+// float32 columns like the film's; `total_in`, `segments`, `total_out` one
+// int64 each.
+void fold_adaptive(const std::vector<torch::Tensor>& film, const std::vector<torch::Tensor>& pass,
+                   const std::vector<torch::Tensor>& out, const torch::Tensor& total_in,
+                   const torch::Tensor& segments, torch::Tensor total_out, double tolerance,
+                   bool reprobe, int64_t spp, int64_t nbx, int64_t width, int64_t height) {
+  TORCH_CHECK(film.size() == 6 && pass.size() == 4 && out.size() == 6,
+              "film and out must be six columns, pass r, g, b, depth");
+  const torch::Tensor& like = film[3];
+  TORCH_CHECK(nbx > 0, "the pass's sums are block-ordered");
+  const int64_t n = frame_pixels(width, height, nbx, pass[3].numel());
+  AdaptiveFold a{};
+  for (int k = 0; k < 6; ++k) {
+    a.film[k] = column(film[k], n, like, "film");
+    a.out[k] = lane_floats(out[k], n, like, "out");
+  }
+  for (int k = 0; k < 4; ++k) a.pass[k] = column(pass[k], pass[3].numel(), like, "pass sums");
+  a.total_in = one_long(total_in, like, "total_in");
+  a.segments = one_long(segments, like, "segments");
+  a.total_out = const_cast<int64_t*>(one_long(total_out, like, "total_out"));
+  TORCH_CHECK(spp >= 0 && spp < (int64_t{1} << 24), "spp must be a small count");
+  a.tolerance = static_cast<float>(tolerance);
+  a.reprobe = reprobe;
+  a.spp = static_cast<float>(spp);
+  a.nbx = static_cast<int>(nbx);
+  a.width = static_cast<int>(width);
+  a.height = static_cast<int>(height);
+  const c10::cuda::CUDAGuard guard(like.device());
+  launch_fold_adaptive(a, c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// K15: `parts` r, g, b, depth of each part in (sp_i, dp_i) order, `n`
+// float32 each; `segments` one int64 a part; `out` r, g, b, depth of sp * n
+// float32 each; `total` one int64.
+void sum_shards(const std::vector<torch::Tensor>& parts, const std::vector<torch::Tensor>& segments,
+                const std::vector<torch::Tensor>& out, torch::Tensor total, int64_t sp,
+                int64_t dp, int64_t n) {
+  TORCH_CHECK(sp >= 1 && dp >= 1 && sp * dp <= kMaxParts, "sum_shards takes 1 to ",
+              kMaxParts, " parts");
+  TORCH_CHECK(parts.size() == static_cast<size_t>(4 * sp * dp) &&
+                  segments.size() == static_cast<size_t>(sp * dp) && out.size() == 4,
+              "parts must be r, g, b, depth of each part, segments one a part");
+  TORCH_CHECK(n >= 0 && sp * n < (int64_t{1} << 31), "the joined sums must have fewer than 2^31 lanes");
+  const torch::Tensor& like = out[3];
+  ShardSums a{};
+  for (int64_t p = 0; p < sp * dp; ++p) {
+    for (int k = 0; k < 4; ++k) a.part[p][k] = column(parts[4 * p + k], n, like, "part");
+    a.segments[p] = one_long(segments[p], like, "segments");
+  }
+  for (int k = 0; k < 4; ++k) a.out[k] = lane_floats(out[k], sp * n, like, "out");
+  a.total = const_cast<int64_t*>(one_long(total, like, "total"));
+  a.sp = static_cast<int>(sp);
+  a.dp = static_cast<int>(dp);
+  a.n = static_cast<int>(n);
+  const c10::cuda::CUDAGuard guard(like.device());
+  launch_sum_shards(a, c10::cuda::getCurrentCUDAStream().stream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+// Registers, spills, shared memory and resident blocks per SM of K12-K15 on
+// CUDA device `device`.
+std::map<std::string, std::map<std::string, int64_t>> passes_info(int64_t device) {
+  const c10::cuda::CUDAGuard guard(static_cast<c10::DeviceIndex>(device));
+  std::map<std::string, std::map<std::string, int64_t>> out;
+  const char* names[] = {"camera_rows", "adaptive_map", "fold_adaptive", "sum_shards"};
+  for (int which = 0; which < 4; ++which) {
+    WaveKernelInfo info{};
+    C10_CUDA_CHECK(which == 0 ? ::camera_kernel_info(&info)
+                              : ::passes_kernel_info(which - 1, &info));
+    out[names[which]] = {{"num_regs", info.num_regs},
+                         {"local_bytes", info.local_bytes},
+                         {"static_smem", info.static_smem},
+                         {"dynamic_smem", info.dynamic_smem},
+                         {"blocks_per_sm", info.blocks_per_sm}};
+  }
+  return out;
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -869,4 +1012,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("fold_pass", &fold_pass, "A fused film pass folded into a new film (K11)");
   m.def("frame_info", &frame_info,
         "Registers, spills, shared memory and occupancy of the K10 and K11 kernels");
+  m.def("camera_rows", &camera_rows, "A camera's fused and wavefront rows (K12)");
+  m.def("adaptive_map", &adaptive_map, "An adaptive pass's block-ordered sample map (K13)");
+  m.def("fold_adaptive", &fold_adaptive, "An adaptive pass folded into a new film (K14)");
+  m.def("sum_shards", &sum_shards, "The sharded step's sums over dp, the sp shards joined (K15)");
+  m.def("passes_info", &passes_info,
+        "Registers, spills, shared memory and occupancy of the K12-K15 kernels");
 }

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from ...core import rng
-from ...core.vec import Vec3
+from ...core.vec import Vec3, sqrt
 
 # Layout knobs, as in the JAX kernel (megakernel.py:473, :483): 9 words per
 # bounce with the 9-bit spares repacked (13 without), and 6 with the z/phi
@@ -66,14 +66,6 @@ def _over(c: float, x: torch.Tensor) -> torch.Tensor:
     """c / x in one IEEE division: a Python float over a tensor would take
     ``x.reciprocal() * c``, which rounds twice."""
     return torch.full_like(x, c) / x
-
-
-def _sqrt(x: torch.Tensor) -> torch.Tensor:
-    """IEEE float32 sqrt on any device: torch's vectorized float32 sqrt on
-    the CPU is not always correctly rounded (1 ulp off on about 0.6% of
-    uniform inputs), where the kernel's ``sqrtf`` and XLA's are. A float64
-    sqrt rounded to float32 is."""
-    return torch.sqrt(x.double()).float()
 
 
 def words_per_bounce() -> int:
@@ -149,13 +141,13 @@ def fast_ball(u1, u2, u3, u4, u5) -> Vec3:
     TPU's ``rsqrt`` is ``1 / sqrt``, as the kernel computes it."""
     l1 = fast_log2(torch.clamp(u1, min=1e-9)) * _LN2
     l3 = fast_log2(torch.clamp(u3, min=1e-9)) * _LN2
-    r1 = _sqrt(-2.0 * l1)
-    r3 = _sqrt(-2.0 * l3)
+    r1 = sqrt(-2.0 * l1)
+    r3 = sqrt(-2.0 * l3)
     gx = r1 * fast_cos2pi(u2)
     gy = r1 * fast_sin2pi(u2)
     gz = r3 * fast_cos2pi(u4)
-    inv_len = 1.0 / _sqrt(torch.clamp(gx * gx + gy * gy + gz * gz,
-                                           min=1e-20))
+    inv_len = 1.0 / sqrt(torch.clamp(gx * gx + gy * gy + gz * gz,
+                                     min=1e-20))
     radius = fast_pow2(fast_log2(torch.clamp(u5, min=1e-30)) * _THIRD)
     s = inv_len * radius
     return Vec3(gx * s, gy * s, gz * s)
@@ -165,7 +157,7 @@ def fast_ball_zphi(uz, uphi, ur) -> Vec3:
     """Uniform point in the unit ball from 3 uniforms: z uniform in [-1, 1)
     and a uniform azimuth for the direction, cube-root radius (:446-460)."""
     z = 2.0 * uz - 1.0
-    s = _sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    s = sqrt(torch.clamp(1.0 - z * z, min=0.0))
     x = s * fast_cos2pi(uphi)
     y = s * fast_sin2pi(uphi)
     radius = fast_pow2(fast_log2(torch.clamp(ur, min=1e-30)) * _THIRD)

@@ -69,8 +69,12 @@ from ...core import rng
 from ...core.constants import INF, T_MIN
 from ...core.types import (CameraState, RenderConfig, SceneBuffers, Triangles,
                           host_array, upload)
-from ...core.vec import Vec3
+from ...core.vec import Vec3, sqrt
 from ...engine import slots
+from ..camera import (C_APERTURE, C_ASPECT, C_DIR_X, C_DIR_Y, C_DIR_Z, C_FAR,
+                      C_FOCUS, C_HEIGHT, C_POS_X, C_POS_Y, C_POS_Z, C_RIGHT_X,
+                      C_RIGHT_Y, C_RIGHT_Z, C_SCALE, C_UP_X, C_UP_Y, C_UP_Z,
+                      C_WIDTH, camera_rows)
 from ..composite import background_gradient, linear_to_gamma
 from ..intersect import (DENSE_ELEMS, HitInfo, MaterialLanes,
                          intersect_triangles_reference)
@@ -97,12 +101,6 @@ MAX_FUSE_PLANES = 704
 # Attribute table rows: sphere center (triangle unit normal), then materials.
 N_MAT = 10             # base rgb, metallic, roughness, ior, transmission, emissive rgb
 N_ATTR = 3 + N_MAT
-
-# Camera/scalar uniform slots of the packed camera row (the JAX kernel's).
-(C_POS_X, C_POS_Y, C_POS_Z, C_DIR_X, C_DIR_Y, C_DIR_Z, C_UP_X, C_UP_Y, C_UP_Z,
- C_RIGHT_X, C_RIGHT_Y, C_RIGHT_Z, C_SCALE, C_ASPECT, C_NEAR, C_FAR,
- C_WIDTH, C_HEIGHT, C_NPIX, C_APERTURE, C_FOCUS) = range(21)
-N_CAM = 24
 
 _M32 = 0xFFFFFFFF
 # f32 max, the miss sentinel (constants.INF) as a float32 value.
@@ -319,35 +317,6 @@ def prepare_kernel_scene(scene: SceneBuffers, cand_size: int = 0,
                        gaabb=gaabb.contiguous(), tri=tri.contiguous(),
                        gc=gc, n_cand=n_cand, cand_off=cand_off, n_tris=n_tris,
                        has_emissive=scene_has_emissive(scene))
-
-
-def pack_camera(cam: CameraState, config: RenderConfig) -> torch.Tensor:
-    """The (N_CAM,) float32 uniform row the kernel reads (the JAX kernel's
-    slot layout), on the camera's device."""
-    right = cam.direction.cross(cam.up)   # wgsl:149
-    dev = cam.fov.device
-    entries = {
-        C_POS_X: cam.position.x, C_POS_Y: cam.position.y,
-        C_POS_Z: cam.position.z, C_DIR_X: cam.direction.x,
-        C_DIR_Y: cam.direction.y, C_DIR_Z: cam.direction.z,
-        C_UP_X: cam.up.x, C_UP_Y: cam.up.y, C_UP_Z: cam.up.z,
-        C_RIGHT_X: right.x, C_RIGHT_Y: right.y, C_RIGHT_Z: right.z,
-        C_SCALE: torch.tan(cam.fov * 0.5), C_ASPECT: cam.aspect,
-        C_NEAR: cam.near, C_FAR: cam.far,
-        C_WIDTH: config.width, C_HEIGHT: config.height,
-        C_NPIX: config.n_pixels,
-        C_APERTURE: cam.aperture, C_FOCUS: cam.focus_distance,
-    }
-
-    def entry(k):
-        # A Python number is filled in on the device: a copy from the host
-        # would wait for the work queued there.
-        v = entries.get(k, 0.0)
-        if isinstance(v, torch.Tensor):
-            return v.to(dtype=torch.float32, device=dev)
-        return torch.full((), float(v), dtype=torch.float32, device=dev)
-
-    return torch.stack([entry(k) for k in range(N_CAM)])
 
 
 def block_grid(config: RenderConfig):
@@ -671,7 +640,7 @@ def _launch(pscene: KernelScene, cam: CameraState, config: RenderConfig,
     grid = persistent_grid(n_tiles, info["blocks_per_sm"], info["n_sms"])
     nbx, _ = block_grid(config)
     n_lanes = n_tiles * TILE
-    cam_row = pack_camera(cam, config).to(dev)
+    cam_row = camera_rows(cam, config).fused.to(dev)
     outs = [torch.empty(n_lanes, dtype=torch.float32, device=dev)
             for _ in range(4)]
     # [0] the segment count, [1] the work counter the CUDA blocks take items
@@ -750,7 +719,7 @@ def _quadratic_q(o: Vec3, d: Vec3, a, cx, cy, cz, r2):
     h = d.x[:, None] * ocx + d.y[:, None] * ocy + d.z[:, None] * ocz
     cc = ocx * ocx + ocy * ocy + ocz * ocz - r2
     disc = h * h - a[:, None] * cc
-    return h - torch.sqrt(disc)
+    return h - sqrt(disc)
 
 
 def _accepted(q, q_min):
@@ -954,7 +923,7 @@ def _raygen(cam: torch.Tensor, config: RenderConfig, draws, exact_rng: bool,
     o = Vec3(*(c.expand_as(d.x) for c in pos))
     if config.defocus:
         lu, lv = draws.lens()
-        rr = cam[C_APERTURE] * 0.5 * torch.sqrt(lu)
+        rr = cam[C_APERTURE] * 0.5 * sqrt(lu)
         if exact_rng:
             theta = rng.TWO_PI * lv
             lx = rr * torch.cos(theta)
@@ -1013,7 +982,7 @@ def render_tiles_reference(pscene: KernelScene, cam: CameraState,
                 "triangle_hits", "triangle_first_hits"):
         work.setdefault(key, 0)
     candidates = kernel_mode(pscene, config, sl)[1] == "candidates"
-    cam_row = pack_camera(cam, config).to(dev, pscene.sph.dtype)
+    cam_row = camera_rows(cam, config).fused.to(dev, pscene.sph.dtype)
     nbx, _ = block_grid(config)
     lane = torch.arange(local_blocks(config, n_blocks_local) * TILE,
                         device=dev)

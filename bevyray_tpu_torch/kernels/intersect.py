@@ -29,7 +29,7 @@ import torch
 
 from ..core.constants import INF, T_MIN
 from ..core.types import Materials, Spheres
-from ..core.vec import Vec3
+from ..core.vec import Vec3, sqrt
 from .cuda import wavefront
 
 # Lanes per step times table columns of a dense [lanes x columns] test (here
@@ -174,7 +174,7 @@ def intersect_spheres_reference(origin: Vec3, direction: Vec3,
             del ocx, ocy, ocz
             disc = h * h - a[span, None] * c                       # wgsl:376
             del c
-            t = (h - torch.sqrt(torch.clamp(disc, min=0.0))) * inv_a[span, None]
+            t = (h - sqrt(torch.clamp(disc, min=0.0))) * inv_a[span, None]
             del h
             ok = (disc >= 0.0) & (t > T_MIN) & cvalid[None, :]     # wgsl:353
             del disc

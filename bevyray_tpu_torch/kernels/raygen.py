@@ -14,7 +14,8 @@ import torch
 
 from ..core.rng import TWO_PI
 from ..core.types import CameraState
-from ..core.vec import Vec3
+from ..core.vec import Vec3, sqrt
+from .camera import half_fov_tan
 
 
 def _f32(value, device) -> torch.Tensor:
@@ -68,13 +69,13 @@ def generate_rays(u, v, jitter_u, jitter_v, cam: CameraState, height: int,
     ndc_y = (1.0 - v * 2.0) + (jitter_v - 0.5) / h
 
     right = cam.direction.cross(cam.up)             # wgsl:149
-    scale = torch.tan(cam.fov * 0.5)                # wgsl:151
+    scale = half_fov_tan(cam.fov)                   # wgsl:151
     direction = (cam.direction + right.scale(ndc_x * cam.aspect * scale)
                  + cam.up.scale(ndc_y * scale)).normalize()
     origin = Vec3(*(c.expand_as(direction.x) for c in cam.position))
 
     if lens_u is not None:
-        r = cam.aperture * 0.5 * torch.sqrt(lens_u)
+        r = cam.aperture * 0.5 * sqrt(lens_u)
         theta = TWO_PI * lens_v
         focal = origin + direction.scale(cam.focus_distance)
         origin = (origin + right.scale(r * torch.cos(theta))

@@ -15,7 +15,7 @@ from typing import NamedTuple
 import torch
 
 from ..core.constants import NEAR_ZERO
-from ..core.vec import Vec3, reflect, refract, schlick_reflectance
+from ..core.vec import Vec3, reflect, refract, schlick_reflectance, sqrt
 from .intersect import HitInfo, MaterialLanes
 
 
@@ -45,7 +45,7 @@ def scatter(direction: Vec3, hit: HitInfo, mat: MaterialLanes,
     unit = direction.normalize()
     ri = torch.where(hit.front_face, 1.0 / mat.ior, mat.ior)
     cos_theta = torch.clamp((-unit).dot(n), max=1.0)
-    sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
+    sin_theta = sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
     cannot_refract = ri * sin_theta > 1.0
     use_reflect = cannot_refract | (schlick_reflectance(cos_theta, ri)
                                     > u_reflect)

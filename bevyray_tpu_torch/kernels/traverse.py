@@ -36,7 +36,7 @@ import torch
 
 from ..core.constants import INF, T_MIN
 from ..core.types import BvhNodes, Spheres, SphereWalk, make_sphere_walk
-from ..core.vec import Vec3
+from ..core.vec import Vec3, sqrt
 from .cuda import wavefront
 from .intersect import _check_cuda, on_active
 
@@ -72,7 +72,7 @@ def _sphere_t(origin: Vec3, direction: Vec3, a, inv_a, cx, cy, cz, r):
     h = direction.x * ocx + direction.y * ocy + direction.z * ocz
     c = ocx * ocx + ocy * ocy + ocz * ocz - r * r
     disc = h * h - a * c
-    t = (h - torch.sqrt(torch.clamp(disc, min=0.0))) * inv_a
+    t = (h - sqrt(torch.clamp(disc, min=0.0))) * inv_a
     ok = (disc >= 0.0) & (t > T_MIN)
     return torch.where(ok, t, INF)
 

@@ -46,6 +46,7 @@ from ..kernels.cuda.megakernel import (KernelScene, block_grid,
                                        prepare_kernel_scene, render_tiles)
 from ..kernels.cuda.primary import shortlists_for
 from ..kernels.intersect import intersect_spheres
+from ..kernels.passes import sum_shards
 
 AXES = ("sp", "dp", "tp")
 _M32 = 0xFFFFFFFF
@@ -111,17 +112,6 @@ def _scene_on(scene: SceneBuffers, dev) -> SceneBuffers:
     return SceneBuffers(*(table(t) for t in scene))
 
 
-def _psum(parts: list, dev):
-    """Sum of ``parts`` (tensors or Vec3s) on ``dev``, in list order."""
-    total = parts[0]
-    move = (lambda x: _vec_on(x, dev)) if isinstance(total, Vec3) else (
-        lambda x: x.to(dev))
-    total = move(total)
-    for p in parts[1:]:
-        total = total + move(p)
-    return total
-
-
 def _check_spp(config: RenderConfig, dp: int) -> int:
     if config.samples_per_pixel % dp:
         raise ValueError(f"spp {config.samples_per_pixel} must divide dp={dp}")
@@ -180,7 +170,9 @@ def render_frame_sharded(mesh: Mesh, scene: SceneBuffers, cam: CameraState,
     must divide by sp), its sphere tests split over tp (every bounce runs,
     as in the JAX package), its samples folded into the shard's sums by
     the shading. The color and depth sums are added over dp, averaged and
-    composited on the mesh's first device."""
+    composited on the mesh's first device. On the card K15 takes at most
+    ``MAX_PARTS`` (32) sp x dp parts (:func:`..kernels.passes.sum_shards`);
+    a larger mesh raises."""
     sp, dp, tp = (mesh.shape[a] for a in AXES)
     n = config.n_pixels
     if n % sp:
@@ -213,23 +205,18 @@ def _reduce_and_composite(mesh: Mesh, parts: dict, config: RenderConfig,
                           cam: CameraState, raster_color, raster_depth,
                           blocks: bool) -> FrameResult:
     """Sum each sp shard's (color, depth) over dp in ascending order and
-    the segments over every shard, on the mesh's first device; join the sp
-    shards; then one launch of K10 on the card
+    the segments over every shard, on the mesh's first device, and join the
+    sp shards: one launch of K15 on the card
+    (:func:`..kernels.passes.sum_shards`); then one launch of K10
     (:func:`..engine.renderer.frame_result`): scale by 1/spp, put the fused
     step's pixel blocks (``blocks``) back in scanline order and crop, and
     composite."""
     sp, dp = mesh.shape["sp"], mesh.shape["dp"]
     dev0 = mesh.device(0, 0)
-    colors, depths = [], []
-    for sp_i in range(sp):
-        colors.append(_psum([parts[sp_i, k][0] for k in range(dp)], dev0))
-        depths.append(_psum([parts[sp_i, k][1] for k in range(dp)], dev0))
-    segments = _psum([p[2] for p in parts.values()], dev0)
+    sums, segments = sum_shards(parts, sp, dp, dev0)
     inv_spp = float(np.float32(1.0 / config.samples_per_pixel))
-    sums = [torch.cat([c[k] for c in colors]) for k in range(3)]
-    return frame_result(config, _camera_on(cam, dev0),
-                        (*sums, torch.cat(depths)), segments, inv_spp,
-                        raster_color, raster_depth, blocks=blocks)
+    return frame_result(config, _camera_on(cam, dev0), sums, segments,
+                        inv_spp, raster_color, raster_depth, blocks=blocks)
 
 
 # ---------------------------------------------------------------------------
@@ -311,7 +298,9 @@ def render_frame_sharded_pallas(mesh: Mesh, scene: SceneBuffers,
     ``dp_i * spp/dp ..`` as sums (``render_tiles(normalize=False)``), with
     its rows of the padded grid's shortlists. The sums are added over dp,
     the shards joined, put back in scanline order and cropped, then
-    composited, on the mesh's first device."""
+    composited, on the mesh's first device. On the card K15 takes at most
+    ``MAX_PARTS`` (32) sp x dp parts (:func:`..kernels.passes.sum_shards`);
+    a larger mesh raises."""
     sp, dp, tp = (mesh.shape[a] for a in AXES)
     if tp != 1:
         raise ValueError("the fused multi-device path supports sp/dp axes "

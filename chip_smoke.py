@@ -145,6 +145,23 @@ bit-equal to its plain version (``kernels/frame.py``), with its time
 beside its bound and the plain version's, and the kernels and busy time of
 a fused headline frame and of a config-4 film pass (torch's profiler).
 
+Phase 16 holds the camera row (``kernels/cuda/csrc/camera.cu``) and the
+adaptive pass's map and fold and the sharded step's sums
+(``csrc/passes.cu``), which replace the camera part of the JAX package's
+jitted frame programs, ``_adaptive_pass`` around ``render_tiles`` and the
+psum over dp: K12 ``camera_rows`` (one launch a frame, film pass, shard,
+wavefront sample state and raster call) on the headline, night (lens) and
+level-1 cameras; K13 ``adaptive_map`` and K14 ``fold_adaptive`` (one
+each an adaptive pass) on four adaptive headline passes, the fourth a
+re-probe, the old film unchanged; K15 ``sum_shards`` (one a sharded
+frame) on the parts of a mesh (3, 1) fused frame and of a (2, 1, 2)
+wavefront frame; each bit-equal to its plain version
+(``kernels/camera.py``, ``kernels/passes.py``), with its time beside its
+bound and the plain version's, and the kernels and busy time of an
+adaptive pass and of a mesh (3, 1) frame (torch's profiler). Phases 3,
+5, 8(b) and 13(a) count K12-K15's launches on the main path and that no
+plain version of theirs ran.
+
 Each phase prints its lines; the line before the last is the kernel table
 as JSON, and the last line is ``{"ok": true, "device": {...}}``. Any failed
 phase raises and the script exits nonzero without that line. It exits
@@ -360,6 +377,41 @@ ODD_PIXELS = (53, 37)   # (W, H): ODD_IMAGE as a frame
 # sums (48). Their operations (a scale, a division, two compares) are a
 # few a pixel: the bytes bound both.
 TAIL_PIXEL_BYTES, FOLD_PIXEL_BYTES = 32, 48
+# Phase 16. The camera row (K12 ``camera_rows``, csrc/camera.cu) and the
+# adaptive pass's map and fold and the sharded step's sums (K13
+# ``adaptive_map``, K14 ``fold_adaptive``, K15 ``sum_shards``,
+# csrc/passes.cu), each held against its plain version (kernels/camera.py,
+# kernels/passes.py) to the bit on the same CUDA tensors. They replace XLA
+# code of the JAX package, not a pallas_call: the camera row of its jitted
+# frame programs, the adaptive pass around render_tiles, the psum over dp.
+PASS_SOURCES = {
+    "camera_rows": "bevyray_tpu_torch/kernels/cuda/csrc/camera.cu",
+    "adaptive_map": "bevyray_tpu_torch/kernels/cuda/csrc/passes.cu",
+    "fold_adaptive": "bevyray_tpu_torch/kernels/cuda/csrc/passes.cu",
+    "sum_shards": "bevyray_tpu_torch/kernels/cuda/csrc/passes.cu"}
+PASS_REPLACES = {"camera_rows": "bevyray_tpu/kernels/pallas/megakernel.py:2722",
+                 "adaptive_map": "bevyray_tpu/engine/adaptive.py:66",
+                 "fold_adaptive": "bevyray_tpu/engine/adaptive.py:73",
+                 "sum_shards": "bevyray_tpu/parallel/sharding.py:231"}
+PASS_PLAIN = {"camera_rows": "camera_rows_reference",
+              "adaptive_map": "adaptive_map_reference",
+              "fold_adaptive": "fold_adaptive_reference",
+              "sum_shards": "sum_shards_reference"}
+PASS_REPS = 20          # launches per CUDA-event timing
+# K15's fused cases, meshes (sp, dp) of phase 8(b); its row is timed at
+# (2, 2), where it adds two parts a lane and joins two shards.
+K15_MESHES, K15_TIMED = ((3, 1), (2, 2), (1, 4)), (2, 2)
+ADAPT_PASSES, ADAPT_REPROBE = 4, 3   # phase 16's adaptive passes: the 4th re-probes
+# K12 reads the camera's 15 floats (60 bytes) and writes a fused row of 24
+# floats and a wavefront row of 19 (172), with about 60 operations
+# (CAMERA_OPS: the cross product, the tangent's reduction and polynomial).
+# K13 reads an error a pixel and writes a target a lane (4 + 4). K14 reads
+# the pass's four sums and the film's six columns and writes six (64 a
+# pixel) and three int64 (24). K15 reads 16 bytes a lane of each part and
+# writes 16 a joined lane, and one int64 a part and the total.
+CAMERA_OPS, CAMERA_BYTES = 60, 60 + 172
+MAP_PIXEL_BYTES, MAP_LANE_BYTES = 4, 4
+ADAPT_PIXEL_BYTES = 64
 
 
 def mesh_scene(copies=1):
@@ -561,6 +613,60 @@ def plain_calls(module, names):
             setattr(module, name, real[name])
 
 
+def profiled(fn) -> tuple:
+    """(kernels, busy ms, [(count, ms, name)]) of the card over one call of
+    ``fn`` after a warm-up call (torch's profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    return (sum(e.count for e in device),
+            sum(e.self_device_time_total for e in device) / 1e3,
+            sorted(((e.count, round(e.self_device_time_total / 1e3, 4),
+                    e.key[:48]) for e in device), reverse=True))
+
+
+def pass_kernels() -> dict:
+    """K12-K15's wrappers by name (``.launches`` counts each)."""
+    from bevyray_tpu_torch.kernels import camera, passes
+
+    return {"camera_rows": camera.camera_rows,
+            "adaptive_map": passes.adaptive_map,
+            "fold_adaptive": passes.fold_adaptive,
+            "sum_shards": passes.sum_shards}
+
+
+@contextlib.contextmanager
+def pass_launches(what: str, expect: dict):
+    """Zero K12-K15's counts, run the block (a main-path run), add the
+    counts to TAIL_LAUNCHES and raise unless each is ``expect``'s (absent:
+    0) and no plain version of theirs ran."""
+    from bevyray_tpu_torch.kernels import camera, passes
+
+    kernels = pass_kernels()
+    for fn in kernels.values():
+        fn.launches = 0
+    with plain_calls(camera, ["camera_rows_reference"]) as cam_plain, \
+            plain_calls(passes, [PASS_PLAIN[n] for n in kernels
+                                 if n != "camera_rows"]) as pass_plain:
+        yield
+    got = {name: fn.launches for name, fn in kernels.items()}
+    TAIL_LAUNCHES.update(got)
+    want = {name: expect.get(name, 0) for name in kernels}
+    plain = {**cam_plain, **pass_plain}
+    if got != want or any(plain.values()):
+        raise SystemExit(f"{what}: K12-K15 launches {got}, expected {want}; "
+                         f"plain calls {plain}")
+
+
 def compare(config, got, want, mask=None) -> dict:
     """Pixel agreement of two render_tiles results (block-ordered), over the
     pixels where the block-ordered ``mask`` holds (all without one)."""
@@ -658,8 +764,9 @@ def main() -> int:
     from bevyray_tpu_torch.kernels import frame as frame_mod
     from bevyray_tpu_torch.kernels.cuda import build
     from bevyray_tpu_torch.kernels.cuda.megakernel import (
-        TILE, block_grid, kernel_mode, pack_camera, prepare_kernel_scene,
-        render_tiles, render_tiles_reference)
+        TILE, block_grid, kernel_mode, prepare_kernel_scene, render_tiles,
+        render_tiles_reference)
+    from bevyray_tpu_torch.kernels.camera import camera_rows
     from bevyray_tpu_torch.kernels.cuda.primary import device_shortlists_for
 
     dev = torch.device("cuda", 0)
@@ -785,12 +892,13 @@ def main() -> int:
         render_tiles_reference.calls = 0
         frame_mod.resolve_frame.launches = 0
         times, rays = [], []
-        for i in range(n_frames):
-            t0 = time.perf_counter()
-            frame = renderer.render(scene, cam, seed=i + 1)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            rays.append(int(frame.rays_traced))
+        with pass_launches(f"phase 3 {mode}", {"camera_rows": n_frames}):
+            for i in range(n_frames):
+                t0 = time.perf_counter()
+                frame = renderer.render(scene, cam, seed=i + 1)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                rays.append(int(frame.rays_traced))
         launches, plain_calls = render_tiles.launches, render_tiles_reference.calls
         tails = frame_mod.resolve_frame.launches
         TAIL_LAUNCHES["resolve_frame"] += tails
@@ -843,8 +951,8 @@ def main() -> int:
         full = compare(config, got, want)
         kernel_ms = cuda_ms(lambda: render_tiles(kscene, cam, config, 1,
                                                  **run), 3)
-        b_ms, b_by = bound_ms(kscene, pack_camera(cam, config), sl, slmeta,
-                              n_lanes, work)
+        b_ms, b_by = bound_ms(kscene, camera_rows(cam, config).fused, sl,
+                              slmeta, n_lanes, work)
         check_agreement(
             f"phase 4 {'/'.join(mode)} fuse {renderer.last_fuse} main-path "
             f"shapes, kernel {kernel_ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
@@ -877,6 +985,7 @@ def main() -> int:
     entries += image_phase(card, dev, raster_launches, denoise_inputs,
                            denoise_launches)
     entries += tail_phase(world, scene, cam, headline, card, dev)
+    entries += pass_phase(world, scene, cam, headline, card, dev)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -917,8 +1026,9 @@ def accumulation_phase(world, scene, cam, headline, card) -> dict:
     from bevyray_tpu_torch.engine.film import resolve_impl
     from bevyray_tpu_torch.kernels import frame as frame_mod
     from bevyray_tpu_torch.kernels.cuda.megakernel import (
-        TILE, block_grid, kernel_fuse, kernel_mode, pack_camera, render_tiles,
+        TILE, block_grid, kernel_fuse, kernel_mode, render_tiles,
         render_tiles_reference, shuffle_blocks)
+    from bevyray_tpu_torch.kernels.camera import camera_rows
 
     def counts_zeroed():
         render_tiles.launches = 0
@@ -972,9 +1082,10 @@ def accumulation_phase(world, scene, cam, headline, card) -> dict:
     prog = ProgressiveRenderer(half, backend="pallas")
     fused = FusedRenderer(headline)
     counts_zeroed()
-    prog.step(scene, cam, seed=9)
-    film_frame = prog.step(scene, cam, seed=9)
-    torch.cuda.synchronize()
+    with pass_launches("phase 5 2 x 8 spp film", {"camera_rows": 2}):
+        prog.step(scene, cam, seed=9)
+        film_frame = prog.step(scene, cam, seed=9)
+        torch.cuda.synchronize()
     check_counts("2 x 8 spp film", 2)
     check_tail("2 x 8 spp film", 2)
     kscene = prog._renderer.prepare(scene)
@@ -992,7 +1103,8 @@ def accumulation_phase(world, scene, cam, headline, card) -> dict:
     prog.step(scene, cam, seed=0)
     prog.reset()
     counts_zeroed()
-    uniform = timed_passes(prog, scene, cam, range(1, PASSES + 1))
+    with pass_launches("phase 5 progressive passes", {"camera_rows": PASSES}):
+        uniform = timed_passes(prog, scene, cam, range(1, PASSES + 1))
     check_counts("progressive passes", PASSES)
     check_tail("progressive passes", PASSES)
     uniform_frame = resolve_impl(prog.film, cam, headline)
@@ -1018,7 +1130,10 @@ def accumulation_phase(world, scene, cam, headline, card) -> dict:
         raise SystemExit(f"phase 5: the adaptive pass runs {adap_mode}, not "
                          "the default split/candidates")
     counts_zeroed()
-    passes = timed_passes(adap, scene, cam, range(1, PASSES + 1))
+    # Each adaptive pass: K12, K13, the kernel and K14.
+    with pass_launches("phase 5 adaptive passes", dict.fromkeys(
+            ("camera_rows", "adaptive_map", "fold_adaptive"), PASSES)):
+        passes = timed_passes(adap, scene, cam, range(1, PASSES + 1))
     check_counts("adaptive passes", PASSES)
     adaptive_launches = render_tiles.launches
     # On the card the films draw from the fast path, as JAX's do on the TPU.
@@ -1088,8 +1203,8 @@ def accumulation_phase(world, scene, cam, headline, card) -> dict:
                              "leave exact zero sums (r, g, b, depth)")
         kernel_ms = cuda_ms(lambda: render_tiles(kscene, cam, headline, 1,
                                                  **run), 3)
-        b_ms, b_by = bound_ms(kscene, pack_camera(cam, headline), sl, slmeta,
-                              nbx * nby * TILE, work, spp_map)
+        b_ms, b_by = bound_ms(kscene, camera_rows(cam, headline).fused, sl,
+                              slmeta, nbx * nby * TILE, work, spp_map)
         check_agreement(
             f"phase 5 split/candidates fuse {fuse} {arm} rng + spp_map (pass "
             f"{MAP_PASS}, {share:.4f} of pixels), sample_offset {MAP_OFFSET}, "
@@ -1122,8 +1237,9 @@ def hybrid_phase(card) -> tuple:
     from bevyray_tpu_torch.engine import raster
     from bevyray_tpu_torch.kernels import intersect
     from bevyray_tpu_torch.kernels.cuda.megakernel import (
-        TILE, block_grid, kernel_mode, pack_camera, render_tiles,
-        render_tiles_reference, use_candidate_walk)
+        TILE, block_grid, kernel_mode, render_tiles, render_tiles_reference,
+        use_candidate_walk)
+    from bevyray_tpu_torch.kernels.camera import camera_rows
     from bevyray_tpu_torch.kernels.cuda.primary import device_shortlists_for
 
     width, height = HYBRID_SIZE
@@ -1229,7 +1345,7 @@ def hybrid_phase(card) -> tuple:
     kernel_ms = cuda_ms(lambda: render_tiles(kscene, cam, config, 1, **run),
                         3)
     nbx, nby = block_grid(config)
-    b_ms, b_by = bound_ms(kscene, pack_camera(cam, config), sl, slmeta,
+    b_ms, b_by = bound_ms(kscene, camera_rows(cam, config).fused, sl, slmeta,
                           nbx * nby * TILE, work)
     # The cube mesh lies just outside the 16:9 frustum (its nearest edge at
     # |x/z| = 3.4/4.6 = 0.739 against tan(fov/2) * aspect = 0.736), so it
@@ -1273,6 +1389,7 @@ def fast_phase(scene, cam, headline, card) -> list:
     from bevyray_tpu_torch import (FusedRenderer, ProgressiveRenderer,
                                    RaytracedCamera, RenderConfig, rtiow)
     from bevyray_tpu_torch.engine.raster import raster_layer
+    from bevyray_tpu_torch.kernels.camera import camera_rows
     from bevyray_tpu_torch.kernels.cuda import fast_rng
     from bevyray_tpu_torch.kernels.cuda import megakernel as mk
     from bevyray_tpu_torch.kernels.cuda.primary import device_shortlists_for
@@ -1425,7 +1542,7 @@ def fast_phase(scene, cam, headline, card) -> list:
         f"{kernel['fast']:.3f} ms | {card}", kscene, cam, headline, sl,
         slmeta, seed=1, work=work)
     nbx, nby = mk.block_grid(headline)
-    b_ms, b_by = bound_ms(kscene, mk.pack_camera(cam, headline), sl, slmeta,
+    b_ms, b_by = bound_ms(kscene, camera_rows(cam, headline).fused, sl, slmeta,
                           nbx * nby * mk.TILE, work)
     print(f"phase 7 fast headline: plain {plain_ms:.1f} ms, bound {b_ms:.3f} "
           f"ms ({b_by}), sphere tests {work['sphere_tests']}, slab tests "
@@ -1524,7 +1641,7 @@ def fast_phase(scene, cam, headline, card) -> list:
         f"triangles config-5 shapes | {card}", k5, cam5, config5, sl5,
         slmeta5, seed=1, work=work5)
     nbx, nby = mk.block_grid(config5)
-    b5_ms, b5_by = bound_ms(k5, mk.pack_camera(cam5, config5), sl5, slmeta5,
+    b5_ms, b5_by = bound_ms(k5, camera_rows(cam5, config5).fused, sl5, slmeta5,
                             nbx * nby * mk.TILE, work5)
     if work5["triangle_hits"] <= 0:
         raise SystemExit("phase 7 config 5: no segment hits the cube mesh")
@@ -1677,11 +1794,14 @@ def shard_phase(scene, cam, headline, card, head_bound, head_bound_by) -> dict:
         counts_zeroed()
         times = []
         for seed in range(1, SHARD_FRAMES + 1):
-            t0 = time.perf_counter()
-            frame = render_frame_sharded_pallas(mesh, scene, cam, headline,
-                                                seed)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
+            # A K12 a shard, then K15 before the tail.
+            with pass_launches(f"phase 8 mesh ({sp}, {dp})",
+                               {"camera_rows": sp * dp, "sum_shards": 1}):
+                t0 = time.perf_counter()
+                frame = render_frame_sharded_pallas(mesh, scene, cam,
+                                                    headline, seed)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
             ref = want[seed]
             d_img = float((frame.image - ref.image).abs().max())
             d_depth = float(((frame.rt_depth - ref.rt_depth).abs()
@@ -2748,7 +2868,12 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
     for name, config, scn, render in main_runs:
         render(0)   # warm-up
         zero()
-        frame, ms = timed(render)
+        # A K12 a sample state (one a shard), K15 in the sharded step.
+        sharded = name.startswith("sharded")
+        with pass_launches(f"phase 13(a) {name}", {
+                "camera_rows": 2 if sharded else 1,
+                "sum_shards": int(sharded)}):
+            frame, ms = timed(render)
         got = counts()
         launches.update(got)
         TAIL_LAUNCHES["resolve_frame"] += got["resolve_frame"]
@@ -3331,7 +3456,7 @@ def image_phase(card, dev, raster_launches, denoise_inputs,
     from bevyray_tpu_torch.core.types import make_triangles_np, upload
     from bevyray_tpu_torch.engine import denoise, raster
     from bevyray_tpu_torch.kernels import intersect
-    from bevyray_tpu_torch.kernels.bounce import camera_row
+    from bevyray_tpu_torch.kernels.camera import camera_rows
     from bevyray_tpu_torch.kernels.cuda.build import extension
 
     t_phase = time.perf_counter()
@@ -3426,7 +3551,7 @@ def image_phase(card, dev, raster_launches, denoise_inputs,
         tris = make_triangles_np(va, vb, vc, np.zeros(va.shape[0], np.int32),
                                  capacity=va.shape[0], device=dev)
         colors = upload(colors, dev)
-        row = camera_row(cam, config, dev)
+        row = camera_rows(cam, config, fused=False, wavefront=True).wavefront
         origin, direction = raster.raster_rays(row, config)
         p_origin, p_direction = raster.raster_rays_reference(cam, config, dev)
         check_bits("raster_rays", label, [*origin, *direction],
@@ -3559,8 +3684,6 @@ def tail_phase(world, scene, cam, headline, card, dev) -> list:
     from bevyray_tpu_torch.kernels.bounce import new_state, new_sums
     from bevyray_tpu_torch.kernels.cuda.build import extension
     from bevyray_tpu_torch.kernels.cuda.megakernel import render_tiles
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     t_phase = time.perf_counter()
     max_err = dict.fromkeys(TAIL_REPLACES, 0.0)
@@ -3781,20 +3904,6 @@ def tail_phase(world, scene, cam, headline, card, dev) -> list:
     hold_fold(f"ODD_IMAGE {ODD_IMAGE}", odd, film_odd, (r, g, b, d), segs)
 
     # What a fused headline frame and a config-4 film pass run on the card.
-    def profiled(fn) -> tuple:
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        device = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
-        return (sum(e.count for e in device),
-                sum(e.self_device_time_total for e in device) / 1e3,
-                sorted(((e.count, round(e.self_device_time_total / 1e3, 4),
-                         e.key[:48]) for e in device), reverse=True))
-
     fused = FusedRenderer(headline)
     n_kernels, busy, by_name = profiled(
         lambda: fused.render(scene, cam, seed=3))
@@ -3829,6 +3938,253 @@ def tail_phase(world, scene, cam, headline, card, dev) -> list:
     print(f"phase 15 done in {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return entries
+
+
+def pass_phase(world, scene, cam, headline, card, dev) -> list:
+    """Phase 16: K12 ``camera_rows`` (csrc/camera.cu, through
+    ``kernels.camera``) and K13 ``adaptive_map``, K14 ``fold_adaptive`` and
+    K15 ``sum_shards`` (csrc/passes.cu, through ``kernels.passes``) against
+    their plain versions on the same CUDA tensors, every output compared as
+    bits, one launch a call: K12 on the headline camera, the night scene's
+    (BASELINE config 4: the lens) and config 5's at level 1, both rows;
+    K13 and K14 on ADAPT_PASSES adaptive passes at the headline, the last a
+    re-probe, each pass's map and fold (the old film unchanged) and the
+    film carried on with the kernels'; K15 on the parts of a headline frame
+    on each of K15_MESHES (fused; dp 2 and 4 add parts) and of a WAVE_SIZE
+    frame on mesh (2, 1, 2) (wavefront), caught on their way to the
+    reduction, timed at K15_TIMED. Each kernel's time
+    by CUDA events beside its bound and its plain version's time, and the
+    kernels and busy time of an adaptive pass and of a mesh (3, 1) frame
+    (torch's profiler). Returns the kernels-line entries; their launches
+    are the main-path runs' (phases 3, 5, 8(b) and 13(a))."""
+    import torch
+
+    from bevyray_tpu_torch import AdaptiveRenderer, RenderConfig, rtiow
+    from bevyray_tpu_torch.bench.matrix import matrix_configs
+    from bevyray_tpu_torch.core.vec import Vec3
+    from bevyray_tpu_torch.engine.adaptive import AdaptiveFilm
+    from bevyray_tpu_torch.engine.film import begin_pass, trace_pass
+    from bevyray_tpu_torch.kernels import camera, passes
+    from bevyray_tpu_torch.kernels.cuda.build import extension
+    from bevyray_tpu_torch.kernels.cuda.megakernel import TILE, block_grid
+    from bevyray_tpu_torch.parallel import sharding
+
+    t_phase = time.perf_counter()
+    max_err = dict.fromkeys(PASS_REPLACES, 0.0)
+    timing = {}
+
+    def bits(got, want) -> tuple:
+        """(max |d| where both are numbers, every tensor bit-equal)."""
+        err, same = 0.0, True
+        for g, w in zip(got, want):
+            same = same and g.shape == w.shape and g.dtype == w.dtype
+            if g.dtype == torch.float32:
+                same = same and torch.equal(g.view(torch.int32),
+                                            w.view(torch.int32))
+                d = (g - w).abs()
+                d = d[~torch.isnan(d)]
+                if d.numel():
+                    err = max(err, float(d.max()))
+            else:
+                same = same and torch.equal(g, w)
+        return err, same
+
+    def plain_ms_of(fn) -> tuple:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def bound(n_bytes, ops=0) -> tuple:
+        by_bytes, by_ops = n_bytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
+        return (by_ops, "operations") if by_ops > by_bytes else (by_bytes,
+                                                                 "bytes")
+
+    def hold(name, case, run, plain, n_bytes, ops=0, time_it=False,
+             extra=""):
+        """One call of K``name`` (``run``) against its plain version
+        (``plain``), as bits; with ``time_it`` its time and bound."""
+        kernel = pass_kernels()[name]
+        before = kernel.launches
+        got = run()
+        launched = kernel.launches - before
+        torch.cuda.synchronize()
+        want, p_ms = plain_ms_of(plain)
+        err, same = bits(got, want)
+        max_err[name] = max(max_err[name], err)
+        line = (f"phase 16 {name} {case}: max |d| {err:.3g}, bit-equal "
+                f"{same}{extra}")
+        if time_it:
+            ms = cuda_ms(run, PASS_REPS)
+            b = bound(n_bytes, ops)
+            timing.setdefault(name, (ms, p_ms, b, case))
+            line += (f"; kernel {ms:.4f} ms, plain {p_ms:.2f} ms, bound "
+                     f"{b[0]:.3g} ms ({b[1]})")
+        print(line + f" | {card}", flush=True)
+        if not same or launched != 1:
+            raise SystemExit(f"phase 16 {name} {case}: {launched} launches, "
+                             "or the kernel differs from its plain version")
+        return got
+
+    print(f"phase 16 K12-K15 instances: "
+          f"{json.dumps(extension().passes_info(dev.index or 0))} | {card}",
+          flush=True)
+
+    # K12: the headline, the night scene's lens, config 5 at level 1.
+    night = matrix_configs()[3]
+    cam4 = night.world.camera_state(aspect=night.aspect, device=dev)
+    world5, config5 = config5_world()
+    cam5 = world5.camera_state(aspect=HYBRID_SIZE[0] / HYBRID_SIZE[1],
+                               device=dev)
+    for case, camera_, config, time_it in (
+            ("headline", cam, headline, True),
+            ("night (config 4, lens)", cam4, night.config, False),
+            ("config 5 at level 1", cam5,
+             dataclasses.replace(config5, level=1), False)):
+        hold("camera_rows", case,
+                    lambda c=camera_, k=config: camera.camera_rows(
+                        c, k, True, True),
+                    lambda c=camera_, k=config: camera.camera_rows_reference(
+                        c, k, True, True),
+                    CAMERA_BYTES, CAMERA_OPS, time_it,
+                    f", tan(fov / 2) {float(camera.half_fov_tan(camera_.fov)):.9g}")
+
+    # K13 and K14: adaptive passes at the headline, the last a re-probe.
+    adap = AdaptiveRenderer(headline, tolerance=TOLERANCE,
+                            reprobe_every=ADAPT_REPROBE, device=dev)
+    n = headline.n_pixels
+    nbx, nby = block_grid(headline)
+    lanes = nbx * nby * TILE
+    for k in range(ADAPT_PASSES):
+        kscene, sl, slmeta = begin_pass(adap, scene, cam)
+        reprobe = adap._pass_count > 0 and (
+            adap._pass_count % adap.reprobe_every == 0)
+        film = adap.film
+        case = f"pass {k + 1}{' (re-probe)' if reprobe else ''}"
+        spp_map = hold(
+            "adaptive_map", case,
+            lambda f=film, r=reprobe: [passes.adaptive_map(
+                f.err, TOLERANCE, r, headline)],
+            lambda f=film, r=reprobe: [passes.adaptive_map_reference(
+                f.err, TOLERANCE, r, headline)],
+            n * MAP_PIXEL_BYTES + lanes * MAP_LANE_BYTES, time_it=k == 1,
+            extra=f", {float((film.err >= TOLERANCE).float().mean()):.4f} "
+                  "of pixels at or above the tolerance")
+        color, depth, segs = trace_pass(kscene, cam, headline, k + 1,
+                                        adap._sample_offset, sl, slmeta,
+                                        spp_map[0], blocks=True)
+        sums = (*color, depth)
+        old = [*film.color_sum, film.depth_sum, film.n_samples, film.err,
+               film.rays_traced]
+        kept = [x.clone() for x in old]
+        got = hold(
+            "fold_adaptive", case,
+            lambda f=film, r=reprobe: flat(passes.fold_adaptive(
+                f, sums, segs, TOLERANCE, r, headline)),
+            lambda f=film, r=reprobe: flat(passes.fold_adaptive_reference(
+                f, sums, segs, TOLERANCE, r, headline)),
+            n * ADAPT_PIXEL_BYTES + 24, time_it=k == 1)
+        if not bits(old, kept)[1]:
+            raise SystemExit(f"phase 16 fold_adaptive {case}: the old film "
+                             "changed")
+        adap.film = AdaptiveFilm(Vec3(*got[:3]), *got[3:])
+        adap._sample_offset += headline.samples_per_pixel
+        adap._pass_count += 1
+    counts = adap.film.n_samples
+    print(f"phase 16 after {ADAPT_PASSES} adaptive passes: samples a pixel "
+          f"{float(counts.min()):g}-{float(counts.max()):g}, "
+          f"{int(adap.film.rays_traced)} segments | {card}", flush=True)
+
+    # K15: the parts of sharded frames, caught on their way in: the
+    # headline on phase 8(b)'s meshes (3, 1), (2, 2) and (1, 4), the last two
+    # adding 2 and 4 dp parts a lane, and the wavefront step on (2, 1, 2).
+    caught = []
+    real = sharding.sum_shards
+
+    def catch(parts, sp, dp, dev0):
+        caught.append((parts, sp, dp, dev0))
+        return real(parts, sp, dp, dev0)
+
+    small = rtiow.final_scene(seed=42)
+    small_scene = small.extract(with_bvh=False, device=dev)
+    small_cam = small.camera_state(aspect=WAVE_SIZE[0] / WAVE_SIZE[1],
+                                   device=dev)
+    wave_cfg = RenderConfig(*WAVE_SIZE, SPP, BOUNCES, level=3)
+    meshes = {(sp, dp): sharding.make_mesh(sp, dp,
+                                           devices=["cuda:0"] * (sp * dp))
+              for sp, dp in K15_MESHES}
+    mesh212 = sharding.make_mesh(2, 1, 2, devices=["cuda:0"] * 4)
+    sharding.sum_shards = catch
+    try:
+        for mesh in meshes.values():
+            sharding.render_frame_sharded_pallas(mesh, scene, cam, headline, 1)
+        sharding.render_frame_sharded(mesh212, small_scene, small_cam,
+                                      wave_cfg, 1)
+    finally:
+        sharding.sum_shards = real
+    cases = [(f"mesh ({sp}, {dp}) fused headline", (sp, dp) == K15_TIMED)
+             for sp, dp in K15_MESHES]
+    cases.append((f"mesh (2, 1, 2) wavefront {WAVE_SIZE}", False))
+    if len(caught) != len(cases):
+        raise SystemExit(f"phase 16 sum_shards: {len(caught)} reductions in "
+                         f"{len(cases)} sharded frames")
+    for (parts, sp, dp, dev0), (case, time_it) in zip(caught, cases):
+        m = parts[0, 0][1].numel()
+        hold("sum_shards", case,
+             lambda p=parts, a=sp, b=dp, d=dev0: flat(passes.sum_shards(
+                 p, a, b, d)),
+             lambda p=parts, a=sp, b=dp, d=dev0: flat(
+                 passes.sum_shards_reference(p, a, b, d)),
+             sp * dp * (16 * m + 8) + 16 * sp * m + 8, time_it=time_it,
+             extra=f", {sp} x {dp} parts of {m} lanes")
+    mesh31 = meshes[3, 1]
+
+    # What an adaptive pass and a mesh (3, 1) frame run on the card.
+    prof_adap = AdaptiveRenderer(headline, tolerance=TOLERANCE,
+                                 reprobe_every=REPROBE_EVERY, device=dev)
+    prof_adap.step(scene, cam, seed=1)
+    n_kernels, busy, by_name = profiled(
+        lambda: prof_adap.step(scene, cam, seed=2))
+    print(f"phase 16 an adaptive headline pass: {n_kernels} kernels on the "
+          f"card, busy {busy:.3f} ms; by kernel (count, ms, name): "
+          f"{by_name} | {card}", flush=True)
+    n_kernels, busy, by_name = profiled(
+        lambda: sharding.render_frame_sharded_pallas(mesh31, scene, cam,
+                                                     headline, 2))
+    print(f"phase 16 a mesh (3, 1) headline frame: {n_kernels} kernels on "
+          f"the card, busy {busy:.3f} ms; by kernel (count, ms, name): "
+          f"{by_name} | {card}", flush=True)
+
+    entries = []
+    for name in PASS_REPLACES:
+        ms, p_ms, (b_ms, b_by), case = timing[name]
+        print(f"phase 16 {name}: {case}, kernel {ms:.4f} ms, plain "
+              f"{p_ms:.2f} ms, bound {b_ms:.3g} ms ({b_by}), launches on the "
+              f"main path {TAIL_LAUNCHES[name]} | {card}", flush=True)
+        entries.append({
+            "name": name, "route": "cuda", "source": PASS_SOURCES[name],
+            "replaces": PASS_REPLACES[name],
+            "launches": TAIL_LAUNCHES[name], "max_abs_err": max_err[name],
+            "ms": ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            # No single PyTorch call packs a camera row, maps or folds an
+            # adaptive pass, or adds shards in this order and joins them.
+            "library_ms": None})
+    if min(TAIL_LAUNCHES[name] for name in PASS_REPLACES) < 1:
+        raise SystemExit(f"phase 16: a kernel of the path launched no time: "
+                         f"{dict(TAIL_LAUNCHES)}")
+    print(f"phase 16 done in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return entries
+
+
+def flat(out) -> list:
+    """The tensors of a nested tuple of tensors and Vec3s, in order."""
+    import torch
+
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for x in out for t in flat(x)]
 
 
 if __name__ == "__main__":

@@ -53,6 +53,7 @@ from bevyray_tpu_torch.core.vec import Vec3
 from bevyray_tpu_torch.engine import renderer as prenderer
 from bevyray_tpu_torch.engine import slots
 from bevyray_tpu_torch.kernels import bounce
+from bevyray_tpu_torch.kernels.camera import camera_rows
 from bevyray_tpu_torch.kernels.raygen import pixel_uv
 
 torch.set_num_threads(2)
@@ -135,7 +136,8 @@ def test_raygen_matches_jax(defocus):
 @pytest.mark.parametrize("level", [1, 3])
 def test_camera_row_matches_jax(level):
     jcam, pcam = _cameras()
-    row = bounce.camera_row(pcam, _config(level=level), "cpu").numpy()
+    row = camera_rows(pcam, _config(level=level), fused=False,
+                      wavefront=True).wavefront.numpy()
     right = jcam.direction.cross(jcam.up)
     fallback = jcam.far + 10.0 if level == 1 else jcam.far - 1.0
     want = [*jcam.position, *jcam.direction, *jcam.up, *right,

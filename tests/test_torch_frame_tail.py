@@ -47,7 +47,7 @@ from bevyray_tpu_torch.core.types import scene_from_numpy
 from bevyray_tpu_torch.engine import film as pfilm
 from bevyray_tpu_torch.engine import renderer as prenderer
 from bevyray_tpu_torch.engine.raster import raster_layer
-from bevyray_tpu_torch.kernels import bounce, frame
+from bevyray_tpu_torch.kernels import bounce, frame, passes
 from bevyray_tpu_torch.kernels.composite import composite
 from bevyray_tpu_torch.kernels.cuda import megakernel as mk
 from bevyray_tpu_torch.kernels.raygen import pixel_range, pixel_uv
@@ -487,11 +487,11 @@ def _old_reduce(mesh, parts, config, cam, rc, rd, blocks):
     scaled by torch, unshuffled, composited op by op."""
     sp, dp = mesh.shape["sp"], mesh.shape["dp"]
     dev0 = mesh.device(0, 0)
-    colors = [sharding._psum([parts[i, k][0] for k in range(dp)], dev0)
+    colors = [passes._psum([parts[i, k][0] for k in range(dp)], dev0)
               for i in range(sp)]
-    depths = [sharding._psum([parts[i, k][1] for k in range(dp)], dev0)
+    depths = [passes._psum([parts[i, k][1] for k in range(dp)], dev0)
               for i in range(sp)]
-    segs = sharding._psum([p[2] for p in parts.values()], dev0)
+    segs = passes._psum([p[2] for p in parts.values()], dev0)
     inv = float(np.float32(1.0 / config.samples_per_pixel))
     rt = [torch.cat([c[k] for c in colors]) * inv for k in range(3)]
     rt_depth = torch.cat(depths) * inv

@@ -28,7 +28,7 @@ from bevyray_tpu.engine.raster import raster_layer as jraster_layer
 from bevyray_tpu_torch.core.types import make_triangles_np, upload
 from bevyray_tpu_torch.engine import denoise, raster
 from bevyray_tpu_torch.kernels import intersect
-from bevyray_tpu_torch.kernels.bounce import camera_row
+from bevyray_tpu_torch.kernels.camera import camera_rows
 from chip_smoke import golden_world
 
 torch.set_num_threads(2)
@@ -293,7 +293,7 @@ def test_cuda_raster_equals_plain(name):
     build, (w, h), level = RASTER_CASES[name]
     tris, colors, cam, config, clear = _port_inputs(build(bt), w, h, level,
                                                     dev)
-    row = camera_row(cam, config, dev)
+    row = camera_rows(cam, config, fused=False, wavefront=True).wavefront
     origin, direction = raster.raster_rays(row, config)
     p_origin, p_direction = raster.raster_rays_reference(cam, config, dev)
     for g, wc in zip((*origin, *direction), (*p_origin, *p_direction)):

@@ -22,6 +22,7 @@ from bevyray_tpu.scene import components as jcomp
 from bevyray_tpu.scene.world import World as JWorld
 from bevyray_tpu_torch.core.types import (SceneBuffers, make_sphere_walk,
                                          scene_from_numpy)
+from bevyray_tpu_torch.kernels.camera import camera_rows
 from bevyray_tpu_torch.kernels.cuda import grouping
 from bevyray_tpu_torch.kernels.cuda import megakernel as mk
 
@@ -234,7 +235,7 @@ def test_camera_row_and_block_shuffles_match(size):
                                device="cpu")
     cfg = bt.RenderConfig(width=w, height=h)
     want_cam = np.asarray(jax.jit(lambda c: jmk._pack_camera(c, jcfg))(jcam))
-    np.testing.assert_array_equal(mk.pack_camera(pcam, cfg).numpy(),
+    np.testing.assert_array_equal(camera_rows(pcam, cfg).fused.numpy(),
                                   want_cam[0])
     assert mk.block_grid(cfg) == jmk.block_grid(jcfg)
     img = np.random.RandomState(0).rand(h * w).astype(np.float32)

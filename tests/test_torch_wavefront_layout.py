@@ -26,7 +26,7 @@ from bevyray_tpu_torch import rtiow
 from bevyray_tpu_torch.core.constants import INF, T_MIN
 from bevyray_tpu_torch.core.types import (BvhNodes, make_sphere_walk,
                                          make_spheres_np, scene_from_numpy)
-from bevyray_tpu_torch.core.vec import Vec3
+from bevyray_tpu_torch.core.vec import Vec3, sqrt
 from bevyray_tpu_torch.kernels import intersect, traverse
 
 torch.set_num_threads(2)
@@ -290,7 +290,7 @@ def coded_dense(o: Vec3, d: Vec3, spheres):
         h = d.x * ocx + d.y * ocy + d.z * ocz
         c = ocx * ocx + ocy * ocy + ocz * ocz - r2[k]
         disc = h * h - a * c
-        t = (h - torch.sqrt(torch.where(disc >= 0.0, disc, 0.0))) * inv_a
+        t = (h - sqrt(torch.where(disc >= 0.0, disc, 0.0))) * inv_a
         take = (disc >= 0.0) & (t > T_MIN) & (t < best_t)
         best_i = torch.where(take, k, best_i)
         best_t = torch.where(take, t, best_t)

@@ -30,6 +30,7 @@ from bevyray_tpu import RenderConfig as JRenderConfig  # noqa: E402
 from bevyray_tpu import rtiow as jrtiow  # noqa: E402
 from bevyray_tpu.engine.pallas_renderer import PallasRenderer  # noqa: E402
 from bevyray_tpu_torch.core.types import scene_from_numpy  # noqa: E402
+from bevyray_tpu_torch.core.vec import sqrt  # noqa: E402
 from bevyray_tpu_torch.kernels.cuda import megakernel as mk  # noqa: E402
 
 SIZE = dict(width=64, height=64, samples_per_pixel=2, bounces=4, level=3)
@@ -43,7 +44,7 @@ def contracted_q(o, d, a, cx, cy, cz, r2):
     h = d.x[:, None] * ocx + d.y[:, None] * ocy + d.z[:, None] * ocz
     cc = ocx * ocx + ocy * ocy + ocz * ocz - r2
     disc = (h.double() * h.double() - (a[:, None] * cc).double()).float()
-    return h - torch.sqrt(disc)
+    return h - sqrt(disc)
 
 
 def off_bar(a, b) -> str:
