@@ -3,7 +3,7 @@
 // the image kernels: the denoiser (denoise.cu) and the raster layer
 // (raster.cu), the frame's tail and the film pass's fold (frame.cu), the
 // camera row (camera.cu), and the adaptive pass's map and fold and the
-// sharded step's sums (passes.cu). The one source that includes PyTorch's
+// sharded step's sums and tp hit merge (passes.cu). The one source that includes PyTorch's
 // headers: it checks the tensors, launches on PyTorch's current stream and
 // checks the launch.
 
@@ -934,39 +934,92 @@ void fold_adaptive(const std::vector<torch::Tensor>& film, const std::vector<tor
 
 // K15: `parts` r, g, b, depth of each part in (sp_i, dp_i) order, `n`
 // float32 each; `segments` one int64 a part; `out` r, g, b, depth of sp * n
-// float32 each; `total` one int64.
-void sum_shards(const std::vector<torch::Tensor>& parts, const std::vector<torch::Tensor>& segments,
-                const std::vector<torch::Tensor>& out, torch::Tensor total, int64_t sp,
-                int64_t dp, int64_t n) {
-  TORCH_CHECK(sp >= 1 && dp >= 1 && sp * dp <= kMaxParts, "sum_shards takes 1 to ",
-              kMaxParts, " parts");
+// float32 each; `total` one int64. One launch for every kPartsPerLaunch
+// parts, in order; returns the launches.
+int64_t sum_shards(const std::vector<torch::Tensor>& parts,
+                   const std::vector<torch::Tensor>& segments, const std::vector<torch::Tensor>& out,
+                   torch::Tensor total, int64_t sp, int64_t dp, int64_t n) {
+  TORCH_CHECK(sp >= 1 && dp >= 1 && sp * dp < (int64_t{1} << 31), "sum_shards takes at least one part");
   TORCH_CHECK(parts.size() == static_cast<size_t>(4 * sp * dp) &&
                   segments.size() == static_cast<size_t>(sp * dp) && out.size() == 4,
               "parts must be r, g, b, depth of each part, segments one a part");
   TORCH_CHECK(n >= 0 && sp * n < (int64_t{1} << 31), "the joined sums must have fewer than 2^31 lanes");
   const torch::Tensor& like = out[3];
   ShardSums a{};
-  for (int64_t p = 0; p < sp * dp; ++p) {
-    for (int k = 0; k < 4; ++k) a.part[p][k] = column(parts[4 * p + k], n, like, "part");
-    a.segments[p] = one_long(segments[p], like, "segments");
-  }
   for (int k = 0; k < 4; ++k) a.out[k] = lane_floats(out[k], sp * n, like, "out");
   a.total = const_cast<int64_t*>(one_long(total, like, "total"));
-  a.sp = static_cast<int>(sp);
   a.dp = static_cast<int>(dp);
   a.n = static_cast<int>(n);
   const c10::cuda::CUDAGuard guard(like.device());
-  launch_sum_shards(a, c10::cuda::getCurrentCUDAStream().stream());
-  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  const cudaStream_t stream = c10::cuda::getCurrentCUDAStream().stream();
+  int64_t launches = 0;
+  for (int64_t first = 0; first < sp * dp; first += kPartsPerLaunch) {
+    a.first = static_cast<int>(first);
+    a.count = static_cast<int>(std::min<int64_t>(kPartsPerLaunch, sp * dp - first));
+    for (int p = 0; p < a.count; ++p) {
+      for (int k = 0; k < 4; ++k) {
+        a.part[p][k] = column(parts[4 * (first + p) + k], n, like, "part");
+      }
+      a.segments[p] = one_long(segments[first + p], like, "segments");
+    }
+    launch_sum_shards(a, stream);
+    C10_CUDA_KERNEL_LAUNCH_CHECK();
+    ++launches;
+  }
+  return launches;
 }
 
-// Registers, spills, shared memory and resident blocks per SM of K12-K15 on
+// K16: `t` float32 and `index` int64 of each tp slice, `n` lanes each, the
+// slice's first sphere `offset`; `t_out`, `index_out` like one slice's. One
+// launch for the first kSlicesPerLaunch slices, then one for every
+// kSlicesPerLaunch - 1 more, which merges them into the output; returns the
+// launches.
+int64_t merge_tp_hits(const std::vector<torch::Tensor>& t, const std::vector<torch::Tensor>& index,
+                      const std::vector<int64_t>& offset, torch::Tensor t_out,
+                      torch::Tensor index_out) {
+  const int64_t tp = static_cast<int64_t>(t.size());
+  TORCH_CHECK(tp >= 1 && index.size() == t.size() && offset.size() == t.size(),
+              "merge_tp_hits takes t, index and an offset of each of at least one slice");
+  const torch::Tensor& like = t_out;
+  const int64_t n = like.numel();
+  TORCH_CHECK(n < (int64_t{1} << 31), "merge_tp_hits takes fewer than 2^31 lanes");
+  TpHits a{};
+  a.t_out = lane_floats(t_out, n, like, "t_out");
+  a.index_out = const_cast<int64_t*>(longs(index_out, n, like, "index_out"));
+  a.n = static_cast<int>(n);
+  const c10::cuda::CUDAGuard guard(like.device());
+  const cudaStream_t stream = c10::cuda::getCurrentCUDAStream().stream();
+  int64_t launches = 0;
+  for (int64_t next = 0; next < tp;) {
+    int k = 0;
+    if (next > 0) {   // the slices merged so far, as slice 0
+      a.t[0] = a.t_out;
+      a.index[0] = a.index_out;
+      a.offset[0] = 0;
+      k = 1;
+    }
+    for (; k < kSlicesPerLaunch && next < tp; ++k, ++next) {
+      TORCH_CHECK(offset[next] >= 0, "a slice's offset must be at least 0");
+      a.t[k] = column(t[next], n, like, "t");
+      a.index[k] = longs(index[next], n, like, "index");
+      a.offset[k] = offset[next];
+    }
+    a.count = k;
+    launch_merge_tp_hits(a, stream);
+    C10_CUDA_KERNEL_LAUNCH_CHECK();
+    ++launches;
+  }
+  return launches;
+}
+
+// Registers, spills, shared memory and resident blocks per SM of K12-K16 on
 // CUDA device `device`.
 std::map<std::string, std::map<std::string, int64_t>> passes_info(int64_t device) {
   const c10::cuda::CUDAGuard guard(static_cast<c10::DeviceIndex>(device));
   std::map<std::string, std::map<std::string, int64_t>> out;
-  const char* names[] = {"camera_rows", "adaptive_map", "fold_adaptive", "sum_shards"};
-  for (int which = 0; which < 4; ++which) {
+  const char* names[] = {"camera_rows", "adaptive_map", "fold_adaptive", "sum_shards",
+                         "merge_tp_hits"};
+  for (int which = 0; which < 5; ++which) {
     WaveKernelInfo info{};
     C10_CUDA_CHECK(which == 0 ? ::camera_kernel_info(&info)
                               : ::passes_kernel_info(which - 1, &info));
@@ -1016,6 +1069,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("adaptive_map", &adaptive_map, "An adaptive pass's block-ordered sample map (K13)");
   m.def("fold_adaptive", &fold_adaptive, "An adaptive pass folded into a new film (K14)");
   m.def("sum_shards", &sum_shards, "The sharded step's sums over dp, the sp shards joined (K15)");
+  m.def("merge_tp_hits", &merge_tp_hits, "The nearest hit over the tp slices of the sphere table (K16)");
   m.def("passes_info", &passes_info,
-        "Registers, spills, shared memory and occupancy of the K12-K15 kernels");
+        "Registers, spills, shared memory and occupancy of the K12-K16 kernels");
 }

@@ -1,7 +1,7 @@
-// The launch interface of the adaptive pass's map (K13) and fold (K14) and
-// the sharded step's sums (K15), passes.cu, shared with their Python binding
-// (binding.cpp). Plain C types only, so the .cu file needs none of
-// PyTorch's headers.
+// The launch interface of the adaptive pass's map (K13) and fold (K14), the
+// sharded step's sums (K15) and its tp hit merge (K16), passes.cu, shared
+// with their Python binding (binding.cpp). Plain C types only, so the .cu
+// file needs none of PyTorch's headers.
 
 #pragma once
 
@@ -11,7 +11,12 @@
 
 #include "wavefront.h"
 
-constexpr int kMaxParts = 32;   // the shards K15 takes (kernels/passes.py MAX_PARTS)
+// The parts one K15 launch adds, and the slices one K16 launch merges: their
+// pointers travel as kernel arguments. More take more launches, each carrying
+// the running result on (kernels/passes.py PARTS_PER_LAUNCH,
+// SLICES_PER_LAUNCH).
+constexpr int kPartsPerLaunch = 32;
+constexpr int kSlicesPerLaunch = 32;
 
 // K13: the sample map of an adaptive pass, int32 in the fused kernel's block
 // order over a grid `nbx` blocks wide: `spp` on a pixel whose `err` is at or
@@ -52,20 +57,44 @@ struct AdaptiveFold {
 void launch_fold_adaptive(const AdaptiveFold& args, cudaStream_t stream);
 
 // K15: the sharded step's sums. Part p = sp_i * dp + dp_i holds r, g, b and
-// depth (`part[p]`, `n` lanes each) and one int64 segment count
-// (`segments[p]`); `out` r, g, b, depth of sp * n lanes: lane sp_i * n + l
-// is the sum over dp_i in ascending order of the parts' lane l; `total`
-// the sum of every part's segments.
+// depth (`n` lanes each) and one int64 segment count; `out` r, g, b, depth
+// of sp * n lanes: lane sp_i * n + l is the sum over dp_i in ascending order
+// of the parts' lane l; `total` the sum of every part's segments. One launch
+// adds parts `first` .. `first + count - 1` (`part[0]` is part `first`, at
+// most kPartsPerLaunch of them): a shard whose first part is among them
+// starts from it, one whose parts began in an earlier launch from its `out`
+// lanes, and `total` likewise from 0 or from the earlier launches' total.
+// Launches in ascending `first` give the one left fold's bits.
 struct ShardSums {
-  const float* part[kMaxParts][4];
-  const int64_t* segments[kMaxParts];
+  const float* part[kPartsPerLaunch][4];
+  const int64_t* segments[kPartsPerLaunch];
   float* out[4];
   int64_t* total;
-  int sp;
+  int first;
+  int count;
   int dp;
   int n;
 };
 void launch_sum_shards(const ShardSums& args, cudaStream_t stream);
 
-// The facts of K13 (which 0), K14 (1) or K15 (2).
+// K16: the tp nearest-hit merge. Slice k holds each lane's nearest hit in
+// its part of the sphere table, `t[k]` (float32, f32 max on a miss) and
+// `index[k]` (int64, -1 on a miss), local to the slice, whose first sphere
+// is `offset[k]`. `t_out` is torch.minimum of the t's over the slices in
+// order, `index_out` the lowest global index among the slices reaching it,
+// -1 where it is f32 max or more. `count` slices, at most kSlicesPerLaunch;
+// for more, a later launch takes the output as its slice 0 (offset 0) and
+// merges the next slices into it in place.
+struct TpHits {
+  const float* t[kSlicesPerLaunch];
+  const int64_t* index[kSlicesPerLaunch];
+  int64_t offset[kSlicesPerLaunch];
+  float* t_out;
+  int64_t* index_out;
+  int count;
+  int n;
+};
+void launch_merge_tp_hits(const TpHits& args, cudaStream_t stream);
+
+// The facts of K13 (which 0), K14 (1), K15 (2) or K16 (3).
 cudaError_t passes_kernel_info(int which, WaveKernelInfo* out);

@@ -1,33 +1,47 @@
-"""The adaptive pass's map and fold, and the sharded step's sums.
+"""The adaptive pass's map and fold, and the sharded step's sums and tp
+hit merge.
 
-Counterpart of two pieces of the JAX package's jitted programs that XLA
-fuses around the fused kernel:
+Counterpart of pieces of the JAX package's jitted programs that XLA fuses
+around the kernels:
 
 - the adaptive pass (``_adaptive_pass``, bevyray_tpu/engine/adaptive.py:51-
   100): the sample map ``shuffle_blocks(where(err >= tolerance | reprobe,
   spp, 0))`` before ``render_tiles``, and after it the un-shuffle of the
   pass's sums, the inter-pass disagreement and the film's adds;
 - the sharded step's sums (``jax.lax.psum`` over dp and the sp shards'
-  concatenation, bevyray_tpu/parallel/sharding.py:142-144, :231-232).
+  concatenation, bevyray_tpu/parallel/sharding.py:142-144, :231-232);
+- the wavefront sharded step's nearest hit over the tp slices of the
+  sphere table (``_tp_intersect_fn``, bevyray_tpu/parallel/sharding.py:
+  84-92: the slices' index offsets, ``pmin`` over t and over the lowest
+  index reaching it).
 
-:func:`adaptive_map`, :func:`fold_adaptive` and :func:`sum_shards` are
-wrappers: on CPU tensors they run the plain versions (``*_reference``, the
-JAX code's operations in its order with torch's own operators); on CUDA
-tensors they launch K13, K14 and K15 of ``cuda/csrc/passes.cu`` once each,
-which give the same bits, or raise. They never fall back. Their
-``.launches`` count the kernel launches.
+:func:`adaptive_map`, :func:`fold_adaptive`, :func:`sum_shards` and
+:func:`merge_tp_hits` are wrappers: on CPU tensors they run the plain
+versions (``*_reference``, the JAX code's operations in its order with
+torch's own operators); on CUDA tensors they launch K13, K14, K15 and K16 of
+``cuda/csrc/passes.cu``, which give the same bits, or raise. They never
+fall back. Their ``.launches`` count the kernel launches: one a call, but
+K15 one for every ``PARTS_PER_LAUNCH`` parts and K16 one for the first
+``SLICES_PER_LAUNCH`` slices and one for every ``SLICES_PER_LAUNCH - 1``
+more (the kernels take their pointers as arguments and carry the running
+result from one launch to the next).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..core.constants import INF
 from ..core.types import RenderConfig
 from ..core.vec import Vec3
 from .cuda.megakernel import TILE, block_grid, shuffle_blocks, unshuffle_blocks
 from .frame import _check_cuda, _f32_columns, _lanes
 
-MAX_PARTS = 32   # the shards K15 takes in one launch (csrc/passes.h)
+# The parts one K15 launch adds and the slices one K16 launch merges
+# (csrc/passes.h kPartsPerLaunch, kSlicesPerLaunch).
+PARTS_PER_LAUNCH = 32
+SLICES_PER_LAUNCH = 32
+_NO_INDEX = torch.iinfo(torch.int64).max
 
 
 # -- K13: the adaptive pass's sample map ---------------------------------------
@@ -193,11 +207,11 @@ def sum_shards_reference(parts: dict, sp: int, dp: int, dev) -> tuple:
 
 def check_shard_args(parts: dict, sp: int, dp: int, dev) -> None:
     """Raise ValueError unless K15 takes these parts: ``sp * dp`` of them
-    (at most ``MAX_PARTS``), keyed ``(sp_i, dp_i)``, each a Vec3 colour and
-    a depth of contiguous float32 columns of one length on ``dev`` and one
-    int64 segment count there."""
-    if sp < 1 or dp < 1 or sp * dp > MAX_PARTS:
-        raise ValueError(f"sum_shards takes 1 to {MAX_PARTS} parts")
+    (at least one), keyed ``(sp_i, dp_i)``, each a Vec3 colour and a depth
+    of contiguous float32 columns of one length on ``dev`` and one int64
+    segment count there."""
+    if sp < 1 or dp < 1:
+        raise ValueError("sum_shards takes at least one part")
     if set(parts) != {(i, k) for i in range(sp) for k in range(dp)}:
         raise ValueError("sum_shards: the parts must be keyed (sp_i, dp_i)")
     n = parts[0, 0][1].numel()
@@ -219,10 +233,11 @@ def sum_shards(parts: dict, sp: int, dp: int, dev) -> tuple:
 
     Parts on another device are copied to ``dev`` first. On CPU tensors
     this runs :func:`sum_shards_reference`; on CUDA tensors it launches K15
-    of ``cuda/csrc/passes.cu`` once or raises (:func:`check_shard_args`),
-    as it does for more than ``MAX_PARTS`` parts: K15 takes their pointers
-    as one fixed array of kernel arguments.
-    ``sum_shards.launches`` counts the launches.
+    of ``cuda/csrc/passes.cu`` or raises (:func:`check_shard_args`): once
+    for up to ``PARTS_PER_LAUNCH`` parts, and once for every
+    ``PARTS_PER_LAUNCH`` parts of a larger mesh, each launch carrying the
+    running sums on (the same bits: a left fold in chunks is the whole
+    fold). ``sum_shards.launches`` counts the launches.
     """
     dev = torch.device(dev)
     if dev.type == "cpu":
@@ -238,13 +253,83 @@ def sum_shards(parts: dict, sp: int, dp: int, dev) -> tuple:
     out = torch.empty((4, sp * n), dtype=torch.float32, device=dev)
     total = torch.empty((), dtype=torch.int64, device=dev)
     order = [(i, k) for i in range(sp) for k in range(dp)]
-    extension().sum_shards(
+    sum_shards.launches += extension().sum_shards(
         [c for key in order for c in (*parts[key][0], parts[key][1])],
         [parts[key][2] for key in order], list(out), total, sp, dp, n)
-    sum_shards.launches += 1
     return tuple(out), total
+
+
+# -- K16: the tp hit merge --------------------------------------------------------
+
+def merge_tp_hits_reference(ts: list, indices: list, offsets: list) -> tuple:
+    """The plain version of :func:`merge_tp_hits`: the JAX step's
+    operations (bevyray_tpu/parallel/sharding.py:86-92) with torch's."""
+    hits = [(t, torch.where(i >= 0, i + off, -1))
+            for t, i, off in zip(ts, indices, offsets)]
+    t_min = hits[0][0]
+    for t, _ in hits[1:]:
+        t_min = torch.minimum(t_min, t)
+    i_min = torch.full_like(hits[0][1], _NO_INDEX)
+    for t, i in hits:
+        i_min = torch.minimum(i_min, torch.where((t == t_min) & (i >= 0), i,
+                                                 _NO_INDEX))
+    return t_min, torch.where(t_min >= INF, -1, i_min)
+
+
+def check_tp_hits_args(ts: list, indices: list, offsets: list) -> None:
+    """Raise ValueError unless K16 takes these slices: at least one, each a
+    contiguous float32 t and int64 index of one length on one device, and
+    an offset of at least 0."""
+    if not (len(ts) >= 1 and len(indices) == len(ts) == len(offsets)):
+        raise ValueError("merge_tp_hits takes t, index and an offset of "
+                         "each of at least one slice")
+    dev, n = ts[0].device, ts[0].numel()
+    _f32_columns("merge_tp_hits t", ts, n, dev)
+    for i in indices:
+        if not (isinstance(i, torch.Tensor) and i.dtype == torch.int64
+                and i.device == dev and i.is_contiguous() and i.dim() == 1
+                and i.numel() == n):
+            raise ValueError(f"merge_tp_hits: each index must be a "
+                             f"contiguous int64 tensor of {n} lanes on {dev}")
+    if any(int(off) < 0 for off in offsets):
+        raise ValueError("merge_tp_hits: a slice's offset must be at least 0")
+
+
+def merge_tp_hits(ts: list, indices: list, offsets: list) -> tuple:
+    """The nearest hit over the tp slices of a sphere table: slice ``k``
+    gives each lane's nearest hit in its part of the table as ``ts[k]``
+    (float32, INF on a miss) and ``indices[k]`` (int64, -1 on a miss),
+    local to the slice, whose first sphere is ``offsets[k]``. Returns
+    ``(t, index)``: the least t, then the lowest global index among the
+    slices that reach it; -1 where the least t is INF.
+
+    The least t is ``torch.minimum``'s over the slices in order: NaN where
+    any slice's t is NaN (on the card the first NaN's bits; on the CPU
+    torch's), and no slice reaches a NaN, so its index is int64's maximum.
+
+    On CPU tensors this runs :func:`merge_tp_hits_reference`; on CUDA
+    tensors it launches K16 of ``cuda/csrc/passes.cu`` or raises
+    (:func:`check_tp_hits_args`): once for up to ``SLICES_PER_LAUNCH``
+    slices, and once more for every ``SLICES_PER_LAUNCH - 1`` further ones,
+    each launch merging them into the result so far (the least t and the
+    lowest index are exact and associative). ``merge_tp_hits.launches``
+    counts the launches.
+    """
+    dev = ts[0].device
+    if dev.type == "cpu":
+        return merge_tp_hits_reference(ts, indices, offsets)
+    _check_cuda(dev, "merge_tp_hits")
+    check_tp_hits_args(ts, indices, offsets)
+    from .cuda.build import extension
+
+    t = torch.empty_like(ts[0])
+    index = torch.empty_like(indices[0])
+    merge_tp_hits.launches += extension().merge_tp_hits(
+        list(ts), list(indices), [int(off) for off in offsets], t, index)
+    return t, index
 
 
 adaptive_map.launches = 0
 fold_adaptive.launches = 0
 sum_shards.launches = 0
+merge_tp_hits.launches = 0

@@ -35,7 +35,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core.constants import INF
 from ..core.types import (CameraState, RenderConfig, SceneBuffers, Spheres,
                           camera_key, host_array, host_camera, upload)
 from ..core.vec import Vec3
@@ -46,11 +45,10 @@ from ..kernels.cuda.megakernel import (KernelScene, block_grid,
                                        prepare_kernel_scene, render_tiles)
 from ..kernels.cuda.primary import shortlists_for
 from ..kernels.intersect import intersect_spheres
-from ..kernels.passes import sum_shards
+from ..kernels.passes import merge_tp_hits, sum_shards
 
 AXES = ("sp", "dp", "tp")
 _M32 = 0xFFFFFFFF
-_NO_INDEX = torch.iinfo(torch.int64).max
 
 
 class Mesh:
@@ -126,37 +124,31 @@ def _check_spp(config: RenderConfig, dp: int) -> int:
 def _tp_intersect_fn(scene: SceneBuffers, config: RenderConfig, mesh: Mesh,
                      sp_i: int, dp_i: int):
     """The sphere test of shard (sp_i, dp_i) with the table split over tp:
-    each tp device tests its ``capacity / tp`` slice, and the nearest hit is
-    the least t, then the lowest global index among the slices that reach
-    that t; -1 where nothing hits."""
+    each tp device tests its ``capacity / tp`` slice (K1), the slices' hits
+    are copied to the shard's device (no copy where the mesh repeats one
+    card), and the nearest hit is the least t, then the lowest global index
+    among the slices that reach that t; -1 where nothing hits (K16,
+    :func:`..kernels.passes.merge_tp_hits`)."""
     tp = mesh.shape["tp"]
     cap = scene.spheres.capacity
     if cap % tp:
         raise ValueError(f"sphere capacity {cap} must divide tp={tp}")
     chunk_len = cap // tp
     home = mesh.device(sp_i, dp_i)
-    pieces = [(mesh.device(sp_i, dp_i, k), k * chunk_len,
+    pieces = [(mesh.device(sp_i, dp_i, k),
                Spheres(*(c[k * chunk_len:(k + 1) * chunk_len].to(
                    mesh.device(sp_i, dp_i, k)) for c in scene.spheres)))
               for k in range(tp)]
+    offsets = [k * chunk_len for k in range(tp)]
     chunk = min(config.sphere_chunk, chunk_len)
 
     def fn(o: Vec3, d: Vec3, active=None):
-        hits = []
-        for dev, offset, local in pieces:
-            t, i = intersect_spheres(
-                _vec_on(o, dev), _vec_on(d, dev), local, chunk,
-                active=None if active is None else active.to(dev))
-            hits.append((t, torch.where(i >= 0, i + offset, -1)))
-        hits = [(t.to(home), i.to(home)) for t, i in hits]
-        t_min = hits[0][0]
-        for t, _ in hits[1:]:
-            t_min = torch.minimum(t_min, t)
-        i_min = torch.full_like(hits[0][1], _NO_INDEX)
-        for t, i in hits:
-            i_min = torch.minimum(i_min, torch.where((t == t_min) & (i >= 0),
-                                                     i, _NO_INDEX))
-        return t_min, torch.where(t_min >= INF, -1, i_min)
+        hits = [intersect_spheres(
+            _vec_on(o, dev), _vec_on(d, dev), local, chunk,
+            active=None if active is None else active.to(dev))
+            for dev, local in pieces]
+        return merge_tp_hits([t.to(home) for t, _ in hits],
+                             [i.to(home) for _, i in hits], offsets)
 
     return fn
 
@@ -170,9 +162,7 @@ def render_frame_sharded(mesh: Mesh, scene: SceneBuffers, cam: CameraState,
     must divide by sp), its sphere tests split over tp (every bounce runs,
     as in the JAX package), its samples folded into the shard's sums by
     the shading. The color and depth sums are added over dp, averaged and
-    composited on the mesh's first device. On the card K15 takes at most
-    ``MAX_PARTS`` (32) sp x dp parts (:func:`..kernels.passes.sum_shards`);
-    a larger mesh raises."""
+    composited on the mesh's first device."""
     sp, dp, tp = (mesh.shape[a] for a in AXES)
     n = config.n_pixels
     if n % sp:
@@ -206,7 +196,7 @@ def _reduce_and_composite(mesh: Mesh, parts: dict, config: RenderConfig,
                           blocks: bool) -> FrameResult:
     """Sum each sp shard's (color, depth) over dp in ascending order and
     the segments over every shard, on the mesh's first device, and join the
-    sp shards: one launch of K15 on the card
+    sp shards: K15 on the card, one launch for up to 32 sp x dp parts
     (:func:`..kernels.passes.sum_shards`); then one launch of K10
     (:func:`..engine.renderer.frame_result`): scale by 1/spp, put the fused
     step's pixel blocks (``blocks``) back in scanline order and crop, and
@@ -298,9 +288,7 @@ def render_frame_sharded_pallas(mesh: Mesh, scene: SceneBuffers,
     ``dp_i * spp/dp ..`` as sums (``render_tiles(normalize=False)``), with
     its rows of the padded grid's shortlists. The sums are added over dp,
     the shards joined, put back in scanline order and cropped, then
-    composited, on the mesh's first device. On the card K15 takes at most
-    ``MAX_PARTS`` (32) sp x dp parts (:func:`..kernels.passes.sum_shards`);
-    a larger mesh raises."""
+    composited, on the mesh's first device."""
     sp, dp, tp = (mesh.shape[a] for a in AXES)
     if tp != 1:
         raise ValueError("the fused multi-device path supports sp/dp axes "

@@ -47,7 +47,14 @@ against the exact one, statistically; (e) BASELINE config 5 on both paths
 plain version there, and progressive passes under the default.
 
 Phase 8 holds the shard offsets, the sharded frames and the wavefront
-renderer. Phase 9 measures what bounds the kernel on the card: (a) each
+renderer; its (d) drives the wavefront sharded step with tp (the sphere
+table split over the slices, their nearest hits merged by K16) at the
+headline on meshes (1, 1, 2) and (2, 2, 2), ``default_mesh_shape(8)``,
+against the unsharded ``Renderer`` (within ``IDENTITY_TOL``, segments
+equal, no host wait), and runs the step at ``WAVE_SIZE`` on
+``WAVE_MESHES`` (one of 40 parts: two K15 launches); 13(d) profiles a
+1-spp tp = 2 headline frame beside the same frame with the plain merge
+patched in (the op-by-op merge K16 replaced). Phase 9 measures what bounds the kernel on the card: (a) each
 instance's registers, spills, shared memory and resident blocks per SM, and
 the work items of each main-path grid against them; (b) the probe instance
 of the default kernel (``clock64()`` per stage, active lanes per segment
@@ -116,7 +123,8 @@ segments equal; each with its time beside its bound (the dense tests'
 also at the issue rate); (c) ``host_syncs`` over
 ``Renderer`` frames (brute, bvh, mesh) and a config-5 round, which must
 be empty; (d) the kernels of a 1-spp and a 16-spp wavefront frame and
-the card's busy time (torch's profiler).
+the card's busy time (torch's profiler), and of a 1-spp tp = 2 frame of
+the sharded step with K16 and with the plain merge.
 
 Phase 14 holds the image kernels, which replace the JAX package's jitted
 ``atrous_denoise`` and ``rasterize_impl``: K7 ``atrous_pass``
@@ -153,14 +161,17 @@ psum over dp: K12 ``camera_rows`` (one launch a frame, film pass, shard,
 wavefront sample state and raster call) on the headline, night (lens) and
 level-1 cameras; K13 ``adaptive_map`` and K14 ``fold_adaptive`` (one
 each an adaptive pass) on four adaptive headline passes, the fourth a
-re-probe, the old film unchanged; K15 ``sum_shards`` (one a sharded
-frame) on the parts of a mesh (3, 1) fused frame and of a (2, 1, 2)
-wavefront frame; each bit-equal to its plain version
+re-probe, the old film unchanged; K15 ``sum_shards`` (one launch a sharded
+frame of up to 32 parts, one for every 32 of more) on the parts of fused
+headline frames and of wavefront frames on (2, 1, 2) and on meshes of 36
+and 40 parts; K16 ``merge_tp_hits`` (one a bounce of the tp step) on the
+slices' hits of a headline bounce at tp 2, 4 and 8, also timed against
+the torch stack, min and gather that compute the same; each bit-equal to its plain version
 (``kernels/camera.py``, ``kernels/passes.py``), with its time beside its
 bound and the plain version's, and the kernels and busy time of an
 adaptive pass and of a mesh (3, 1) frame (torch's profiler). Phases 3,
-5, 8(b) and 13(a) count K12-K15's launches on the main path and that no
-plain version of theirs ran.
+5, 8(b), 8(d) and 13(a) count K12-K16's launches on the main path and
+that no plain version of theirs ran.
 
 Each phase prints its lines; the line before the last is the kernel table
 as JSON, and the last line is ``{"ok": true, "device": {...}}``. Any failed
@@ -248,7 +259,10 @@ SHARD_FRAMES = 3       # timed frames per mesh
 # in another order (JAX's bar, tests/test_sharding.py:62); depth relatively.
 SHARD_TOL, SHARD_DEPTH_RTOL = 1e-6, 1e-5
 WAVE_SIZE = (480, 270)  # the wavefront sharded step and its film
-WAVE_MESHES = ((2, 1, 2), (1, 2, 2))
+WAVE_MESHES = ((2, 1, 2), (1, 2, 2), (40, 1, 1))
+# The wavefront sharded step with tp at the headline: (2, 2, 2) is
+# default_mesh_shape(8), the JAX package's default mesh.
+TP_MESHES = ((1, 1, 2), (2, 2, 2))
 # Phase 10. The command line at its defaults (bevyray_tpu_torch/app/cli.py:
 # final scene, scene seed 42, 1280x720, 16 spp, 4 bounces, level 3, seed 1),
 # held against direct calls of the same renderers. CLI_ARGV goes after each
@@ -378,29 +392,39 @@ ODD_PIXELS = (53, 37)   # (W, H): ODD_IMAGE as a frame
 # few a pixel: the bytes bound both.
 TAIL_PIXEL_BYTES, FOLD_PIXEL_BYTES = 32, 48
 # Phase 16. The camera row (K12 ``camera_rows``, csrc/camera.cu) and the
-# adaptive pass's map and fold and the sharded step's sums (K13
-# ``adaptive_map``, K14 ``fold_adaptive``, K15 ``sum_shards``,
-# csrc/passes.cu), each held against its plain version (kernels/camera.py,
-# kernels/passes.py) to the bit on the same CUDA tensors. They replace XLA
-# code of the JAX package, not a pallas_call: the camera row of its jitted
-# frame programs, the adaptive pass around render_tiles, the psum over dp.
+# adaptive pass's map and fold and the sharded step's sums and tp hit merge
+# (K13 ``adaptive_map``, K14 ``fold_adaptive``, K15 ``sum_shards``, K16
+# ``merge_tp_hits``, csrc/passes.cu), each held against its plain version
+# (kernels/camera.py, kernels/passes.py) to the bit on the same CUDA
+# tensors. They replace XLA code of the JAX package, not a pallas_call: the
+# camera row of its jitted frame programs, the adaptive pass around
+# render_tiles, the psum over dp, the pmin over tp.
+PASSES_CU = "bevyray_tpu_torch/kernels/cuda/csrc/passes.cu"
 PASS_SOURCES = {
     "camera_rows": "bevyray_tpu_torch/kernels/cuda/csrc/camera.cu",
-    "adaptive_map": "bevyray_tpu_torch/kernels/cuda/csrc/passes.cu",
-    "fold_adaptive": "bevyray_tpu_torch/kernels/cuda/csrc/passes.cu",
-    "sum_shards": "bevyray_tpu_torch/kernels/cuda/csrc/passes.cu"}
+    "adaptive_map": PASSES_CU, "fold_adaptive": PASSES_CU,
+    "sum_shards": PASSES_CU, "merge_tp_hits": PASSES_CU}
 PASS_REPLACES = {"camera_rows": "bevyray_tpu/kernels/pallas/megakernel.py:2722",
                  "adaptive_map": "bevyray_tpu/engine/adaptive.py:66",
                  "fold_adaptive": "bevyray_tpu/engine/adaptive.py:73",
-                 "sum_shards": "bevyray_tpu/parallel/sharding.py:231"}
+                 "sum_shards": "bevyray_tpu/parallel/sharding.py:231",
+                 "merge_tp_hits": "bevyray_tpu/parallel/sharding.py:86"}
 PASS_PLAIN = {"camera_rows": "camera_rows_reference",
               "adaptive_map": "adaptive_map_reference",
               "fold_adaptive": "fold_adaptive_reference",
-              "sum_shards": "sum_shards_reference"}
+              "sum_shards": "sum_shards_reference",
+              "merge_tp_hits": "merge_tp_hits_reference"}
 PASS_REPS = 20          # launches per CUDA-event timing
 # K15's fused cases, meshes (sp, dp) of phase 8(b); its row is timed at
-# (2, 2), where it adds two parts a lane and joins two shards.
+# (2, 2), where it adds two parts a lane and joins two shards. Its
+# wavefront cases past 32 parts, (sp, dp, tp, spp) at WAVE_SIZE, each two
+# launches: (6, 6, 1) splits shard 5's parts between them.
 K15_MESHES, K15_TIMED = ((3, 1), (2, 2), (1, 4)), (2, 2)
+K15_LARGE = ((6, 6, 1, 12), (40, 1, 1, SPP))
+# K16's cases: the slices' hits of a 1-spp headline frame's bounce 0 at
+# each tp; its row is timed at tp 2. K16 reads a float32 t and an int64
+# index a lane of each slice and writes one of each (12 bytes).
+K16_TPS, K16_TIMED, TP_LANE_BYTES = (2, 4, 8), 2, 12
 ADAPT_PASSES, ADAPT_REPROBE = 4, 3   # phase 16's adaptive passes: the 4th re-probes
 # K12 reads the camera's 15 floats (60 bytes) and writes a fused row of 24
 # floats and a wavefront row of 19 (172), with about 60 operations
@@ -635,18 +659,19 @@ def profiled(fn) -> tuple:
 
 
 def pass_kernels() -> dict:
-    """K12-K15's wrappers by name (``.launches`` counts each)."""
+    """K12-K16's wrappers by name (``.launches`` counts each)."""
     from bevyray_tpu_torch.kernels import camera, passes
 
     return {"camera_rows": camera.camera_rows,
             "adaptive_map": passes.adaptive_map,
             "fold_adaptive": passes.fold_adaptive,
-            "sum_shards": passes.sum_shards}
+            "sum_shards": passes.sum_shards,
+            "merge_tp_hits": passes.merge_tp_hits}
 
 
 @contextlib.contextmanager
 def pass_launches(what: str, expect: dict):
-    """Zero K12-K15's counts, run the block (a main-path run), add the
+    """Zero K12-K16's counts, run the block (a main-path run), add the
     counts to TAIL_LAUNCHES and raise unless each is ``expect``'s (absent:
     0) and no plain version of theirs ran."""
     from bevyray_tpu_torch.kernels import camera, passes
@@ -663,7 +688,7 @@ def pass_launches(what: str, expect: dict):
     want = {name: expect.get(name, 0) for name in kernels}
     plain = {**cam_plain, **pass_plain}
     if got != want or any(plain.values()):
-        raise SystemExit(f"{what}: K12-K15 launches {got}, expected {want}; "
+        raise SystemExit(f"{what}: K12-K16 launches {got}, expected {want}; "
                          f"plain calls {plain}")
 
 
@@ -1699,12 +1724,12 @@ def shard_phase(scene, cam, headline, card, head_bound, head_bound_by) -> dict:
     shards of a mesh do the frame's work between them."""
     import torch
 
-    from bevyray_tpu_torch import (FusedRenderer, ProgressiveRenderer,
-                                   RenderConfig, Renderer, rtiow)
+    from bevyray_tpu_torch import (FusedRenderer, RenderConfig, Renderer,
+                                   rtiow)
     from bevyray_tpu_torch.kernels.cuda import megakernel as mk
     from bevyray_tpu_torch.kernels.cuda.primary import device_shortlists_for
     from bevyray_tpu_torch.parallel.sharding import (
-        make_mesh, render_frame_sharded, render_frame_sharded_pallas)
+        make_mesh, render_frame_sharded_pallas)
 
     dev = torch.device("cuda", 0)
     render_tiles, render_tiles_reference = (mk.render_tiles,
@@ -1882,8 +1907,85 @@ def shard_phase(scene, cam, headline, card, head_bound, head_bound_by) -> dict:
         f"{peak / 2**30:.3f} GiB above the inputs | {card}",
         compare_frames(frame, exact))
 
-    # (d) The wavefront sharded step at 480x270 with tp, against the
-    # unsharded Renderer; then the wavefront film, 2 x 8 spp against 16 spp.
+    # (d) The wavefront sharded step, with tp.
+    wavefront_shard_phase(scene, cam, headline, card)
+
+    return {"name": "render_tiles[shard_offsets]", "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": SHARD_REPLACES,
+            "launches": shard_launches, "max_abs_err": max_err,
+            "ms": shard_ms, "plain_ms": plain_ms, "bound_ms": head_bound,
+            "bound_by": head_bound_by, "library_ms": None}
+
+
+def wavefront_shard_phase(scene, cam, headline, card) -> None:
+    """Phase 8(d): the wavefront sharded step (``render_frame_sharded``)
+    with tp at the headline on TP_MESHES against the unsharded
+    ``Renderer`` (within IDENTITY_TOL, segments equal, no host wait; K12,
+    K15 and K16 counted), and the step at WAVE_SIZE on WAVE_MESHES (40
+    parts: two K15 launches) and the wavefront film, against the unsharded
+    frame."""
+    import torch
+
+    from bevyray_tpu_torch import (ProgressiveRenderer, RenderConfig,
+                                   Renderer, rtiow)
+    from bevyray_tpu_torch.bench.timing import host_syncs
+    from bevyray_tpu_torch.kernels import passes
+    from bevyray_tpu_torch.parallel.sharding import (make_mesh,
+                                                     render_frame_sharded)
+
+    dev = torch.device("cuda", 0)
+
+    # The headline on TP_MESHES against the unsharded Renderer's frame of
+    # each seed: per bounce tp K1 launches and one K16 a shard, K12 a
+    # shard, one K15; the first frame of each mesh under the census of host
+    # waits.
+
+    wave_ref = Renderer(headline)
+    wave_ref.render(scene, cam, seed=0)
+    wave_want, times = {}, []
+    for seed in range(1, SHARD_FRAMES + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wave_want[seed] = wave_ref.render(scene, cam, seed=seed)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"phase 8(d) unsharded wavefront headline: p50 "
+          f"{sorted(times)[SHARD_FRAMES // 2]:.3f} ms, frame ms "
+          f"{[round(t, 3) for t in times]} | {card}", flush=True)
+    for sp, dp, tp in TP_MESHES:
+        mesh = make_mesh(sp, dp, tp, devices=["cuda:0"] * (sp * dp * tp))
+        torch.cuda.synchronize()
+        sites = []
+        with host_syncs(dev, sites):
+            render_frame_sharded(mesh, scene, cam, headline, 0)
+        torch.cuda.synchronize()
+        times = []
+        for seed in range(1, SHARD_FRAMES + 1):
+            with pass_launches(f"phase 8(d) headline mesh ({sp}, {dp}, {tp})",
+                               {"camera_rows": sp * dp, "sum_shards": 1,
+                                "merge_tp_hits": sp * SPP * (BOUNCES + 1)}):
+                t0 = time.perf_counter()
+                got = render_frame_sharded(mesh, scene, cam, headline, seed)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            ref = wave_want[seed]
+            d_img = float((got.image - ref.image).abs().max())
+            segs = (int(got.rays_traced), int(ref.rays_traced))
+            if d_img > IDENTITY_TOL or segs[0] != segs[1] or sites:
+                raise SystemExit(
+                    f"phase 8(d) headline mesh ({sp}, {dp}, {tp}) seed "
+                    f"{seed}: image max |d| {d_img:.3g} (bar {IDENTITY_TOL}), "
+                    f"segments {segs}, host waits {sorted(set(sites))}")
+        print(f"phase 8(d) wavefront sharded headline mesh ({sp}, {dp}, {tp}) "
+              f"on cuda:0: p50 {sorted(times)[SHARD_FRAMES // 2]:.3f} ms, "
+              f"frame ms {[round(t, 3) for t in times]}, segments {segs[0]} "
+              f"equal, image max |d| {d_img:.3g}, bit-equal "
+              f"{torch.equal(got.image, ref.image)}, host waits none | {card}",
+              flush=True)
+
+    # The step at WAVE_SIZE with tp, and on 40 parts (two K15 launches),
+    # against the unsharded Renderer; then the wavefront film, 2 x 8 spp
+    # against 16 spp.
     world = rtiow.final_scene(seed=42)
     small_scene = world.extract(with_bvh=False)
     small_cam = world.camera_state(aspect=WAVE_SIZE[0] / WAVE_SIZE[1])
@@ -1891,15 +1993,20 @@ def shard_phase(scene, cam, headline, card, head_bound, head_bound_by) -> dict:
     ref = Renderer(wave_cfg).render(small_scene, small_cam, seed=3)
     for sp, dp, tp in WAVE_MESHES:
         mesh = make_mesh(sp, dp, tp, devices=["cuda:0"] * (sp * dp * tp))
-        t0 = time.perf_counter()
-        got = render_frame_sharded(mesh, small_scene, small_cam, wave_cfg, 3)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
+        expect = {"camera_rows": sp * dp,
+                  "sum_shards": -(-(sp * dp) // passes.PARTS_PER_LAUNCH),
+                  "merge_tp_hits": sp * SPP * (BOUNCES + 1) if tp > 1 else 0}
+        with pass_launches(f"phase 8(d) mesh ({sp}, {dp}, {tp})", expect):
+            t0 = time.perf_counter()
+            got = render_frame_sharded(mesh, small_scene, small_cam, wave_cfg,
+                                       3)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
         d_img = float((got.image - ref.image).abs().max())
         print(f"phase 8 wavefront sharded {WAVE_SIZE[0]}x{WAVE_SIZE[1]} mesh "
               f"({sp}, {dp}, {tp}): {ms:.1f} ms, image max |d| {d_img:.3g}, "
-              f"segments {int(got.rays_traced)} / {int(ref.rays_traced)}",
-              flush=True)
+              f"segments {int(got.rays_traced)} / {int(ref.rays_traced)}, "
+              f"launches {expect}", flush=True)
         if d_img > IDENTITY_TOL or int(got.rays_traced) != int(
                 ref.rays_traced):
             raise SystemExit(f"phase 8 wavefront mesh ({sp}, {dp}, {tp}): "
@@ -1916,12 +2023,6 @@ def shard_phase(scene, cam, headline, card, head_bound, head_bound_by) -> dict:
           f"{int(ref.rays_traced)}", flush=True)
     if d_img > IDENTITY_TOL or int(film.rays_traced) != int(ref.rays_traced):
         raise SystemExit("phase 8: the wavefront film differs from the frame")
-
-    return {"name": "render_tiles[shard_offsets]", "route": "cuda",
-            "source": KERNEL_SOURCE, "replaces": SHARD_REPLACES,
-            "launches": shard_launches, "max_abs_err": max_err,
-            "ms": shard_ms, "plain_ms": plain_ms, "bound_ms": head_bound,
-            "bound_by": head_bound_by, "library_ms": None}
 
 
 def sass_sqrt(library: Path, instance: str) -> dict:
@@ -2725,7 +2826,9 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
     bvh, mesh) and over a config-5 round (``raster_layer`` +
     ``FusedRenderer``): the sites, which must be none. (d) The kernels of
     a 1-spp and a 16-spp headline frame and the card's busy time (torch's
-    profiler). Returns the kernels-line entries."""
+    profiler), and of a 1-spp headline frame through the wavefront sharded
+    step on mesh (1, 1, 2), with K16 and with the plain merge patched in.
+    Returns the kernels-line entries."""
     import numpy as np
     import torch
 
@@ -2744,8 +2847,10 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
     from bevyray_tpu_torch.kernels import frame as frame_mod
     from bevyray_tpu_torch.kernels import intersect, traverse
     from bevyray_tpu_torch.kernels.cuda import wavefront as wavefront_mod
+    from bevyray_tpu_torch.kernels import passes as passes_mod
     from bevyray_tpu_torch.kernels.intersect import on_active
     from bevyray_tpu_torch.kernels.raygen import generate_rays, pixel_uv
+    from bevyray_tpu_torch.parallel import sharding as sharding_mod
     from bevyray_tpu_torch.parallel.sharding import (make_mesh,
                                                      render_frame_sharded)
 
@@ -2868,11 +2973,13 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
     for name, config, scn, render in main_runs:
         render(0)   # warm-up
         zero()
-        # A K12 a sample state (one a shard), K15 in the sharded step.
+        # A K12 a sample state (one a shard), K15 in the sharded step and
+        # a K16 a bounce of each of its 2 shards.
         sharded = name.startswith("sharded")
         with pass_launches(f"phase 13(a) {name}", {
                 "camera_rows": 2 if sharded else 1,
-                "sum_shards": int(sharded)}):
+                "sum_shards": int(sharded),
+                "merge_tp_hits": 2 * SPP * (BOUNCES + 1) if sharded else 0}):
             frame, ms = timed(render)
         got = counts()
         launches.update(got)
@@ -3345,7 +3452,7 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def profiled(renderer):
+    def profile_render(renderer):
         renderer.render(scene, cam, seed=3)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -3364,18 +3471,47 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
     one = Renderer(dataclasses.replace(headline, samples_per_pixel=1))
     one.render(scene, cam, seed=3)
     _, one_ms = timed(frame_of(one, scene, cam))
-    device, n_launch_calls = profiled(one)
+    device, n_launch_calls = profile_render(one)
     n_kernels = sum(e.count for e in device)
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3
     by_name = sorted(((e.count, round(e.self_device_time_total / 1e3, 4),
                        e.key[:48]) for e in device), reverse=True)
-    full, _ = profiled(Renderer(headline))
+    full, _ = profile_render(Renderer(headline))
     print(f"phase 13(d) a 1-spp headline frame ({BOUNCES} bounces): "
           f"{n_kernels} kernels on the card, {n_launch_calls} launch calls "
           f"on the host; the card busy {busy_ms:.3f} ms of the unprofiled "
           f"frame's {one_ms:.3f} ms (idle share {1 - busy_ms / one_ms:.1%}); "
           f"the {SPP} spp frame {sum(e.count for e in full)} kernels; by "
           f"kernel (count, ms, name): {by_name} | {card}", flush=True)
+
+    # A 1-spp tp = 2 headline frame (mesh (1, 1, 2), the wavefront sharded
+    # step), taken as above; then the same frame with the plain merge
+    # patched in (the torch ops that K16 replaced). Taken here, after
+    # phases 9-12: a profiler run before them (in phase 8) left the later
+    # profiler runs of the process with few or no device events.
+    tp_mesh = make_mesh(1, 1, 2, devices=["cuda:0"] * 2)
+    one_cfg = dataclasses.replace(headline, samples_per_pixel=1)
+
+    def tp_frame():
+        return render_frame_sharded(tp_mesh, scene, cam, one_cfg, 3)
+
+    tp_frame()
+    _, tp_ms = timed(lambda seed: tp_frame())
+    tp_kernels, tp_busy, tp_by_name = profiled(tp_frame)
+    sharding_mod.merge_tp_hits = passes_mod.merge_tp_hits_reference
+    try:
+        plain_kernels, plain_busy, _ = profiled(tp_frame)
+    finally:
+        sharding_mod.merge_tp_hits = passes_mod.merge_tp_hits
+    print(f"phase 13(d) a 1-spp headline frame on mesh (1, 1, 2) ({BOUNCES} "
+          f"bounces): {tp_kernels} kernels on the card, busy {tp_busy:.3f} ms "
+          f"of the unprofiled frame's {tp_ms:.3f} ms (idle share "
+          f"{1 - tp_busy / tp_ms:.1%}); with the plain merge patched in "
+          f"{plain_kernels} kernels, busy {plain_busy:.3f} ms; by kernel "
+          f"(count, ms, name): {tp_by_name} | {card}", flush=True)
+    if not 0 < tp_kernels < plain_kernels:
+        raise SystemExit("phase 13(d): the tp frame runs no fewer kernels "
+                         "than with the plain merge")
 
     entries = []
     for name, fn in kernels.items():
@@ -3942,21 +4078,26 @@ def tail_phase(world, scene, cam, headline, card, dev) -> list:
 
 def pass_phase(world, scene, cam, headline, card, dev) -> list:
     """Phase 16: K12 ``camera_rows`` (csrc/camera.cu, through
-    ``kernels.camera``) and K13 ``adaptive_map``, K14 ``fold_adaptive`` and
-    K15 ``sum_shards`` (csrc/passes.cu, through ``kernels.passes``) against
-    their plain versions on the same CUDA tensors, every output compared as
-    bits, one launch a call: K12 on the headline camera, the night scene's
+    ``kernels.camera``) and K13 ``adaptive_map``, K14 ``fold_adaptive``,
+    K15 ``sum_shards`` and K16 ``merge_tp_hits`` (csrc/passes.cu, through
+    ``kernels.passes``) against their plain versions on the same CUDA
+    tensors, every output compared as bits, one launch a call (K15 two
+    past 32 parts): K12 on the headline camera, the night scene's
     (BASELINE config 4: the lens) and config 5's at level 1, both rows;
     K13 and K14 on ADAPT_PASSES adaptive passes at the headline, the last a
     re-probe, each pass's map and fold (the old film unchanged) and the
     film carried on with the kernels'; K15 on the parts of a headline frame
-    on each of K15_MESHES (fused; dp 2 and 4 add parts) and of a WAVE_SIZE
-    frame on mesh (2, 1, 2) (wavefront), caught on their way to the
-    reduction, timed at K15_TIMED. Each kernel's time
-    by CUDA events beside its bound and its plain version's time, and the
-    kernels and busy time of an adaptive pass and of a mesh (3, 1) frame
-    (torch's profiler). Returns the kernels-line entries; their launches
-    are the main-path runs' (phases 3, 5, 8(b) and 13(a))."""
+    on each of K15_MESHES (fused; dp 2 and 4 add parts) and of WAVE_SIZE
+    frames on mesh (2, 1, 2) and K15_LARGE (wavefront), caught on their way
+    to the reduction, timed at K15_TIMED; K16 on the slices' hits of bounce
+    0 of a 1-spp headline frame on mesh (1, 1, tp) for each of K16_TPS,
+    caught on their way to the merge, timed at K16_TIMED, beside the torch
+    stack, min and gather that give its bits (its library call). Each
+    kernel's time by CUDA events beside its bound and its plain version's
+    time, and the kernels and busy time of an adaptive pass and of a mesh
+    (3, 1) frame (torch's profiler). Returns the kernels-line entries;
+    their launches are the main-path runs' (phases 3, 5, 8(b), 8(d) and
+    13(a))."""
     import torch
 
     from bevyray_tpu_torch import AdaptiveRenderer, RenderConfig, rtiow
@@ -3964,6 +4105,7 @@ def pass_phase(world, scene, cam, headline, card, dev) -> list:
     from bevyray_tpu_torch.core.vec import Vec3
     from bevyray_tpu_torch.engine.adaptive import AdaptiveFilm
     from bevyray_tpu_torch.engine.film import begin_pass, trace_pass
+    from bevyray_tpu_torch.core.constants import INF
     from bevyray_tpu_torch.kernels import camera, passes
     from bevyray_tpu_torch.kernels.cuda.build import extension
     from bevyray_tpu_torch.kernels.cuda.megakernel import TILE, block_grid
@@ -3971,7 +4113,7 @@ def pass_phase(world, scene, cam, headline, card, dev) -> list:
 
     t_phase = time.perf_counter()
     max_err = dict.fromkeys(PASS_REPLACES, 0.0)
-    timing = {}
+    timing, library_ms = {}, dict.fromkeys(PASS_REPLACES)
 
     def bits(got, want) -> tuple:
         """(max |d| where both are numbers, every tensor bit-equal)."""
@@ -4002,9 +4144,10 @@ def pass_phase(world, scene, cam, headline, card, dev) -> list:
                                                                  "bytes")
 
     def hold(name, case, run, plain, n_bytes, ops=0, time_it=False,
-             extra=""):
+             extra="", launches=1):
         """One call of K``name`` (``run``) against its plain version
-        (``plain``), as bits; with ``time_it`` its time and bound."""
+        (``plain``), as bits, in ``launches`` launches; with ``time_it``
+        its time and bound."""
         kernel = pass_kernels()[name]
         before = kernel.launches
         got = run()
@@ -4022,12 +4165,13 @@ def pass_phase(world, scene, cam, headline, card, dev) -> list:
             line += (f"; kernel {ms:.4f} ms, plain {p_ms:.2f} ms, bound "
                      f"{b[0]:.3g} ms ({b[1]})")
         print(line + f" | {card}", flush=True)
-        if not same or launched != 1:
-            raise SystemExit(f"phase 16 {name} {case}: {launched} launches, "
-                             "or the kernel differs from its plain version")
+        if not same or launched != launches:
+            raise SystemExit(f"phase 16 {name} {case}: {launched} launches "
+                             f"(not {launches}), or the kernel differs from "
+                             "its plain version")
         return got
 
-    print(f"phase 16 K12-K15 instances: "
+    print(f"phase 16 K12-K16 instances: "
           f"{json.dumps(extension().passes_info(dev.index or 0))} | {card}",
           flush=True)
 
@@ -4049,6 +4193,11 @@ def pass_phase(world, scene, cam, headline, card, dev) -> list:
                         c, k, True, True),
                     CAMERA_BYTES, CAMERA_OPS, time_it,
                     f", tan(fov / 2) {float(camera.half_fov_tan(camera_.fov)):.9g}")
+    # What bounds K12 in practice: a launch. An empty kernel (torch's
+    # spin kernel for 0 cycles) timed as K12 is.
+    print(f"phase 16 an empty kernel's launch, timed as the kernels are: "
+          f"{cuda_ms(lambda: torch.cuda._sleep(0), PASS_REPS):.4f} ms | "
+          f"{card}", flush=True)
 
     # K13 and K14: adaptive passes at the headline, the last a re-probe.
     adap = AdaptiveRenderer(headline, tolerance=TOLERANCE,
@@ -4098,7 +4247,8 @@ def pass_phase(world, scene, cam, headline, card, dev) -> list:
 
     # K15: the parts of sharded frames, caught on their way in: the
     # headline on phase 8(b)'s meshes (3, 1), (2, 2) and (1, 4), the last two
-    # adding 2 and 4 dp parts a lane, and the wavefront step on (2, 1, 2).
+    # adding 2 and 4 dp parts a lane, and the wavefront step on (2, 1, 2)
+    # and on K15_LARGE's 36 and 40 parts.
     caught = []
     real = sharding.sum_shards
 
@@ -4114,18 +4264,25 @@ def pass_phase(world, scene, cam, headline, card, dev) -> list:
     meshes = {(sp, dp): sharding.make_mesh(sp, dp,
                                            devices=["cuda:0"] * (sp * dp))
               for sp, dp in K15_MESHES}
-    mesh212 = sharding.make_mesh(2, 1, 2, devices=["cuda:0"] * 4)
+    wave_meshes = [((2, 1, 2), wave_cfg)] + [
+        ((sp, dp, tp), dataclasses.replace(wave_cfg, samples_per_pixel=spp))
+        for sp, dp, tp, spp in K15_LARGE]
     sharding.sum_shards = catch
     try:
         for mesh in meshes.values():
             sharding.render_frame_sharded_pallas(mesh, scene, cam, headline, 1)
-        sharding.render_frame_sharded(mesh212, small_scene, small_cam,
-                                      wave_cfg, 1)
+        for shape, config in wave_meshes:
+            sharding.render_frame_sharded(
+                sharding.make_mesh(*shape, devices=["cuda:0"] * (
+                    shape[0] * shape[1] * shape[2])), small_scene, small_cam,
+                config, 1)
     finally:
         sharding.sum_shards = real
     cases = [(f"mesh ({sp}, {dp}) fused headline", (sp, dp) == K15_TIMED)
              for sp, dp in K15_MESHES]
-    cases.append((f"mesh (2, 1, 2) wavefront {WAVE_SIZE}", False))
+    cases += [(f"mesh {shape} wavefront {WAVE_SIZE} "
+               f"{config.samples_per_pixel} spp", False)
+              for shape, config in wave_meshes]
     if len(caught) != len(cases):
         raise SystemExit(f"phase 16 sum_shards: {len(caught)} reductions in "
                          f"{len(cases)} sharded frames")
@@ -4137,8 +4294,62 @@ def pass_phase(world, scene, cam, headline, card, dev) -> list:
              lambda p=parts, a=sp, b=dp, d=dev0: flat(
                  passes.sum_shards_reference(p, a, b, d)),
              sp * dp * (16 * m + 8) + 16 * sp * m + 8, time_it=time_it,
-             extra=f", {sp} x {dp} parts of {m} lanes")
+             extra=f", {sp} x {dp} parts of {m} lanes",
+             launches=-(-(sp * dp) // passes.PARTS_PER_LAUNCH))
     mesh31 = meshes[3, 1]
+
+    # K16: the slices' hits of bounce 0 of a 1-spp headline frame on mesh
+    # (1, 1, tp), caught on their way to the merge. Its library call: the
+    # t's stacked, their min over the slices and a gather of the winning
+    # slice's index. The slices hold ascending index ranges and torch's
+    # min takes the first slice of a tie, which holds the lowest index; the
+    # sequence must give K16's bits before its time is used.
+    merges = {}   # tp: the first merge of its frame
+    real_merge = sharding.merge_tp_hits
+
+    def catch_merge(ts, indices, offsets):
+        merges.setdefault(len(ts), (ts, indices, offsets))
+        return real_merge(ts, indices, offsets)
+
+    one = dataclasses.replace(headline, samples_per_pixel=1)
+    sharding.merge_tp_hits = catch_merge
+    try:
+        for tp in K16_TPS:
+            sharding.render_frame_sharded(
+                sharding.make_mesh(1, 1, tp, devices=["cuda:0"] * tp), scene,
+                cam, one, 1)
+    finally:
+        sharding.merge_tp_hits = real_merge
+    for tp in K16_TPS:
+        ts, indices, offsets = merges[tp]
+        n_lanes = ts[0].numel()
+        offs = torch.tensor(offsets, device=dev)
+
+        def library(ts=ts, indices=indices, offs=offs):
+            t_min, k = torch.stack(ts).min(dim=0)
+            i = torch.stack(indices).gather(0, k[None])[0]
+            return [t_min, torch.where((i >= 0) & (t_min < INF), i + offs[k],
+                                       -1)]
+
+        got = hold("merge_tp_hits", f"tp {tp}, headline bounce 0, 1 spp",
+                   lambda a=ts, b=indices, c=offsets: list(
+                       passes.merge_tp_hits(a, b, c)),
+                   lambda a=ts, b=indices, c=offsets: list(
+                       passes.merge_tp_hits_reference(a, b, c)),
+                   (tp + 1) * TP_LANE_BYTES * n_lanes,
+                   time_it=tp == K16_TIMED,
+                   extra=f", {n_lanes} lanes, hits "
+                         f"{int((indices[0] >= 0).sum())} in slice 0")
+        if tp == K16_TIMED:
+            lib = library()
+            torch.cuda.synchronize()
+            if not bits(lib, got)[1]:
+                raise SystemExit("phase 16 merge_tp_hits: the torch stack, "
+                                 "min and gather do not give K16's bits")
+            library_ms["merge_tp_hits"] = cuda_ms(library, PASS_REPS)
+            print(f"phase 16 merge_tp_hits library call (stack, min, gather) "
+                  f"tp {tp}: {library_ms['merge_tp_hits']:.4f} ms, K16's "
+                  f"bits | {card}", flush=True)
 
     # What an adaptive pass and a mesh (3, 1) frame run on the card.
     prof_adap = AdaptiveRenderer(headline, tolerance=TOLERANCE,
@@ -4168,8 +4379,9 @@ def pass_phase(world, scene, cam, headline, card, dev) -> list:
             "launches": TAIL_LAUNCHES[name], "max_abs_err": max_err[name],
             "ms": ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             # No single PyTorch call packs a camera row, maps or folds an
-            # adaptive pass, or adds shards in this order and joins them.
-            "library_ms": None})
+            # adaptive pass, or adds shards in this order and joins them;
+            # the tp merge's yardstick is a short torch sequence (above).
+            "library_ms": library_ms[name]})
     if min(TAIL_LAUNCHES[name] for name in PASS_REPLACES) < 1:
         raise SystemExit(f"phase 16: a kernel of the path launched no time: "
                          f"{dict(TAIL_LAUNCHES)}")

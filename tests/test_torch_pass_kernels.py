@@ -1,7 +1,8 @@
-"""The camera row (K12), the adaptive pass's map and fold (K13, K14) and the
-sharded step's sums (K15): their plain versions against the JAX package's
-arithmetic on the same inputs, on the CPU, and the kernels against their
-plain versions on the card (``-m cuda``).
+"""The camera row (K12), the adaptive pass's map and fold (K13, K14), the
+sharded step's sums (K15) and its tp hit merge (K16): their plain versions
+against the JAX package's arithmetic or NumPy on the same inputs, on the
+CPU, and the kernels against their plain versions on the card (``-m
+cuda``).
 
 - K12 (``kernels/camera.py``): ``half_fov_tan`` bit-equal to jitted
   ``jnp.tan(fov * 0.5)`` (``generate_rays``' scale, the C library's
@@ -14,7 +15,13 @@ plain versions on the card (``-m cuda``).
   (bevyray_tpu/engine/adaptive.py:73-100) run op by op on the same
   block-ordered sums (jitted, XLA may contract a multiply-add).
 - K15 (``sum_shards``): bit-equal to a NumPy ascending sum over dp and the
-  shards' concatenation.
+  shards' concatenation; on the card also on meshes of more than 32 parts
+  (several launches, each carrying the running sums on).
+- K16 (``merge_tp_hits``): equal to a NumPy lexicographic min of (t, global
+  index) over the slices at tp 2, 4 and 8, with ties across slices, misses,
+  inactive lanes and NaN t (torch.minimum's rule); the merge of the plain
+  sphere test's slices equal to the whole table's test; on the card bit-equal
+  to its plain version, also past 32 slices.
 """
 
 import hashlib
@@ -30,9 +37,10 @@ from bevyray_tpu import RenderConfig as JRenderConfig
 from bevyray_tpu import rtiow as jrtiow
 from bevyray_tpu.core.vec import Vec3 as JVec3
 from bevyray_tpu.kernels.pallas import megakernel as jmk
-from bevyray_tpu_torch.core.types import scene_from_numpy
+from bevyray_tpu_torch.core.constants import INF
+from bevyray_tpu_torch.core.types import Spheres, scene_from_numpy
 from bevyray_tpu_torch.engine.adaptive import AdaptiveFilm
-from bevyray_tpu_torch.kernels import camera, passes
+from bevyray_tpu_torch.kernels import camera, intersect, passes
 from bevyray_tpu_torch.kernels.cuda import megakernel as mk
 
 torch.set_num_threads(2)
@@ -311,6 +319,135 @@ def test_sum_shards_is_the_ascending_sum(sp, dp):
     assert int(total) == int(segs.sum())
 
 
+# -- K16: the tp hit merge ---------------------------------------------------------
+
+NO_INDEX = np.iinfo(np.int64).max
+
+
+def _tp_slices(tp, n, seed, chunk=16):
+    """Each slice's (t, local index) of ``n`` lanes, t from a few values so
+    that slices tie, and the slices' offsets. Lanes 0-3 of every slice are
+    misses (INF / -1, as an inactive lane is); on lanes 4-7 slice 1 misses
+    and the others tie; lane 8 has a NaN t in slice 1; lane 9 a NaN t in
+    every slice; lane 10 holds one t in every slice (the lowest global
+    index wins, slice 0's)."""
+    rng = np.random.default_rng(seed)
+    t = rng.choice(np.float32([0.5, 1.25, 2.0, 7.75]), (tp, n))
+    t[rng.random((tp, n)) < 0.25] = INF
+    i = rng.integers(0, chunk, (tp, n))
+    t[:, :4] = INF
+    t[1, 4:8] = INF
+    t[[k for k in range(tp) if k != 1], 4:8] = np.float32(1.25)
+    t[1, 8] = np.nan
+    t[:, 9] = np.nan
+    t[:, 10] = np.float32(2.0)
+    i = np.where(t >= INF, -1, i)
+    return t.astype(np.float32), i.astype(np.int64), [k * chunk
+                                                      for k in range(tp)]
+
+
+def _lexicographic_min(t, i, offsets):
+    """Per lane the least (t, global index) over the slices that hit, INF
+    / -1 where none does; a NaN t in any slice gives NaN and no index
+    (int64's maximum), as torch.minimum propagates it and no t equals it."""
+    tp, n = t.shape
+    want_t = np.full(n, INF, np.float32)
+    want_i = np.full(n, -1, np.int64)
+    for lane in range(n):
+        if np.isnan(t[:, lane]).any():
+            want_t[lane], want_i[lane] = np.nan, NO_INDEX
+            continue
+        hits = [(t[k, lane], i[k, lane] + offsets[k]) for k in range(tp)
+                if i[k, lane] >= 0 and t[k, lane] < INF]
+        if hits:
+            want_t[lane], want_i[lane] = min(hits)
+    return want_t, want_i
+
+
+@pytest.mark.parametrize("tp", [2, 4, 8])
+def test_merge_tp_hits_is_the_lexicographic_min(tp):
+    t, i, offsets = _tp_slices(tp, 600, tp)
+    ts = [torch.as_tensor(x) for x in t]
+    indices = [torch.as_tensor(x) for x in i]
+    before = passes.merge_tp_hits.launches
+    got_t, got_i = passes.merge_tp_hits(ts, indices, offsets)
+    assert passes.merge_tp_hits.launches == before
+    ref_t, ref_i = passes.merge_tp_hits_reference(ts, indices, offsets)
+    assert torch.equal(got_i, ref_i)
+    assert np.array_equal(got_t.numpy(), ref_t.numpy(), equal_nan=True)
+    want_t, want_i = _lexicographic_min(t, i, offsets)
+    assert got_t.dtype == torch.float32 and got_i.dtype == torch.int64
+    np.testing.assert_array_equal(got_t.numpy(), want_t)
+    np.testing.assert_array_equal(got_i.numpy(), want_i)
+    # The cases the slices were made with.
+    assert (got_i[:4] == -1).all() and (got_t[:4] == INF).all()
+    assert (got_t[4:8] == 1.25).all() and (got_i[4:8] >= 0).all()
+    assert bool(torch.isnan(got_t[8])) and int(got_i[8]) == NO_INDEX
+    assert int(got_i[10]) == i[0, 10]
+
+
+def _sphere_test(sph, o, d, active):
+    """The plain sphere test (K1's) of every ray in ``active``."""
+    return intersect.intersect_spheres(o, d, sph, sph.capacity,
+                                       active=active)
+
+
+@pytest.mark.parametrize("tp", [2, 4, 8])
+def test_merge_of_sphere_slices_is_the_whole_test(tp):
+    """The plain sphere test of each slice of a table whose spheres repeat
+    across the slices (the lower index must win), merged, equals the whole
+    table's test; lanes outside ``active`` miss in every slice."""
+    rng = np.random.default_rng(tp)
+    cap, n = 64, 3000
+    centers = rng.uniform(-3, 3, (cap, 3)).astype(np.float32)
+    radii = rng.uniform(0.2, 0.8, cap).astype(np.float32)
+    for a, b in ((3, 40), (20, 33), (31, 32), (5, 63)):   # across slices
+        centers[b], radii[b] = centers[a], radii[a]
+    valid = np.ones(cap, bool)
+    valid[[7, 50]] = False
+    sph = Spheres(*(torch.as_tensor(c) for c in centers.T),
+                  torch.as_tensor(radii), torch.zeros(cap, dtype=torch.int32),
+                  torch.as_tensor(valid))
+    o = bt.Vec3(*(torch.as_tensor(c) for c in
+                  rng.uniform(-6, 6, (3, n)).astype(np.float32)))
+    d = bt.Vec3(*(torch.as_tensor(c) for c in
+                  rng.normal(size=(3, n)).astype(np.float32)))
+    active = torch.as_tensor(rng.random(n) < 0.8)
+    whole = _sphere_test(sph, o, d, active)
+    w = cap // tp
+    ts, indices = [], []
+    for k in range(tp):
+        part = Spheres(*(c[k * w:(k + 1) * w] for c in sph))
+        t, i = _sphere_test(part, o, d, active)
+        ts.append(t)
+        indices.append(i)
+    got = passes.merge_tp_hits(ts, indices, [k * w for k in range(tp)])
+    assert torch.equal(got[0], whole[0]) and torch.equal(got[1], whole[1])
+    assert bool((got[1][~active] == -1).all())
+    hit = set(got[1][got[1] >= 0].tolist())
+    assert {3, 20, 31, 5} <= hit and not hit & {40, 33, 32, 63, 7, 50}
+
+
+def test_merge_tp_hits_checks():
+    t, i = torch.zeros(8), torch.zeros(8, dtype=torch.int64)
+    passes.check_tp_hits_args([t, t], [i, i], [0, 4])
+    with pytest.raises(ValueError, match="at least one slice"):
+        passes.check_tp_hits_args([], [], [])
+    with pytest.raises(ValueError, match="at least one slice"):
+        passes.check_tp_hits_args([t, t], [i], [0, 4])
+    with pytest.raises(ValueError, match="float32"):
+        passes.check_tp_hits_args([t, t.double()], [i, i], [0, 4])
+    with pytest.raises(ValueError, match="float32"):
+        passes.check_tp_hits_args([t, t[:5]], [i, i], [0, 4])
+    with pytest.raises(ValueError, match="int64"):
+        passes.check_tp_hits_args([t, t], [i, i.int()], [0, 4])
+    with pytest.raises(ValueError, match="offset"):
+        passes.check_tp_hits_args([t, t], [i, i], [0, -4])
+    meta = torch.empty(8, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        passes.merge_tp_hits([meta], [i], [0])
+
+
 def test_pass_kernel_checks():
     cfg = bt.RenderConfig(40, 30, 2)
     n = cfg.n_pixels
@@ -335,8 +472,11 @@ def test_pass_kernel_checks():
     passes.check_shard_args({(0, 0): part, (0, 1): part}, 1, 2, z.device)
     with pytest.raises(ValueError, match="keyed"):
         passes.check_shard_args({(0, 0): part}, 1, 2, z.device)
-    with pytest.raises(ValueError, match="1 to"):
-        passes.check_shard_args({}, 33, 1, z.device)
+    with pytest.raises(ValueError, match="at least one part"):
+        passes.check_shard_args({}, 0, 1, z.device)
+    # No upper limit: K15 takes a mesh of any size in launches of 32 parts.
+    passes.check_shard_args({(i, 0): part for i in range(33)}, 33, 1,
+                            z.device)
     with pytest.raises(ValueError, match="float32"):
         passes.check_shard_args({(0, 0): (bt.Vec3(z, z, z[:5]), z, segs)},
                                 1, 1, z.device)
@@ -423,3 +563,50 @@ def test_cuda_sum_shards_equal_plain(sp, dp):
     torch.cuda.synchronize()
     assert _bits_equal([*got[0], got[1]],
                        [x.cpu().numpy() for x in (*want[0], want[1])])
+
+
+def _card_parts(sp, dp, n, seed, dev):
+    rng = np.random.default_rng(seed)
+    return {(i, k): (bt.Vec3(*(torch.as_tensor(
+        rng.random(n, dtype=np.float32) * 9, device=dev) for _ in range(3))),
+        torch.as_tensor(rng.random(n, dtype=np.float32), device=dev),
+        torch.tensor(int(rng.integers(1 << 40)), device=dev))
+        for i in range(sp) for k in range(dp)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sp,dp,launches", [(6, 6, 2), (40, 1, 2), (4, 8, 1),
+                                            (1, 70, 3)])
+def test_cuda_sum_shards_past_32_parts(sp, dp, launches):
+    """More than 32 parts take a launch for every 32, each carrying the
+    running sums on (mesh (6, 6) splits shard 5's parts between two
+    launches); the bits are the plain version's. A mesh of 32 parts stays
+    one launch."""
+    dev = _card()
+    parts = _card_parts(sp, dp, 3001, sp * dp, dev)
+    before = passes.sum_shards.launches
+    got = passes.sum_shards(parts, sp, dp, dev)
+    assert passes.sum_shards.launches - before == launches
+    want = passes.sum_shards_reference(parts, sp, dp, dev)
+    torch.cuda.synchronize()
+    assert _bits_equal([*got[0], got[1]],
+                       [x.cpu().numpy() for x in (*want[0], want[1])])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp,launches", [(2, 1), (4, 1), (8, 1), (32, 1),
+                                         (40, 2), (64, 3)])
+def test_cuda_merge_tp_hits_equal_plain(tp, launches):
+    """K16 bit-equal to its plain version (t as bits, NaN lanes included),
+    one launch up to 32 slices and one more for every 31 after."""
+    dev = _card()
+    t, i, offsets = _tp_slices(tp, 100_003, tp, chunk=256)
+    ts = [torch.as_tensor(x, device=dev) for x in t]
+    indices = [torch.as_tensor(x, device=dev) for x in i]
+    before = passes.merge_tp_hits.launches
+    got = passes.merge_tp_hits(ts, indices, offsets)
+    assert passes.merge_tp_hits.launches - before == launches
+    want = passes.merge_tp_hits_reference(ts, indices, offsets)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, [x.cpu().numpy() for x in want])
+    assert int(got[1][8]) == NO_INDEX and bool(torch.isnan(got[0][9]))

@@ -1,6 +1,9 @@
 """The port's sharded frames (``parallel/sharding.py``) on in-process CPU
 meshes: twins of tests/test_sharding.py, and both steps against the JAX
-package's on its 8-device virtual CPU mesh.
+package's on its 8-device virtual CPU mesh: the wavefront step also on the
+tp-only meshes (1, 1, 2), (1, 1, 4) and (1, 1, 8), on a scene whose
+duplicate spheres straddle the tp slices (the tp hit merge's tie rule);
+and a mesh of more than 32 parts.
 
 Bars: a sharded frame against the port's unsharded one as JAX's own tests
 hold theirs (the wavefront step 1e-5, the fused step 1e-6: only the order of
@@ -217,6 +220,78 @@ def test_wavefront_sharded_matches_jax(both_scenes):
     _close_to_jax(got, want)
 
 
+def _straddle_world(pkg):
+    """The material test scene (4 spheres) grown to 96 in its capacity of
+    128: small spheres on the ground and, in another material than their
+    first copy, duplicates that straddle the tp slices at tp 2, 4 and 8:
+    sphere 1 again at index 16, sphere 2 at 64, and two new spheres at 31
+    and 40 again at 33 and 95 (the first copy of the last pair lies past
+    slice 0 at tp 4 and 8). The lower index must win each tie."""
+    w = pkg.rtiow.material_test_scene()
+    red = pkg.StandardMaterial(base_color=(1.0, 0.05, 0.05))
+    green = pkg.StandardMaterial(base_color=(0.1, 0.9, 0.2), metallic=0.8,
+                                 perceptual_roughness=0.3)
+    blue = pkg.StandardMaterial(base_color=(0.1, 0.2, 1.0))
+    firsts = {1: ((0.0, 0.5, 0.0), 0.5), 2: ((-1.2, 0.5, 0.0), 0.5),
+              31: ((0.6, 1.25, -0.6), 0.3), 40: ((-0.6, 1.25, -0.6), 0.3)}
+    again = {16: 1, 64: 2, 33: 31, 95: 40}
+    rng = np.random.default_rng(5)
+    for index in range(4, 96):
+        if index in again:
+            pos, radius = firsts[again[index]]
+            material = red
+        elif index in firsts:
+            pos, radius = firsts[index]
+            material = green
+        else:
+            pos = (rng.uniform(-2.5, 2.5), 0.1, rng.uniform(-2.0, 1.5))
+            radius, material = 0.1, blue
+        w.spawn_sphere(pkg.Transform.from_xyz(*pos),
+                       pkg.RaytracedSphere(radius=radius), material)
+    return w
+
+
+@pytest.mark.parametrize("tp", [2, 4, 8])
+@pytest.mark.parametrize("scene", ["material", "straddle"])
+def test_wavefront_tp_matches_jax(both_scenes, scene, tp):
+    """The tp-only meshes against JAX's sharded step: each slice's nearest
+    hit merged by the least t, then the lowest global index."""
+    if scene == "material":
+        js, jcam, ps, pcam = both_scenes
+    else:
+        jw = _straddle_world(jb)
+        js, jcam = jw.extract(with_bvh=False), jw.camera_state(aspect=1.0)
+        ps, pcam = scene_from_numpy(jax.tree.map(np.asarray, js),
+                                    jax.tree.map(np.asarray, jcam),
+                                    device="cpu")
+        cx = np.asarray(js.spheres.cx)
+        assert js.spheres.capacity == 128 and int(np.asarray(
+            js.spheres.valid).sum()) == 96
+        for first, again in ((1, 16), (2, 64), (31, 33), (40, 95)):
+            assert cx[first] == cx[again]
+            assert (np.asarray(js.spheres.material_id)[first]
+                    != np.asarray(js.spheres.material_id)[again])
+    cfg = dict(width=32, height=32, samples_per_pixel=2, bounces=3, level=3)
+    want = jsharding.render_frame_sharded(
+        jsharding.make_mesh(1, 1, tp), js, jcam, jb.RenderConfig(**cfg), 5)
+    got = render_frame_sharded(cpu_mesh(1, 1, tp), ps, pcam,
+                               bt.RenderConfig(**cfg), 5)
+    _close_to_jax(got, want)
+
+
+def test_wavefront_step_past_32_parts(both_scenes):
+    """A mesh of 40 parts on the CPU (K15 takes it on the card in two
+    launches) against the unsharded Renderer."""
+    _, _, ps, pcam = both_scenes
+    cfg = bt.RenderConfig(width=40, height=16, samples_per_pixel=2,
+                          bounces=3, level=3)
+    want = bt.Renderer(cfg).render(ps, pcam, seed=4)
+    got = render_frame_sharded(cpu_mesh(40, 1, 1), ps, pcam, cfg, 4)
+    np.testing.assert_allclose(got.image.numpy(), want.image.numpy(),
+                               atol=1e-5)
+    assert int(got.rays_traced) == int(want.rays_traced)
+
+
 def test_dryrun_multichip_twin():
     """``__graft_entry__.dryrun_multichip(8)`` in the port: the wavefront
     step on the (2, 2, 2) mesh and the fused step with tp folded into dp,
@@ -280,5 +355,57 @@ def test_sharded_frames_on_card():
     want = bt.Renderer(cfg).render(scene, cam, seed=5)
     got = render_frame_sharded(make_mesh(2, 1, 2, devices=["cuda:0"] * 4),
                                scene, cam, cfg, 5)
+    assert int(got.rays_traced) == int(want.rays_traced)
+    assert float((got.image - want.image).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp", [2, 4])
+def test_cuda_tp_step_queues_k1s_and_one_k16(tp):
+    """On the card a bounce's sphere test over tp slices queues tp K1
+    launches and one K16, and no other kernel (torch's profiler), with the
+    whole table's K1 result; a frame takes tp K1 and one K16 a bounce and
+    equals the unsharded frame."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs this check there")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bevyray_tpu_torch.kernels import intersect, passes
+
+    world = bt.rtiow.final_scene(seed=42, grid=4)
+    scene, cam = world.extract(with_bvh=False), world.camera_state(aspect=1.5)
+    cfg = bt.RenderConfig(width=192, height=128, samples_per_pixel=2,
+                          bounces=3, level=3)
+    mesh = make_mesh(1, 1, tp, devices=["cuda:0"] * tp)
+    fn = sharding._tp_intersect_fn(scene, cfg, mesh, 0, 0)
+    rng = np.random.default_rng(tp)
+    n = 50_000
+    o = bt.Vec3(*(torch.as_tensor(x, device="cuda") for x in
+                  rng.uniform(-4, 4, (3, n)).astype(np.float32)))
+    d = bt.Vec3(*(torch.as_tensor(x, device="cuda") for x in
+                  rng.normal(size=(3, n)).astype(np.float32)))
+    active = torch.as_tensor(rng.random(n) < 0.7, device="cuda")
+    fn(o, d, active)
+    torch.cuda.synchronize()
+    k1, k16 = intersect.intersect_spheres.launches, passes.merge_tp_hits.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t, i = fn(o, d, active)
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    assert intersect.intersect_spheres.launches - k1 == tp
+    assert passes.merge_tp_hits.launches - k16 == 1
+    assert kernels == tp + 1
+    whole = intersect.intersect_spheres(o, d, scene.spheres, active=active)
+    assert torch.equal(t, whole[0]) and torch.equal(i, whole[1])
+
+    want = bt.Renderer(cfg).render(scene, cam, seed=5)
+    k1, k16 = intersect.intersect_spheres.launches, passes.merge_tp_hits.launches
+    got = render_frame_sharded(mesh, scene, cam, cfg, 5)
+    bounces = cfg.samples_per_pixel * (cfg.bounces + 1)
+    assert intersect.intersect_spheres.launches - k1 == tp * bounces
+    assert passes.merge_tp_hits.launches - k16 == bounces
     assert int(got.rays_traced) == int(want.rays_traced)
     assert float((got.image - want.image).abs().max()) <= 1e-5

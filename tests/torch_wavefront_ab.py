@@ -15,14 +15,16 @@ BVH and with the dense test; BASELINE config 5 (the final scene with a
 metallic cube mesh, 1280x720, 16 spp, level 2) over its raster layer; and
 the cube field (``chip_smoke.cube_field_world`` of this tree, built with
 each arm's package: 4,092 triangles, "auto" taking the dense test) at
-config 5's settings over its raster layer. It
+config 5's settings over its raster layer; and the headline through the
+wavefront sharded step on mesh (1, 1, 2) over the card (the sphere table
+in two tp slices, their nearest hits merged each bounce). It
 times the raster layer (p50 of 5 calls after a first) and takes the census
 of host waits for the card (``bench/timing.py`` ``host_syncs``) over one
 headline frame at 1 spp, one 4,971-sphere "bvh" frame and one config-5
 round (``raster_layer`` + ``FusedRenderer.render``), and the card's busy
 time (torch's profiler: the summed durations of its kernels), which the
 host's launch rate does not enter, and the kernels it ran, over one 1-spp
-frame of the headline, config 5 and the cube field. Then it times the
+frame of the headline, config 5, the cube field and the tp headline. Then it times the
 ray tests alone (K1-K4 of ``kernels/cuda/csrc/wavefront.cu``) through the
 calls a frame makes (``engine.renderer.make_intersect_fn``, the
 triangle wrappers), on the rays that bounces 0 and 2 of sample 0 hand
@@ -60,6 +62,7 @@ from bevyray_tpu_torch import (FusedRenderer, RenderConfig, Renderer,
 from bevyray_tpu_torch.bench.timing import host_syncs
 from bevyray_tpu_torch.engine.raster import raster_layer
 from bevyray_tpu_torch.kernels.cuda import build
+from bevyray_tpu_torch.parallel.sharding import make_mesh, render_frame_sharded
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
@@ -146,6 +149,9 @@ field_cam = field.camera_state(aspect=16 / 9)
 rc_f, rd_f = raster_layer(field, field_cam, config5)
 cells["cube_field"] = frames("cube_field", lambda s: Renderer(config5).render(
     field_scene, field_cam, seed=s, raster_color=rc_f, raster_depth=rd_f))
+tp_mesh = make_mesh(1, 1, 2, devices=["cuda:0"] * 2)
+cells["tp_headline"] = frames("tp_headline", lambda s: render_frame_sharded(
+    tp_mesh, scene, cam, headline, s))
 
 
 def config5_round():
@@ -178,6 +184,8 @@ busy = {{
     "cube_field": busy_ms(lambda s: Renderer(one5).render(
         field_scene, field_cam, seed=s, raster_color=rc_f,
         raster_depth=rd_f)),
+    "tp_headline": busy_ms(lambda s: render_frame_sharded(
+        tp_mesh, scene, cam, one, s)),
 }}
 syncs = {{
     "Renderer headline 1 spp": census(
