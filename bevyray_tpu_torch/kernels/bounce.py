@@ -322,6 +322,47 @@ def shade_bounce(state: SampleState, bounce: int, t, idx, tt, ti,
         shade_bounce_reference(state, bounce, t, idx, tt, ti, scene, config,
                                sums, base)
         return
+    _launch_shade(state, bounce, t, idx, tt, ti, scene, config, sums, base,
+                  torch.empty(0, dtype=torch.int64, device=dev))
+    shade_bounce.launches += 1
+
+
+# The probe's sums, in the kernel's ShadeProbeSlot order (csrc/bounce.h):
+# the threads' cycles by stage, then for each path and branch the warps
+# that enter it and their active lanes.
+SHADE_PROBE_SLOTS = (
+    "total", "classify", "compact", "miss", "record", "draws", "branch",
+    "stores", "harvest", "miss_warps", "miss_lanes", "record_warps",
+    "record_lanes", "metal_warps", "metal_lanes", "glass_warps",
+    "glass_lanes", "diffuse_warps", "diffuse_lanes")
+
+
+def shade_bounce_probe(state: SampleState, bounce: int, t, idx, tt, ti,
+                       scene: SceneBuffers, config: RenderConfig,
+                       sums: FrameSums = None,
+                       base: FrameSums = None) -> dict:
+    """One launch of K6's probe instance on CUDA tensors: the values of
+    :func:`shade_bounce`, and {slot: sum} over ``SHADE_PROBE_SLOTS`` (the
+    threads' ``clock64()`` cycles by stage, the warps entering each path
+    and branch and their active lanes). Not counted in
+    ``shade_bounce.launches``: it is a measurement, off the main path."""
+    dev = t.device
+    if dev.type != "cuda":
+        raise ValueError("shade_bounce_probe measures the CUDA kernel; it "
+                         f"takes CUDA tensors, not {dev}")
+    from .cuda.build import extension
+
+    probe = torch.zeros(extension().shade_probe_slots, dtype=torch.int64,
+                        device=dev)
+    _launch_shade(state, bounce, t, idx, tt, ti, scene, config, sums, base,
+                  probe)
+    return dict(zip(SHADE_PROBE_SLOTS, probe.tolist()))
+
+
+def _launch_shade(state, bounce, t, idx, tt, ti, scene, config, sums, base,
+                  probe) -> None:
+    """Launch K6 (the probe instance for a non-empty ``probe``)."""
+    dev = t.device
     _check_cuda(dev, "shade_bounce")
     from .cuda.build import extension
 
@@ -344,8 +385,7 @@ def shade_bounce(state: SampleState, bounce: int, t, idx, tt, ti,
             mats.roughness, mats.ior, mats.specular_transmission,
             mats.emissive_r, mats.emissive_g, mats.emissive_b)],
         *_fold_args(sums, base), int(bounce), int(bounce) == config.bounces,
-        config.diffuse_sampling == "cosine")
-    shade_bounce.launches += 1
+        config.diffuse_sampling == "cosine", probe)
 
 
 raygen_sample.launches = 0

@@ -503,7 +503,9 @@ void raygen_sample(const std::vector<torch::Tensor>& state, const torch::Tensor&
 // cy, cz (float32), material_id (int32); `tris`: the nine corner columns
 // (float32) and material_id (int32), or empty without triangles;
 // `materials`: base r, g, b, metallic, roughness, ior, transmission,
-// emissive r, g, b (float32). `sums` and `base` as raygen_sample's.
+// emissive r, g, b (float32). `sums` and `base` as raygen_sample's. A
+// non-empty `probe` (kShadeProbeSlots int64 zeros) launches the probe
+// instance, which adds its sums there.
 void shade_bounce(const std::vector<torch::Tensor>& state, const torch::Tensor& t,
                   const torch::Tensor& index, const torch::Tensor& tri_t,
                   const torch::Tensor& tri_index, const std::vector<torch::Tensor>& spheres,
@@ -511,7 +513,7 @@ void shade_bounce(const std::vector<torch::Tensor>& state, const torch::Tensor& 
                   const std::vector<torch::Tensor>& materials,
                   const std::vector<torch::Tensor>& sums,
                   const std::vector<torch::Tensor>& base, int64_t bounce, bool last,
-                  bool cosine) {
+                  bool cosine, const torch::Tensor& probe) {
   const WaveState s = wave_state(state);
   const torch::Tensor& like = state[0];
   HitColumns hit{};
@@ -543,8 +545,16 @@ void shade_bounce(const std::vector<torch::Tensor>& state, const torch::Tensor& 
   sc.n_materials = rows(n_mat, "materials");
   TORCH_CHECK(bounce >= 0 && bounce < (int64_t{1} << 24), "bounce must be a small count");
   const SumColumns c = sum_columns(sums, base, s.n, like);
+  unsigned long long* clocks = nullptr;
+  if (probe.numel() > 0) {
+    TORCH_CHECK(probe.is_cuda() && probe.device() == like.device() &&
+                    probe.scalar_type() == torch::kInt64 && probe.is_contiguous() &&
+                    probe.numel() == kShadeProbeSlots,
+                "probe must be kShadeProbeSlots int64 on the state's device");
+    clocks = reinterpret_cast<unsigned long long*>(probe.data_ptr<int64_t>());
+  }
   const c10::cuda::CUDAGuard guard(like.device());
-  launch_shade_bounce(s, hit, sc, c, static_cast<int>(bounce), last, cosine,
+  launch_shade_bounce(s, hit, sc, c, static_cast<int>(bounce), last, cosine, clocks,
                       c10::cuda::getCurrentCUDAStream().stream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
@@ -570,8 +580,8 @@ std::map<std::string, std::map<std::string, int64_t>> wavefront_info(int64_t dev
     const cudaError_t err = ::wavefront_kernel_info(which, static_cast<int>(rows), &info);
     put(names[which], err, info);
   }
-  const char* bounce_names[] = {"raygen_sample", "shade_bounce"};
-  for (int which = 0; which < 2; ++which) {
+  const char* bounce_names[] = {"raygen_sample", "shade_bounce", "shade_bounce_probe"};
+  for (int which = 0; which < 3; ++which) {
     WaveKernelInfo info{};
     const cudaError_t err = ::bounce_kernel_info(which, &info);
     put(bounce_names[which], err, info);
@@ -1040,6 +1050,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("kernel_info", &instance_info,
         "Registers, spills, shared memory and occupancy of one kernel instance");
   m.attr("probe_slots") = static_cast<int>(kProbeSlots);
+  m.attr("shade_probe_slots") = static_cast<int>(kShadeProbeSlots);
   m.def("intersect_spheres", &intersect_spheres,
         "Nearest sphere hit of each ray over the whole table (t, index)");
   m.def("intersect_triangles", &intersect_triangles,

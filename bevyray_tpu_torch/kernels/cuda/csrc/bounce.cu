@@ -154,10 +154,49 @@ __global__ void __launch_bounds__(kThreads)
   s.stream[i] = stream;
 }
 
+// The probe instance's sums of one thread (ShadeProbeSlot order): cycles
+// by stage, and at the entry of each path and branch the warps entering
+// (counted by the first active lane) and their active lanes.
+struct ShadeClock {
+  unsigned long long c[kShadeProbeSlots];
+};
+
+template <bool kProbe>
+__device__ __forceinline__ long long tick() {
+  return kProbe ? clock64() : 0;
+}
+
+template <bool kProbe>
+__device__ __forceinline__ void tock(ShadeClock& clk, int slot, long long& since) {
+  if (kProbe) {
+    const long long now = clock64();
+    clk.c[slot] += static_cast<unsigned long long>(now - since);
+    since = now;
+  }
+}
+
+template <bool kProbe>
+__device__ __forceinline__ void enter(ShadeClock& clk, int warps_slot) {
+  if (kProbe) {
+    const unsigned mask = __activemask();
+    if (static_cast<int>(threadIdx.x & 31) == __ffs(mask) - 1) {
+      clk.c[warps_slot] += 1;
+      clk.c[warps_slot + 1] += __popc(mask);
+    }
+  }
+}
+
 // K6: shade_bounce_reference, one thread a lane.
+template <bool kProbe>
 __global__ void __launch_bounds__(kThreads)
     shade_kernel(WaveState s, HitColumns hit, ShadeScene sc, SumColumns sums, int bounce,
-                 bool last, bool cosine) {
+                 bool last, bool cosine, unsigned long long* probe) {
+  ShadeClock clk;
+  if (kProbe) {
+    for (int k = 0; k < kShadeProbeSlots; ++k) clk.c[k] = 0;
+  }
+  const long long t_start = tick<kProbe>();
+  long long t_stage = t_start;
   const int i = blockIdx.x * kThreads + threadIdx.x;
   const bool in = i < s.n;
   const bool live = in && s.active[i];
@@ -167,113 +206,145 @@ __global__ void __launch_bounds__(kThreads)
     atomicAdd(s.segments, static_cast<unsigned long long>(count));
     if (sums.r != nullptr) atomicAdd(sums.segments, static_cast<unsigned long long>(count));
   }
-  if (!in) return;
+  if (in) {
+    // merge_hits: the triangle wins only with a strictly smaller t.
+    const bool tris = hit.tri_t != nullptr;
+    const float t = hit.t[i];
+    const float tt = tris ? hit.tri_t[i] : kInf;
+    const bool tri_wins = tris && tt < t;
+    const float hit_t = tri_wins ? tt : t;
+    if (bounce == 0) s.first_depth[i] = hit_t;   // every lane, as the plain version
+    tock<kProbe>(clk, kPClassify, t_stage);
 
-  // merge_hits: the triangle wins only with a strictly smaller t.
-  const bool tris = hit.tri_t != nullptr;
-  const float t = hit.t[i];
-  const float tt = tris ? hit.tri_t[i] : kInf;
-  const bool tri_wins = tris && tt < t;
-  const float hit_t = tri_wins ? tt : t;
-  if (bounce == 0) s.first_depth[i] = hit_t;   // every lane, as the plain version
-
-  V3 rad;
-  if (live) {
-    const V3 d = load3(s.dx, s.dy, s.dz, i);
-    const V3 ray_color = load3(s.color_r, s.color_g, s.color_b, i);
-    rad = load3(s.rad_r, s.rad_g, s.rad_b, i);
-    if (t >= kInf && (!tris || tt >= kInf)) {
-      // A miss picks up the sky and ends the path.
-      rad = add(rad, mul(ray_color, sky(d)));
-      s.active[i] = false;
-    } else {
-      // The winner's hit record (make_hit_info / triangle_hit_info). Only
-      // a hit reads the origin and the winner's index.
-      const V3 o = load3(s.ox, s.oy, s.oz, i);
-      V3 position, n;
-      int material;
-      if (tri_wins) {
-        // tt < t <= f32 max: the triangle test hit.
-        const int row = row_of(hit.tri_index[i], sc.n_tris);
-        const V3 a = {__ldg(sc.tri[0] + row), __ldg(sc.tri[1] + row), __ldg(sc.tri[2] + row)};
-        const V3 b = {__ldg(sc.tri[3] + row), __ldg(sc.tri[4] + row), __ldg(sc.tri[5] + row)};
-        const V3 c = {__ldg(sc.tri[6] + row), __ldg(sc.tri[7] + row), __ldg(sc.tri[8] + row)};
-        n = normalize(cross(sub(b, a), sub(c, a)));
-        position = add(o, scale(d, tt));
-        material = __ldg(sc.tri_material + row);
+    V3 rad;
+    if (live) {
+      const V3 d = load3(s.dx, s.dy, s.dz, i);
+      const V3 ray_color = load3(s.color_r, s.color_g, s.color_b, i);
+      rad = load3(s.rad_r, s.rad_g, s.rad_b, i);
+      if (t >= kInf && (!tris || tt >= kInf)) {
+        // A miss picks up the sky and ends the path.
+        enter<kProbe>(clk, kPMissWarps);
+        rad = add(rad, mul(ray_color, sky(d)));
+        s.active[i] = false;
+        tock<kProbe>(clk, kPMiss, t_stage);
       } else {
-        const bool sphere_miss = t >= kInf;
-        const int row = row_of(hit.index[i], sc.n_spheres);
-        position = add(o, scale(d, sphere_miss ? 0.0f : t));
-        const V3 center = {__ldg(sc.cx + row), __ldg(sc.cy + row), __ldg(sc.cz + row)};
-        n = sphere_miss ? V3{0.0f, 1.0f, 0.0f} : normalize(sub(position, center));
-        material = __ldg(sc.sphere_material + row);
-      }
-      const bool front_face = dot(d, n) < 0.0f;
-      const int m = clamp_id(material, sc.n_materials);
-      const V3 base_color = {__ldg(sc.mat[0] + m), __ldg(sc.mat[1] + m), __ldg(sc.mat[2] + m)};
-      const float metallic = __ldg(sc.mat[3] + m);
-      const float roughness = __ldg(sc.mat[4] + m);
-      const float ior = __ldg(sc.mat[5] + m);
-      const float transmission = __ldg(sc.mat[6] + m);
-      const V3 emissive = {__ldg(sc.mat[7] + m), __ldg(sc.mat[8] + m), __ldg(sc.mat[9] + m)};
-      rad = add(rad, mul(ray_color, emissive));
-
-      // scatter (kernels/shade.py), the chosen branch only.
-      const ExactDraws draws(s.stream[i], 0);
-      V3 dir;
-      V3 attenuation = base_color;
-      bool absorbed;
-      if (draws.u_metal(bounce) < metallic) {
-        dir = add(normalize(reflect(d, n)), scale(draws.ball1(bounce), roughness));
-        absorbed = dot(dir, n) < 0.0f;
-      } else if (draws.u_trans(bounce) < transmission) {
-        const V3 unit = normalize(d);
-        const float ri = front_face ? 1.0f / ior : ior;
-        const float cos_theta = min_nan(dot(neg(unit), n), 1.0f);
-        const float sin_theta = sqrtf(max_nan(1.0f - cos_theta * cos_theta, 0.0f));
-        const bool use_reflect =
-            ri * sin_theta > 1.0f || schlick(cos_theta, ri) > draws.u_reflect(bounce);
-        dir = use_reflect ? reflect(unit, n) : refract(unit, n, ri);
-        attenuation = {1.0f, 1.0f, 1.0f};
-        absorbed = false;
-      } else {
-        const V3 ball1 = draws.ball1(bounce);
-        if (cosine) {
-          dir = add(n, normalize(ball1));
+        // The winner's hit record (make_hit_info / triangle_hit_info). Only
+        // a hit reads the origin and the winner's index.
+        enter<kProbe>(clk, kPRecordWarps);
+        const V3 o = load3(s.ox, s.oy, s.oz, i);
+        V3 position, n;
+        int material;
+        if (tri_wins) {
+          // tt < t <= f32 max: the triangle test hit.
+          const int row = row_of(hit.tri_index[i], sc.n_tris);
+          const V3 a = {__ldg(sc.tri[0] + row), __ldg(sc.tri[1] + row), __ldg(sc.tri[2] + row)};
+          const V3 b = {__ldg(sc.tri[3] + row), __ldg(sc.tri[4] + row), __ldg(sc.tri[5] + row)};
+          const V3 c = {__ldg(sc.tri[6] + row), __ldg(sc.tri[7] + row), __ldg(sc.tri[8] + row)};
+          n = normalize(cross(sub(b, a), sub(c, a)));
+          position = add(o, scale(d, tt));
+          material = __ldg(sc.tri_material + row);
         } else {
-          dir = add(add(n, ball1), scale(draws.ball2(bounce), roughness));
+          const bool sphere_miss = t >= kInf;
+          const int row = row_of(hit.index[i], sc.n_spheres);
+          position = add(o, scale(d, sphere_miss ? 0.0f : t));
+          const V3 center = {__ldg(sc.cx + row), __ldg(sc.cy + row), __ldg(sc.cz + row)};
+          n = sphere_miss ? V3{0.0f, 1.0f, 0.0f} : normalize(sub(position, center));
+          material = __ldg(sc.sphere_material + row);
         }
-        if (fabsf(dir.x) < kNearZero && fabsf(dir.y) < kNearZero && fabsf(dir.z) < kNearZero) {
-          dir = n;
+        const bool front_face = dot(d, n) < 0.0f;
+        const int m = clamp_id(material, sc.n_materials);
+        const V3 base_color = {__ldg(sc.mat[0] + m), __ldg(sc.mat[1] + m), __ldg(sc.mat[2] + m)};
+        const float metallic = __ldg(sc.mat[3] + m);
+        const float roughness = __ldg(sc.mat[4] + m);
+        const float ior = __ldg(sc.mat[5] + m);
+        const float transmission = __ldg(sc.mat[6] + m);
+        const V3 emissive = {__ldg(sc.mat[7] + m), __ldg(sc.mat[8] + m), __ldg(sc.mat[9] + m)};
+        rad = add(rad, mul(ray_color, emissive));
+        const ExactDraws draws(s.stream[i], 0);
+        if (kProbe) {
+          // Wait for the gathers here, so that their time is this stage's.
+          asm volatile("" ::"f"(base_color.x), "f"(metallic), "f"(roughness), "f"(ior),
+                       "f"(transmission), "f"(rad.x), "r"(draws.stream));
         }
-        absorbed = dot(dir, n) < 0.0f;
-      }
-      if (!absorbed) store3(s.color_r, s.color_g, s.color_b, i, mul(ray_color, attenuation));
-      store3(s.ox, s.oy, s.oz, i, position);
-      store3(s.dx, s.dy, s.dz, i, dir);
-      s.active[i] = !absorbed;
-    }
-    store3(s.rad_r, s.rad_g, s.rad_b, i, rad);
-  }
+        tock<kProbe>(clk, kPRecord, t_stage);
 
-  if (last) {
-    // The sample's harvest: gamma per sample and the depth's fallback.
-    if (!live) rad = load3(s.rad_r, s.rad_g, s.rad_b, i);
-    const float first = bounce == 0 ? hit_t : s.first_depth[i];
-    const V3 c = {sqrtf(max_nan(rad.x, 0.0f)), sqrtf(max_nan(rad.y, 0.0f)),
-                  sqrtf(max_nan(rad.z, 0.0f))};
-    const float depth = first >= kInf ? __ldg(s.camera + CAM_FALLBACK) : first;
-    store3(s.out_r, s.out_g, s.out_b, i, c);
-    s.out_depth[i] = depth;
-    if (sums.r != nullptr) {
-      // base + harvest; a frame's first sample adds to 0.0f, as torch's
-      // zeros + harvest does (a -0.0 harvest gives +0.0).
-      const bool base = sums.base_r != nullptr;
-      sums.r[i] = (base ? sums.base_r[i] : 0.0f) + c.x;
-      sums.g[i] = (base ? sums.base_g[i] : 0.0f) + c.y;
-      sums.b[i] = (base ? sums.base_b[i] : 0.0f) + c.z;
-      sums.depth[i] = (base ? sums.base_depth[i] : 0.0f) + depth;
+        // scatter (kernels/shade.py), the chosen branch only.
+        const bool is_metal = draws.u_metal(bounce) < metallic;
+        const bool is_glass = !is_metal && draws.u_trans(bounce) < transmission;
+        tock<kProbe>(clk, kPDraws, t_stage);
+        V3 dir;
+        V3 attenuation = base_color;
+        bool absorbed;
+        if (is_metal) {
+          enter<kProbe>(clk, kPMetalWarps);
+          dir = add(normalize(reflect(d, n)), scale(draws.ball1(bounce), roughness));
+          absorbed = dot(dir, n) < 0.0f;
+        } else if (is_glass) {
+          enter<kProbe>(clk, kPGlassWarps);
+          const V3 unit = normalize(d);
+          const float ri = front_face ? 1.0f / ior : ior;
+          const float cos_theta = min_nan(dot(neg(unit), n), 1.0f);
+          const float sin_theta = sqrtf(max_nan(1.0f - cos_theta * cos_theta, 0.0f));
+          const bool use_reflect =
+              ri * sin_theta > 1.0f || schlick(cos_theta, ri) > draws.u_reflect(bounce);
+          dir = use_reflect ? reflect(unit, n) : refract(unit, n, ri);
+          attenuation = {1.0f, 1.0f, 1.0f};
+          absorbed = false;
+        } else {
+          enter<kProbe>(clk, kPDiffuseWarps);
+          const V3 ball1 = draws.ball1(bounce);
+          if (cosine) {
+            dir = add(n, normalize(ball1));
+          } else {
+            dir = add(add(n, ball1), scale(draws.ball2(bounce), roughness));
+          }
+          if (fabsf(dir.x) < kNearZero && fabsf(dir.y) < kNearZero && fabsf(dir.z) < kNearZero) {
+            dir = n;
+          }
+          absorbed = dot(dir, n) < 0.0f;
+        }
+        tock<kProbe>(clk, kPBranch, t_stage);
+        if (!absorbed) store3(s.color_r, s.color_g, s.color_b, i, mul(ray_color, attenuation));
+        store3(s.ox, s.oy, s.oz, i, position);
+        store3(s.dx, s.dy, s.dz, i, dir);
+        s.active[i] = !absorbed;
+      }
+      store3(s.rad_r, s.rad_g, s.rad_b, i, rad);
+      tock<kProbe>(clk, kPStores, t_stage);
+    }
+
+    if (last) {
+      // The sample's harvest: gamma per sample and the depth's fallback.
+      if (!live) rad = load3(s.rad_r, s.rad_g, s.rad_b, i);
+      const float first = bounce == 0 ? hit_t : s.first_depth[i];
+      const V3 c = {sqrtf(max_nan(rad.x, 0.0f)), sqrtf(max_nan(rad.y, 0.0f)),
+                    sqrtf(max_nan(rad.z, 0.0f))};
+      const float depth = first >= kInf ? __ldg(s.camera + CAM_FALLBACK) : first;
+      store3(s.out_r, s.out_g, s.out_b, i, c);
+      s.out_depth[i] = depth;
+      if (sums.r != nullptr) {
+        // base + harvest; a frame's first sample adds to 0.0f, as torch's
+        // zeros + harvest does (a -0.0 harvest gives +0.0).
+        const bool base = sums.base_r != nullptr;
+        sums.r[i] = (base ? sums.base_r[i] : 0.0f) + c.x;
+        sums.g[i] = (base ? sums.base_g[i] : 0.0f) + c.y;
+        sums.b[i] = (base ? sums.base_b[i] : 0.0f) + c.z;
+        sums.depth[i] = (base ? sums.base_depth[i] : 0.0f) + depth;
+      }
+      tock<kProbe>(clk, kPHarvest, t_stage);
+    }
+  }
+  if (kProbe) {
+    clk.c[kPTotal] += static_cast<unsigned long long>(clock64() - t_start);
+    __shared__ unsigned long long s_clk[kShadeProbeSlots];
+    if (threadIdx.x < kShadeProbeSlots) s_clk[threadIdx.x] = 0;
+    __syncthreads();
+    for (int k = 0; k < kShadeProbeSlots; ++k) {
+      if (clk.c[k] != 0) atomicAdd(&s_clk[k], clk.c[k]);
+    }
+    __syncthreads();
+    if (threadIdx.x < kShadeProbeSlots && s_clk[threadIdx.x] != 0) {
+      atomicAdd(probe + threadIdx.x, s_clk[threadIdx.x]);
     }
   }
 }
@@ -307,14 +378,20 @@ void launch_raygen_sample(const WaveState& s, const int64_t* pixel_ids, const fl
 
 void launch_shade_bounce(const WaveState& s, const HitColumns& hit, const ShadeScene& scene,
                          const SumColumns& sums, int bounce, bool last, bool cosine,
-                         cudaStream_t stream) {
+                         unsigned long long* probe, cudaStream_t stream) {
   if (s.n == 0) return;
-  shade_kernel<<<grid_for(s.n), kThreads, 0, stream>>>(s, hit, scene, sums, bounce, last,
-                                                       cosine);
+  if (probe != nullptr) {
+    shade_kernel<true><<<grid_for(s.n), kThreads, 0, stream>>>(s, hit, scene, sums, bounce,
+                                                               last, cosine, probe);
+  } else {
+    shade_kernel<false><<<grid_for(s.n), kThreads, 0, stream>>>(s, hit, scene, sums, bounce,
+                                                                last, cosine, nullptr);
+  }
 }
 
 cudaError_t bounce_kernel_info(int which, WaveKernelInfo* out) {
   if (which == 0) return facts(raygen_kernel, out);
-  if (which == 1) return facts(shade_kernel, out);
+  if (which == 1) return facts(shade_kernel<false>, out);
+  if (which == 2) return facts(shade_kernel<true>, out);
   return cudaErrorInvalidValue;
 }

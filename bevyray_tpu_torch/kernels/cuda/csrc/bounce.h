@@ -91,6 +91,17 @@ struct ShadeScene {
   int n_materials;
 };
 
+// The slots of K6's probe instance (kernels/bounce.py SHADE_PROBE_SLOTS):
+// the threads' cycles by stage (the flag and t reads, the lists of live
+// lanes, a miss, the hit record and material gather, the branch choice's
+// draws, the branch body, the stores, the harvest) and, at the entry of
+// each path and branch, the warps that enter and their active lanes.
+enum ShadeProbeSlot {
+  kPTotal, kPClassify, kPCompact, kPMiss, kPRecord, kPDraws, kPBranch, kPStores, kPHarvest,
+  kPMissWarps, kPMissLanes, kPRecordWarps, kPRecordLanes, kPMetalWarps, kPMetalLanes,
+  kPGlassWarps, kPGlassLanes, kPDiffuseWarps, kPDiffuseLanes, kShadeProbeSlots
+};
+
 // K5: the sample's start state of every lane, and the segment count
 // zeroed: lane i takes pixel `pixel_ids[i]` (int64) at `u[i]`, `v[i]`, or
 // where `pixel_ids` is null pixel `first` + i of the `width` x `height`
@@ -98,15 +109,17 @@ struct ShadeScene {
 // segment total starts at the base's (0 without one) unless the sums are
 // their own base. K6: bounce `bounce` of every lane, its segments added to
 // the total of `sums` too; when `last`, the harvest written and, with
-// `sums`, added to the base into the sums. Both launch on `stream` and
-// allocate nothing; the caller checks the launch.
+// `sums`, added to the base into the sums; a non-null `probe`
+// (kShadeProbeSlots zeros) launches the probe instance, which adds its sums
+// there. Both launch on `stream` and allocate nothing; the caller checks the
+// launch.
 void launch_raygen_sample(const WaveState& s, const int64_t* pixel_ids, const float* u,
                           const float* v, int first, int width, int height, uint32_t sample,
                           uint32_t seed, bool defocus, const SumColumns& sums,
                           cudaStream_t stream);
 void launch_shade_bounce(const WaveState& s, const HitColumns& hit, const ShadeScene& scene,
                          const SumColumns& sums, int bounce, bool last, bool cosine,
-                         cudaStream_t stream);
+                         unsigned long long* probe, cudaStream_t stream);
 
-// The facts of K5 (which 0) or K6 (which 1).
+// The facts of K5 (which 0), K6 (which 1) or K6's probe instance (which 2).
 cudaError_t bounce_kernel_info(int which, WaveKernelInfo* out);

@@ -2648,10 +2648,11 @@ def capture_rays(scene, cam, config, dev, seed=1) -> list:
     return captured
 
 
-def capture_states(scene, cam, config, dev, seed=1) -> tuple:
+def capture_states(scene, cam, config, dev, seed=1,
+                   bounces=SHADE_BOUNCES) -> tuple:
     """Sample 0 of a wavefront frame: the pixels its ray generation takes
-    (ids, u, v) and, at each bounce of ``SHADE_BOUNCES``, a copy of the
-    state and the ray tests' results that the frame hands its shading."""
+    (ids, u, v) and, at each bounce of ``bounces``, a copy of the state and
+    the ray tests' results that the frame hands its shading."""
     import torch
 
     from bevyray_tpu_torch.engine import renderer as renderer_mod
@@ -2661,7 +2662,7 @@ def capture_states(scene, cam, config, dev, seed=1) -> tuple:
     captured = {}
 
     def record(state, b, t, idx, tt, ti, scn, cfg, *fold):
-        if b in SHADE_BOUNCES:
+        if b in bounces:
             captured[b] = (clone_state(state), t.clone(), idx.clone(),
                            None if tt is None else tt.clone(),
                            None if ti is None else ti.clone())
@@ -2770,6 +2771,110 @@ def shade_ms(shade, state, args, reps: int) -> float:
         end.record()
     torch.cuda.synchronize()
     return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
+def seeded_sums(n, dev, seed):
+    """``FrameSums`` of ``n`` lanes on the card, seeded (so that every
+    write shows), with a segment total of 12345."""
+    import numpy as np
+    import torch
+
+    from bevyray_tpu_torch.core.vec import Vec3
+    from bevyray_tpu_torch.kernels.bounce import FrameSums
+
+    cols = torch.as_tensor(np.random.default_rng(seed).random(
+        (4, n), dtype=np.float32) * 8, device=dev)
+    return FrameSums(Vec3(cols[0], cols[1], cols[2]), cols[3],
+                     torch.tensor(12345, dtype=torch.int64, device=dev))
+
+
+def shade_probe_rows(scene, config, states, card) -> list:
+    """K6 at each captured bounce of ``states`` ({bounce: (state, t, idx,
+    tt, ti)}), folding into sums in place as a frame's later samples do:
+    the probe instance (``bounce.shade_bounce_probe``) against the default
+    instance on copies of the same state and sums, every column as bits
+    (a difference raises); the default's time (``shade_ms``) beside
+    ``shade_bound``; the live lanes; the probe's cycle shares by stage
+    (of the threads' summed cycles) and, for each path and branch, the
+    warps entering it and their mean active lanes. Prints a line a bounce
+    and returns the rows."""
+    from bevyray_tpu_torch.kernels import bounce as bounce_mod
+
+    rows = []
+    for b, (state, t, idx, tt, ti) in sorted(states.items()):
+        args = (b, t, idx, tt, ti, scene, config)
+        n = t.numel()
+        got, want = clone_state(state), clone_state(state)
+        g_sums, w_sums = seeded_sums(n, t.device, b), seeded_sums(n, t.device, b)
+        bounce_mod.shade_bounce(want, *args, w_sums, w_sums)
+        clocks = bounce_mod.shade_bounce_probe(got, *args, g_sums, g_sums)
+        err, same = state_diff(got, want)
+        s_err, s_same = state_diff(g_sums, w_sums)
+        if not (same and s_same):
+            raise SystemExit(f"K6's probe instance at bounce {b} differs from "
+                             f"the default instance (max |d| "
+                             f"{max(err, s_err):.3g})")
+        ms = shade_ms(lambda st, *a: bounce_mod.shade_bounce(
+            st, *a, w_sums, w_sums), state, args, WAVE_REPS)
+        bound, bound_by = shade_bound(state, want, t, tt, b,
+                                      b == config.bounces, scene, "self")
+        stages = {k: clocks[k] for k in bounce_mod.SHADE_PROBE_SLOTS[1:9]}
+        cycles = sum(stages.values()) or 1
+        paths = {}
+        for path in ("miss", "record", "metal", "glass", "diffuse"):
+            warps = clocks[path + "_warps"]
+            paths[path] = [warps, round(clocks[path + "_lanes"] / warps, 2)
+                           if warps else 0.0]
+        row = {"bounce": b, "lanes": n, "live": int(state.active.sum()),
+               "ms": ms, "bound_ms": bound, "bound_by": bound_by,
+               "share_of_bound": bound / ms,
+               "stage_shares": {k: round(v / cycles, 4)
+                                for k, v in stages.items()},
+               "thread_cycles": clocks["total"],
+               "warps_and_lanes_a_warp": paths}
+        print(f"K6 probe, bounce {b}: {json.dumps(row)}; probe bit-equal to "
+              f"the default instance | {card}", flush=True)
+        rows.append(row)
+    return rows
+
+
+def ptxas_usage(source: str, names) -> dict:
+    """{mangled kernel name: {"registers", "spill_stores", "spill_loads"}}
+    that ``nvcc -Xptxas -v`` reports for the kernels of ``source`` (a
+    ``.cu`` file of ``kernels/cuda/csrc``) whose names hold one of
+    ``names``, compiled alone with the extension's flags into
+    ``build/ptxas/``."""
+    import re
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from bevyray_tpu_torch.kernels.cuda import build
+
+    src = ROOT / source
+    out_dir = ROOT / "build" / "ptxas"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    run = subprocess.run(
+        [str(Path(CUDA_HOME) / "bin" / "nvcc"), "-c", str(src), "-o",
+         str(out_dir / (src.stem + ".o")), "-std=c++17", "-I",
+         str(src.parent), *build.CUDA_FLAGS, "-Xptxas", "-v"],
+        capture_output=True, text=True, timeout=600, check=True)
+    usage, entry = {}, None
+    for line in (run.stdout + run.stderr).splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1) if any(k in m.group(1) for k in names) else None
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            usage.setdefault(entry, {}).update(
+                spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage.setdefault(entry, {})["registers"] = int(m.group(1))
+    return usage
 
 
 def axis_rays(lo, hi, planes, n, seed, dev) -> tuple:
