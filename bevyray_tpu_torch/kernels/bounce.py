@@ -322,9 +322,46 @@ def shade_bounce(state: SampleState, bounce: int, t, idx, tt, ti,
         shade_bounce_reference(state, bounce, t, idx, tt, ti, scene, config,
                                sums, base)
         return
-    _launch_shade(state, bounce, t, idx, tt, ti, scene, config, sums, base,
-                  torch.empty(0, dtype=torch.int64, device=dev))
+    _launch_shade(state, bounce, t, idx, tt, ti, scene, config, sums, base)
     shade_bounce.launches += 1
+
+
+# K6's launch: blocks of SHADE_THREADS threads, each owning a tile of
+# SHADE_THREADS * per lanes (per in SHADE_PERS), its warp w the run of
+# 32 * per lanes from tile * SHADE_THREADS * per + w * 32 * per, lane
+# run + j * 32 + lane in round j.
+SHADE_THREADS = 256
+SHADE_PERS = (1, 2, 4)
+# K6's resident blocks a SM (its 60 registers a thread at per 4): a launch
+# of fewer tiles than this many a SM leaves the card part idle.
+SHADE_BLOCKS_PER_SM = 4
+
+
+def shade_tiles(n: int, sms: int, bounce: int) -> tuple:
+    """(per, tiles) of K6's launch over ``n`` lanes at ``bounce`` on a card
+    of ``sms`` SMs: per 1 at bounce 0, where a frame's lanes are all live
+    and a warp's list fills it no better than its lanes do; later the
+    largest per of ``SHADE_PERS`` that still fills the card
+    (``SHADE_BLOCKS_PER_SM`` tiles a SM; else 1), so that a warp's list
+    gathers the live lanes of 32 * per. Then ceil(n / (256 * per)) tiles,
+    at least one (``n`` = 0 launches nothing)."""
+    per = SHADE_PERS[0]
+    if bounce > 0:
+        for p in SHADE_PERS[1:]:
+            if -(-n // (SHADE_THREADS * p)) >= SHADE_BLOCKS_PER_SM * sms:
+                per = p
+    return per, max(1, -(-n // (SHADE_THREADS * per)))
+
+
+def shade_tile_lanes(n: int, per: int, tiles: int) -> torch.Tensor:
+    """[tiles, per, SHADE_THREADS] int64: the lane each (tile, round,
+    thread) of K6's launch takes, -1 past ``n`` (the kernel's own
+    formula)."""
+    thread = torch.arange(SHADE_THREADS).view(1, 1, -1)
+    lane = (torch.arange(tiles).view(-1, 1, 1) * (SHADE_THREADS * per)
+            + thread // 32 * (32 * per) + torch.arange(per).view(1, -1, 1) * 32
+            + thread % 32)
+    return torch.where(lane < n, lane, -1)
 
 
 # The probe's sums, in the kernel's ShadeProbeSlot order (csrc/bounce.h):
@@ -355,16 +392,26 @@ def shade_bounce_probe(state: SampleState, bounce: int, t, idx, tt, ti,
     probe = torch.zeros(extension().shade_probe_slots, dtype=torch.int64,
                         device=dev)
     _launch_shade(state, bounce, t, idx, tt, ti, scene, config, sums, base,
-                  probe)
+                  probe=probe)
     return dict(zip(SHADE_PROBE_SLOTS, probe.tolist()))
 
 
 def _launch_shade(state, bounce, t, idx, tt, ti, scene, config, sums, base,
-                  probe) -> None:
-    """Launch K6 (the probe instance for a non-empty ``probe``)."""
+                  probe=None, per=None) -> None:
+    """Launch K6 (the probe instance for a ``probe`` tensor) with the
+    geometry of :func:`shade_tiles`, or tiles of 256 * ``per`` lanes
+    (measurements compare them)."""
     dev = t.device
     _check_cuda(dev, "shade_bounce")
     from .cuda.build import extension
+
+    n = t.numel()
+    if per is None:
+        per, tiles = shade_tiles(n, _sm_count(dev), int(bounce))
+    else:
+        tiles = max(1, -(-n // (SHADE_THREADS * per)))
+    if probe is None:
+        probe = torch.empty(0, dtype=torch.int64, device=dev)
 
     empty = torch.empty(0, device=dev)
     sph, mats = scene.spheres, scene.materials
@@ -385,7 +432,11 @@ def _launch_shade(state, bounce, t, idx, tt, ti, scene, config, sums, base,
             mats.roughness, mats.ior, mats.specular_transmission,
             mats.emissive_r, mats.emissive_g, mats.emissive_b)],
         *_fold_args(sums, base), int(bounce), int(bounce) == config.bounces,
-        config.diffuse_sampling == "cosine", probe)
+        config.diffuse_sampling == "cosine", per, tiles, probe)
+
+
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 raygen_sample.launches = 0

@@ -503,9 +503,11 @@ void raygen_sample(const std::vector<torch::Tensor>& state, const torch::Tensor&
 // cy, cz (float32), material_id (int32); `tris`: the nine corner columns
 // (float32) and material_id (int32), or empty without triangles;
 // `materials`: base r, g, b, metallic, roughness, ior, transmission,
-// emissive r, g, b (float32). `sums` and `base` as raygen_sample's. A
-// non-empty `probe` (kShadeProbeSlots int64 zeros) launches the probe
-// instance, which adds its sums there.
+// emissive r, g, b (float32). `sums` and `base` as raygen_sample's. The
+// launch: `tiles` blocks of 256 * `per` lanes (kernels/bounce.py
+// shade_tiles). A non-empty
+// `probe` (kShadeProbeSlots int64 zeros) launches the probe instance,
+// which adds its sums there.
 void shade_bounce(const std::vector<torch::Tensor>& state, const torch::Tensor& t,
                   const torch::Tensor& index, const torch::Tensor& tri_t,
                   const torch::Tensor& tri_index, const std::vector<torch::Tensor>& spheres,
@@ -513,7 +515,7 @@ void shade_bounce(const std::vector<torch::Tensor>& state, const torch::Tensor& 
                   const std::vector<torch::Tensor>& materials,
                   const std::vector<torch::Tensor>& sums,
                   const std::vector<torch::Tensor>& base, int64_t bounce, bool last,
-                  bool cosine, const torch::Tensor& probe) {
+                  bool cosine, int64_t per, int64_t tiles, const torch::Tensor& probe) {
   const WaveState s = wave_state(state);
   const torch::Tensor& like = state[0];
   HitColumns hit{};
@@ -544,6 +546,9 @@ void shade_bounce(const std::vector<torch::Tensor>& state, const torch::Tensor& 
   for (int k = 0; k < 10; ++k) sc.mat[k] = column(materials[k], n_mat, like, "materials");
   sc.n_materials = rows(n_mat, "materials");
   TORCH_CHECK(bounce >= 0 && bounce < (int64_t{1} << 24), "bounce must be a small count");
+  TORCH_CHECK(per == 1 || per == 2 || per == 4, "per must be 1, 2 or 4");
+  TORCH_CHECK(tiles == std::max<int64_t>(1, (s.n + 256 * per - 1) / (256 * per)),
+              "tiles must be ceil(n / (256 * per)), at least 1");
   const SumColumns c = sum_columns(sums, base, s.n, like);
   unsigned long long* clocks = nullptr;
   if (probe.numel() > 0) {
@@ -554,7 +559,8 @@ void shade_bounce(const std::vector<torch::Tensor>& state, const torch::Tensor& 
     clocks = reinterpret_cast<unsigned long long*>(probe.data_ptr<int64_t>());
   }
   const c10::cuda::CUDAGuard guard(like.device());
-  launch_shade_bounce(s, hit, sc, c, static_cast<int>(bounce), last, cosine, clocks,
+  launch_shade_bounce(s, hit, sc, c, static_cast<int>(bounce), last, cosine,
+                      static_cast<int>(per), static_cast<int>(tiles), clocks,
                       c10::cuda::getCurrentCUDAStream().stream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }

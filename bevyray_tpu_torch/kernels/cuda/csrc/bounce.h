@@ -109,7 +109,9 @@ enum ShadeProbeSlot {
 // segment total starts at the base's (0 without one) unless the sums are
 // their own base. K6: bounce `bounce` of every lane, its segments added to
 // the total of `sums` too; when `last`, the harvest written and, with
-// `sums`, added to the base into the sums; a non-null `probe`
+// `sums`, added to the base into the sums. K6 runs `tiles` blocks of
+// 256 * `per` lanes each (per 1, 2 or 4; tiles = ceil(n / (256 * per))),
+// each warp over a run of 32 * per of them. A non-null `probe`
 // (kShadeProbeSlots zeros) launches the probe instance, which adds its sums
 // there. Both launch on `stream` and allocate nothing; the caller checks the
 // launch.
@@ -118,8 +120,8 @@ void launch_raygen_sample(const WaveState& s, const int64_t* pixel_ids, const fl
                           uint32_t seed, bool defocus, const SumColumns& sums,
                           cudaStream_t stream);
 void launch_shade_bounce(const WaveState& s, const HitColumns& hit, const ShadeScene& scene,
-                         const SumColumns& sums, int bounce, bool last, bool cosine,
-                         unsigned long long* probe, cudaStream_t stream);
+                         const SumColumns& sums, int bounce, bool last, bool cosine, int per,
+                         int tiles, unsigned long long* probe, cudaStream_t stream);
 
 // The facts of K5 (which 0), K6 (which 1) or K6's probe instance (which 2).
 cudaError_t bounce_kernel_info(int which, WaveKernelInfo* out);

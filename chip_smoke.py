@@ -637,14 +637,16 @@ def plain_calls(module, names):
             setattr(module, name, real[name])
 
 
-def profiled(fn) -> tuple:
+def profiled(fn, warm=True) -> tuple:
     """(kernels, busy ms, [(count, ms, name)]) of the card over one call of
-    ``fn`` after a warm-up call (torch's profiler)."""
+    ``fn`` after a warm-up call (none with ``warm`` False; torch's
+    profiler)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -656,6 +658,71 @@ def profiled(fn) -> tuple:
             sum(e.self_device_time_total for e in device) / 1e3,
             sorted(((e.count, round(e.self_device_time_total / 1e3, 4),
                     e.key[:48]) for e in device), reverse=True))
+
+
+# Phase 13(d)'s profiles, each taken in a child process of its own: in one
+# process a profiler session that follows another saw part of a frame's
+# kernels or none, while the first session of a process saw them all. The child counts the wrappers' launches around the profiled call,
+# so that the profile is held to them.
+PROFILE_CHILD = """
+import dataclasses, json, sys
+sys.path.insert(0, {root!r})
+import torch
+import chip_smoke
+from bevyray_tpu_torch import RenderConfig, Renderer, rtiow
+from bevyray_tpu_torch.kernels import bounce, camera, frame, intersect, passes
+from bevyray_tpu_torch.kernels.cuda import build
+from bevyray_tpu_torch.parallel import sharding
+from bevyray_tpu_torch.parallel.sharding import make_mesh, render_frame_sharded
+
+build.extension()
+world = rtiow.final_scene(seed=42)
+scene = world.extract(with_bvh=False)
+cam = world.camera_state(aspect={width} / {height})
+headline = RenderConfig({width}, {height}, {spp}, {bounces}, level=3)
+one = dataclasses.replace(headline, samples_per_pixel=1)
+tp_mesh = make_mesh(1, 1, 2, devices=["cuda:0"] * 2)
+if {which!r} == "tp_plain_merge":
+    sharding.merge_tp_hits = passes.merge_tp_hits_reference
+fn = {{"headline": lambda: Renderer(one).render(scene, cam, seed=3),
+       "full": lambda: Renderer(headline).render(scene, cam, seed=3),
+       "tp": lambda: render_frame_sharded(tp_mesh, scene, cam, one, 3),
+       "tp_plain_merge": lambda: render_frame_sharded(tp_mesh, scene, cam,
+                                                      one, 3)}}[{which!r}]
+wrappers = {{"camera_rows": camera.camera_rows,
+             "raygen_sample": bounce.raygen_sample,
+             "intersect_spheres": intersect.intersect_spheres,
+             "shade_bounce": bounce.shade_bounce,
+             "merge_tp_hits": passes.merge_tp_hits,
+             "sum_shards": passes.sum_shards,
+             "resolve_frame": frame.resolve_frame}}
+fn()
+torch.cuda.synchronize()
+before = {{k: w.launches for k, w in wrappers.items()}}
+kernels, busy, by_name = chip_smoke.profiled(fn, warm=False)
+launched = {{k: w.launches - before[k] for k, w in wrappers.items()}}
+print(json.dumps({{"kernels": kernels, "busy_ms": busy, "by_kernel": by_name,
+                   "launches": {{k: v for k, v in launched.items() if v}}}}))
+"""
+
+
+def profile_child(which, width, height, spp, bounces) -> dict:
+    """Profile one frame of the headline's scene in a child process
+    (PROFILE_CHILD; ``which``: "headline", a 1-spp frame; "full", the
+    ``spp`` frame; "tp", a 1-spp frame on mesh (1, 1, 2); "tp_plain_merge",
+    the same with the plain merge patched in): {"kernels", "busy_ms",
+    "by_kernel", "launches" (the wrappers' launches in the profiled
+    call)}."""
+    out = subprocess.run(
+        [sys.executable, "-c", PROFILE_CHILD.format(
+            root=str(ROOT), width=width, height=height, spp=spp,
+            bounces=bounces, which=which)],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if out.returncode:
+        raise SystemExit(f"phase 13(d): the profiling process ({which}) "
+                         f"failed ({out.returncode}):\n{out.stdout}"
+                         f"{out.stderr}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
 
 
 def pass_kernels() -> dict:
@@ -2753,6 +2820,49 @@ def shade_bound(state, after, t, tt, bounce, last, scene,
                                                                "bytes")
 
 
+def shade_sectors(state, after, t, tt, bounce, last, fold=None) -> tuple:
+    """(ms, bytes): the 32-byte sectors of the state's columns that one K6
+    call's lanes touch, each read once and each written once, at 3.35
+    TB/s: the same lanes and columns as ``shade_bound`` counts, but a
+    sector for every 8 lanes of a float32 column (4 of an int64 index, 32
+    of a flag) that holds one of them. Where the live lanes are sparse,
+    the sectors they share with dead lanes move too."""
+    import torch
+
+    from bevyray_tpu_torch.core.constants import INF
+
+    n = t.numel()
+
+    def sectors(mask, width) -> int:
+        per = 32 // width
+        pad = (-n) % per
+        m = torch.nn.functional.pad(mask.to(torch.int8), (0, pad))
+        return int(m.view(-1, per).any(dim=1).sum()) * 32
+
+    every = torch.ones(n, dtype=torch.bool, device=t.device)
+    live = state.active
+    tri = tt is not None
+    hit = live & ((t < INF) | (tt < INF) if tri else (t < INF))
+    cont = after.active
+    f4 = lambda mask, cols: cols * sectors(mask, 4)   # noqa: E731
+    reads = sectors(every, 1) + f4(every if bounce == 0 else live,
+                                   2 if tri else 1)
+    # d and the throughput; the radiance (every lane's on the last
+    # bounce); a hit's origin, stream word and index.
+    reads += f4(live, 6) + f4(every if last else live, 3)
+    reads += f4(hit, 4) + sectors(hit, 8)
+    writes = sectors(live, 1) + f4(live, 3) + f4(hit, 6) + f4(cont, 3)
+    if bounce == 0:
+        writes += f4(every, 1)
+    if last:
+        reads += f4(every, 1)    # the first depth
+        writes += f4(every, 4)   # the harvest
+        if fold is not None:
+            writes += f4(every, 4)
+            reads += 0 if fold == "zero" else f4(every, 4)
+    return (reads + writes) / PEAK_BYTES * 1e3, reads + writes
+
+
 def shade_ms(shade, state, args, reps: int) -> float:
     """Mean device time in ms of ``shade(work, *args)`` over ``reps`` calls,
     each on a fresh copy of ``state`` (K6 updates its state in place), by
@@ -2792,32 +2902,41 @@ def shade_probe_rows(scene, config, states, card) -> list:
     """K6 at each captured bounce of ``states`` ({bounce: (state, t, idx,
     tt, ti)}), folding into sums in place as a frame's later samples do:
     the probe instance (``bounce.shade_bounce_probe``) against the default
-    instance on copies of the same state and sums, every column as bits
-    (a difference raises); the default's time (``shade_ms``) beside
-    ``shade_bound``; the live lanes; the probe's cycle shares by stage
+    instance and the plain version on copies of the same state and sums,
+    every column as bits (a difference raises); the default's time
+    (``shade_ms``) beside ``shade_bound`` and ``shade_sectors``; its tiles
+    (``shade_tiles``); the live lanes; the probe's cycle shares by stage
     (of the threads' summed cycles) and, for each path and branch, the
     warps entering it and their mean active lanes. Prints a line a bounce
     and returns the rows."""
+    import torch
+
     from bevyray_tpu_torch.kernels import bounce as bounce_mod
 
     rows = []
     for b, (state, t, idx, tt, ti) in sorted(states.items()):
         args = (b, t, idx, tt, ti, scene, config)
         n = t.numel()
-        got, want = clone_state(state), clone_state(state)
-        g_sums, w_sums = seeded_sums(n, t.device, b), seeded_sums(n, t.device, b)
+        got, want, plain = (clone_state(state) for _ in range(3))
+        g_sums, w_sums, p_sums = (seeded_sums(n, t.device, b)
+                                  for _ in range(3))
         bounce_mod.shade_bounce(want, *args, w_sums, w_sums)
         clocks = bounce_mod.shade_bounce_probe(got, *args, g_sums, g_sums)
-        err, same = state_diff(got, want)
-        s_err, s_same = state_diff(g_sums, w_sums)
-        if not (same and s_same):
-            raise SystemExit(f"K6's probe instance at bounce {b} differs from "
-                             f"the default instance (max |d| "
-                             f"{max(err, s_err):.3g})")
+        bounce_mod.shade_bounce_reference(plain, *args, p_sums, p_sums)
+        for what, x, x_sums in (("the probe instance", got, g_sums),
+                                ("the plain version", plain, p_sums)):
+            err, same = state_diff(x, want)
+            s_err, s_same = state_diff(x_sums, w_sums)
+            if not (same and s_same):
+                raise SystemExit(f"K6 at bounce {b}: {what} differs from the "
+                                 f"default instance (max |d| "
+                                 f"{max(err, s_err):.3g})")
         ms = shade_ms(lambda st, *a: bounce_mod.shade_bounce(
             st, *a, w_sums, w_sums), state, args, WAVE_REPS)
         bound, bound_by = shade_bound(state, want, t, tt, b,
                                       b == config.bounces, scene, "self")
+        sector_ms, _ = shade_sectors(state, want, t, tt, b,
+                                     b == config.bounces, "self")
         stages = {k: clocks[k] for k in bounce_mod.SHADE_PROBE_SLOTS[1:9]}
         cycles = sum(stages.values()) or 1
         paths = {}
@@ -2825,25 +2944,30 @@ def shade_probe_rows(scene, config, states, card) -> list:
             warps = clocks[path + "_warps"]
             paths[path] = [warps, round(clocks[path + "_lanes"] / warps, 2)
                            if warps else 0.0]
+        per, tiles = bounce_mod.shade_tiles(n, torch.cuda.get_device_properties(
+            t.device).multi_processor_count, b)
         row = {"bounce": b, "lanes": n, "live": int(state.active.sum()),
+               "per": per, "tiles": tiles,
                "ms": ms, "bound_ms": bound, "bound_by": bound_by,
-               "share_of_bound": bound / ms,
+               "share_of_bound": bound / ms, "sector_ms": sector_ms,
                "stage_shares": {k: round(v / cycles, 4)
                                 for k, v in stages.items()},
                "thread_cycles": clocks["total"],
                "warps_and_lanes_a_warp": paths}
-        print(f"K6 probe, bounce {b}: {json.dumps(row)}; probe bit-equal to "
-              f"the default instance | {card}", flush=True)
+        print(f"K6 probe, bounce {b}: {json.dumps(row)}; the probe instance "
+              f"and the plain version bit-equal to the default instance | "
+              f"{card}", flush=True)
         rows.append(row)
     return rows
 
 
 def ptxas_usage(source: str, names) -> dict:
-    """{mangled kernel name: {"registers", "spill_stores", "spill_loads"}}
-    that ``nvcc -Xptxas -v`` reports for the kernels of ``source`` (a
-    ``.cu`` file of ``kernels/cuda/csrc``) whose names hold one of
-    ``names``, compiled alone with the extension's flags into
-    ``build/ptxas/``."""
+    """{kernel name: {"registers", "spill_stores", "spill_loads"}} that
+    ``nvcc -Xptxas -v`` reports for the kernels of ``source`` (a ``.cu``
+    file of ``kernels/cuda/csrc``) whose names hold one of ``names``,
+    compiled alone with the extension's flags into ``build/ptxas/``; the
+    names demangled by the toolkit's ``cu++filt`` where it has one (up to
+    the arguments)."""
     import re
 
     from torch.utils.cpp_extension import CUDA_HOME
@@ -2874,7 +2998,17 @@ def ptxas_usage(source: str, names) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             usage.setdefault(entry, {})["registers"] = int(m.group(1))
-    return usage
+    filt = Path(CUDA_HOME) / "bin" / "cu++filt"
+    if not filt.exists():
+        return usage
+    names = subprocess.run(
+        [str(filt)], input="\n".join(usage), capture_output=True, text=True,
+        timeout=60, check=True).stdout.splitlines()
+    out = {}
+    for entry, name in zip(usage, names):
+        name = name.replace("(anonymous namespace)::", "")
+        out[name.split("(")[0].rsplit("::", 1)[-1]] = usage[entry]
+    return out
 
 
 def axis_rays(lo, hi, planes, n, seed, dev) -> tuple:
@@ -2926,13 +3060,17 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
     real frames (the bounce's own active mask) and on the layouts listed in
     the module's docstring, t max |d| 0 and index equal on every lane; K5
     and K6 on real frames' pixels and states, every column bit-equal.
-    Each kernel's time by CUDA events beside its bound and its plain
-    version's time. (c) ``host_syncs`` over ``Renderer.render`` (brute,
-    bvh, mesh) and over a config-5 round (``raster_layer`` +
+    K6 also at every bounce of the headline with its time, bound and
+    sector floor and its probe instance there, and ptxas's registers and
+    spills. Each kernel's time by CUDA events beside its bound and its
+    plain version's time. (c) ``host_syncs`` over ``Renderer.render``
+    (brute, bvh, mesh) and over a config-5 round (``raster_layer`` +
     ``FusedRenderer``): the sites, which must be none. (d) The kernels of
     a 1-spp and a 16-spp headline frame and the card's busy time (torch's
-    profiler), and of a 1-spp headline frame through the wavefront sharded
-    step on mesh (1, 1, 2), with K16 and with the plain merge patched in.
+    profiler, each frame in a process of its own, held to the wrappers'
+    launches), and of a 1-spp headline frame through the wavefront
+    sharded step on mesh (1, 1, 2), with K16 and with the plain merge
+    patched in.
     Returns the kernels-line entries."""
     import numpy as np
     import torch
@@ -2952,10 +3090,8 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
     from bevyray_tpu_torch.kernels import frame as frame_mod
     from bevyray_tpu_torch.kernels import intersect, traverse
     from bevyray_tpu_torch.kernels.cuda import wavefront as wavefront_mod
-    from bevyray_tpu_torch.kernels import passes as passes_mod
     from bevyray_tpu_torch.kernels.intersect import on_active
     from bevyray_tpu_torch.kernels.raygen import generate_rays, pixel_uv
-    from bevyray_tpu_torch.parallel import sharding as sharding_mod
     from bevyray_tpu_torch.parallel.sharding import (make_mesh,
                                                      render_frame_sharded)
 
@@ -3489,8 +3625,12 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
          dict(lanes=ODD_LANES)),
     ]
     for case, scn, camera, config, kw in shade_cases:
-        _, states = capture_states(scn, camera, config, dev)
-        for b in SHADE_BOUNCES:
+        # The headline at every bounce, the others at SHADE_BOUNCES.
+        bounces = (tuple(range(config.bounces + 1)) if case == "headline"
+                   else SHADE_BOUNCES)
+        _, states = capture_states(scn, camera, config, dev,
+                                   bounces=bounces)
+        for b in bounces:
             folds = ((None, "film", "zero", "self") if b == config.bounces
                      else (None, "self"))
             for fold in folds:
@@ -3512,9 +3652,22 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
                 print(f"phase 13(b) shade_bounce headline last bounce {b}, "
                       f"sums in place: kernel {ms:.4f} ms, bound {b_ms:.4f} "
                       f"ms ({b_by}) | {card}", flush=True)
+        if case == "headline":
+            # K6 at every bounce of the headline beside its bound, and
+            # its probe instance there (each held to the default
+            # instance and the plain version).
+            shade_rows = shade_probe_rows(scn, config, states, card)
+            print(f"phase 13(b) shade_bounce headline by bounce (ms, bound "
+                  f"ms, live lanes): "
+                  f"{[(r['ms'], r['bound_ms'], r['live']) for r in shade_rows]}"
+                  f"; a sample's {sum(r['ms'] for r in shade_rows):.4f} ms "
+                  f"against {sum(r['bound_ms'] for r in shade_rows):.4f} | "
+                  f"{card}", flush=True)
         del states
     print(f"phase 13(b) K5 and K6 instances: "
-          f"{json.dumps({k: v for k, v in wavefront_mod.kernel_info(dev, 1).items() if k in BOUNCE_REPLACES})}"
+          f"{json.dumps({k: v for k, v in wavefront_mod.kernel_info(dev, 1).items() if k.startswith(tuple(BOUNCE_REPLACES))})}"
+          f"; ptxas -v of K6: "
+          f"{json.dumps(ptxas_usage(BOUNCE_SOURCE, ('shade_kernel',)))}"
           f" | {card}", flush=True)
 
     # (c) Host waits for the card over each frame's work.
@@ -3553,68 +3706,65 @@ def wavefront_phase(scene, cam, headline, card, dev) -> list:
         raise SystemExit("phase 13(c): a frame's host work waited for the "
                          "card")
 
-    # (d) Kernel launches of wavefront frames, by torch's profiler.
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    def profile_render(renderer):
-        renderer.render(scene, cam, seed=3)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            renderer.render(scene, cam, seed=3)
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-        device = [e for e in events if e.device_type == DeviceType.CUDA]
-        calls = sum(e.count for e in events
-                    if e.key.startswith(("cudaLaunchKernel",
-                                         "cuLaunchKernel")))
-        return device, calls
-
-    # The card's busy time (the kernels' summed durations) against the
-    # frame's time unprofiled: the rest is the card waiting for launches.
-    one = Renderer(dataclasses.replace(headline, samples_per_pixel=1))
+    # (d) The kernels of wavefront frames, by torch's profiler, each frame
+    # in a child process of its own (PROFILE_CHILD) and held to the
+    # wrappers' launches in it: a 1-spp headline frame is K12, K5, 5 x K1,
+    # 5 x K6 and K10; a short profile fails the run. Then a 1-spp tp = 2
+    # headline frame (mesh (1, 1, 2), the wavefront sharded step), and
+    # the same frame with the plain merge patched in (the torch ops that
+    # K16 replaced). The card's busy time (the kernels' summed durations)
+    # against the frame's time unprofiled, here: the rest is the card
+    # waiting for launches.
+    one_cfg = dataclasses.replace(headline, samples_per_pixel=1)
+    one = Renderer(one_cfg)
     one.render(scene, cam, seed=3)
     _, one_ms = timed(frame_of(one, scene, cam))
-    device, n_launch_calls = profile_render(one)
-    n_kernels = sum(e.count for e in device)
-    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
-    by_name = sorted(((e.count, round(e.self_device_time_total / 1e3, 4),
-                       e.key[:48]) for e in device), reverse=True)
-    full, _ = profile_render(Renderer(headline))
-    print(f"phase 13(d) a 1-spp headline frame ({BOUNCES} bounces): "
-          f"{n_kernels} kernels on the card, {n_launch_calls} launch calls "
-          f"on the host; the card busy {busy_ms:.3f} ms of the unprofiled "
-          f"frame's {one_ms:.3f} ms (idle share {1 - busy_ms / one_ms:.1%}); "
-          f"the {SPP} spp frame {sum(e.count for e in full)} kernels; by "
-          f"kernel (count, ms, name): {by_name} | {card}", flush=True)
-
-    # A 1-spp tp = 2 headline frame (mesh (1, 1, 2), the wavefront sharded
-    # step), taken as above; then the same frame with the plain merge
-    # patched in (the torch ops that K16 replaced). Taken here, after
-    # phases 9-12: a profiler run before them (in phase 8) left the later
-    # profiler runs of the process with few or no device events.
     tp_mesh = make_mesh(1, 1, 2, devices=["cuda:0"] * 2)
-    one_cfg = dataclasses.replace(headline, samples_per_pixel=1)
 
     def tp_frame():
         return render_frame_sharded(tp_mesh, scene, cam, one_cfg, 3)
 
     tp_frame()
     _, tp_ms = timed(lambda seed: tp_frame())
-    tp_kernels, tp_busy, tp_by_name = profiled(tp_frame)
-    sharding_mod.merge_tp_hits = passes_mod.merge_tp_hits_reference
-    try:
-        plain_kernels, plain_busy, _ = profiled(tp_frame)
-    finally:
-        sharding_mod.merge_tp_hits = passes_mod.merge_tp_hits
+    prof = {which: profile_child(which, headline.width, headline.height,
+                                 SPP, BOUNCES)
+            for which in ("headline", "full", "tp", "tp_plain_merge")}
+    for which in ("headline", "full", "tp"):
+        got = prof[which]
+        if got["kernels"] != sum(got["launches"].values()):
+            raise SystemExit(f"phase 13(d): the profile of the {which} frame "
+                             f"holds {got['kernels']} kernels; the wrappers "
+                             f"launched {got['launches']}")
+    head = prof["headline"]
+    want = {"camera_rows": 1, "raygen_sample": 1,
+            "intersect_spheres": BOUNCES + 1, "shade_bounce": BOUNCES + 1,
+            "resolve_frame": 1}
+    if head["launches"] != want or head["kernels"] != sum(want.values()):
+        raise SystemExit(f"phase 13(d): a 1-spp headline frame launched "
+                         f"{head['launches']} ({head['kernels']} kernels "
+                         f"profiled), not {want}")
+    k6_ms = sum(ms for _, ms, name in head["by_kernel"]
+                if "shade_kernel" in name)
+    busy_ms = head["busy_ms"]
+    print(f"phase 13(d) a 1-spp headline frame ({BOUNCES} bounces, "
+          f"profiled in a process of its own): {head['kernels']} kernels on "
+          f"the card, equal to the wrappers' launches {head['launches']}; "
+          f"the card busy {busy_ms:.3f} ms of the unprofiled frame's "
+          f"{one_ms:.3f} ms (idle share {1 - busy_ms / one_ms:.1%}), K6 "
+          f"{k6_ms:.4f} ms of it ({k6_ms / busy_ms:.1%}); the {SPP} spp "
+          f"frame {prof['full']['kernels']} kernels, busy "
+          f"{prof['full']['busy_ms']:.3f} ms; by kernel (count, ms, name): "
+          f"{head['by_kernel']} | {card}", flush=True)
+    tp, plain_tp = prof["tp"], prof["tp_plain_merge"]
     print(f"phase 13(d) a 1-spp headline frame on mesh (1, 1, 2) ({BOUNCES} "
-          f"bounces): {tp_kernels} kernels on the card, busy {tp_busy:.3f} ms "
-          f"of the unprofiled frame's {tp_ms:.3f} ms (idle share "
-          f"{1 - tp_busy / tp_ms:.1%}); with the plain merge patched in "
-          f"{plain_kernels} kernels, busy {plain_busy:.3f} ms; by kernel "
-          f"(count, ms, name): {tp_by_name} | {card}", flush=True)
-    if not 0 < tp_kernels < plain_kernels:
+          f"bounces): {tp['kernels']} kernels on the card (the wrappers' "
+          f"launches {tp['launches']}), busy {tp['busy_ms']:.3f} ms of the "
+          f"unprofiled frame's {tp_ms:.3f} ms (idle share "
+          f"{1 - tp['busy_ms'] / tp_ms:.1%}); with the plain merge patched "
+          f"in {plain_tp['kernels']} kernels, busy "
+          f"{plain_tp['busy_ms']:.3f} ms; by kernel (count, ms, name): "
+          f"{tp['by_kernel']} | {card}", flush=True)
+    if not 0 < tp["kernels"] < plain_tp["kernels"]:
         raise SystemExit("phase 13(d): the tp frame runs no fewer kernels "
                          "than with the plain merge")
 

@@ -170,11 +170,10 @@ def _tables(rng):
     return js, ps
 
 
-def _lanes(rng, tris):
-    """Seeded lanes: a fifth inactive (their tests INF / -1, as the ray
-    tests give them); of the active ones, misses, sphere hits, triangle
+def _lanes(rng, tris, n=N_LANES):
+    """``n`` seeded lanes: a fifth inactive (their tests INF / -1, as the
+    ray tests give them); of the active ones, misses, sphere hits, triangle
     hits and ties; indices past both ends of the tables (clamped)."""
-    n = N_LANES
     f32 = np.float32
     lanes = dict(
         o=rng.normal(scale=2.0, size=(3, n)).astype(f32),
@@ -204,7 +203,7 @@ def _lanes(rng, tris):
 
 
 def _port_state(lanes, pcam, cfg):
-    state = bounce.new_state(N_LANES, pcam, cfg, "cpu")
+    state = bounce.new_state(lanes["t"].shape[0], pcam, cfg, "cpu")
     for dst, key in ((state.origin, "o"), (state.direction, "d"),
                      (state.ray_color, "rc"), (state.radiance, "rad")):
         for k, c in enumerate(dst):
@@ -328,6 +327,57 @@ def test_shade_matches_jax(case):
         covered["triangle"] = (hit_lanes & (lanes["tt"] < lanes["t"])).sum()
         covered["tie"] = (hit_lanes & (lanes["tt"] == lanes["t"])).sum()
     assert min(covered.values()) > 0, covered
+
+
+@pytest.mark.parametrize("b", [0, 1, 4])
+@pytest.mark.parametrize("sms", [1, 4, 132])
+def test_shade_tiles_cover_every_lane_once(sms, b):
+    """K6's launch over n lanes (``shade_tiles``, the lanes each (tile,
+    round, thread) takes by the kernel's formula, ``shade_tile_lanes``):
+    every lane once, no tile without a lane, each warp's rounds one run
+    of 32 consecutive lanes a round; per 1 at bounce 0, later the largest
+    per of ``SHADE_PERS`` that leaves ``SHADE_BLOCKS_PER_SM`` tiles an
+    SM."""
+    sizes = sorted({*range(0, 600, 37), *(k * 256 * p + e for k in (1, 3)
+                                         for p in bounce.SHADE_PERS
+                                         for e in (-1, 0, 1)),
+                    100_003, 230_400, 921_600, 2_073_600})
+    for n in sizes:
+        per, tiles = bounce.shade_tiles(n, sms, b)
+        assert per in bounce.SHADE_PERS
+        assert tiles == max(1, -(-n // (bounce.SHADE_THREADS * per)))
+        if b == 0:
+            assert per == 1
+        else:
+            fill = bounce.SHADE_BLOCKS_PER_SM * sms
+            assert per == 1 or tiles >= fill
+            assert all(-(-n // (256 * p)) < fill
+                       for p in bounce.SHADE_PERS if p > per)
+        lanes = bounce.shade_tile_lanes(n, per, tiles)
+        assert lanes.shape == (tiles, per, bounce.SHADE_THREADS)
+        taken = lanes[lanes >= 0]
+        assert torch.equal(taken.sort().values, torch.arange(n))
+        if n:
+            assert bool((lanes.view(tiles, -1) >= 0).any(dim=1).all())
+            # In each round a warp takes 32 consecutive lanes, and its
+            # rounds one run of 32 * per lanes.
+            warps = lanes.view(tiles, per, 8, 32).transpose(1, 2)
+            first = warps[..., :1, :1]
+            steps = torch.arange(32 * per).view(per, 32)
+            assert bool(((warps - first == steps) | (warps < 0)).all())
+
+
+def test_shade_tiles_of_the_main_path():
+    """On an H100's 132 SMs: one lane a thread at bounce 0; later the
+    headline's and config 5's lanes in runs of 4 (tiles of 1,024 lanes),
+    the 4,971-sphere frame's 230,400 and 100,003 lanes one a thread (runs
+    of 4 would leave most of the card idle)."""
+    assert bounce.shade_tiles(2_073_600, 132, 0) == (1, 8100)
+    assert bounce.shade_tiles(2_073_600, 132, 4) == (4, 2025)
+    assert bounce.shade_tiles(921_600, 132, 1) == (4, 900)
+    assert bounce.shade_tiles(230_400, 132, 2) == (1, 900)
+    assert bounce.shade_tiles(100_003, 132, 2) == (1, 391)
+    assert bounce.shade_tiles(0, 132, 3) == (1, 1)
 
 
 def test_wrappers_take_cpu_or_cuda_tensors_only():
@@ -479,6 +529,155 @@ def test_cuda_shade_equals_plain(case):
     assert bounce.shade_bounce.launches == before + 1
     bounce.shade_bounce_reference(want, b, *args, scene, cfg)
     assert _states_equal(got, want)
+
+
+# Masks of the lanes live at entry that stress K6's lists: every lane, none,
+# one a warp, every 97th, and a first tile whose live lanes all miss with a
+# first warp of hits on a diffuse, a metal and a dielectric sphere in turn.
+MASKS = ("all", "none", "one a warp", "every 97th", "misses and a mixed warp")
+FOLDS = (None, "zero", "film", "self")
+
+
+def _masked_lanes(rng, n, mask):
+    lanes = _lanes(rng, True, n)
+    k = np.arange(n)
+    active = {"all": np.ones(n, bool), "none": np.zeros(n, bool),
+              "one a warp": k % 32 == 5, "every 97th": k % 97 == 0,
+              "misses and a mixed warp": lanes["active"] | (k < 32)}[mask]
+    lanes["active"] = active
+    if mask == "misses and a mixed warp":
+        # Spheres 0, 1, 2 are diffuse, metal and dielectric (_tables).
+        first = k < 32
+        lanes["t"][first] = rng.uniform(0.5, 2.0, 32).astype(np.float32)
+        lanes["idx"][first] = k[first] % 3
+        lanes["tt"][first] = INF
+        tile = (k >= 32) & (k < 1024)
+        lanes["t"][tile], lanes["tt"][tile] = INF, INF
+    for key, miss in (("t", INF), ("tt", INF), ("idx", -1), ("ti", -1)):
+        lanes[key][~active] = miss
+    return lanes
+
+
+def _fold_pair(n, fold, dev, seed):
+    """Two equal (sums, base) pairs for ``fold`` (None, "zero", "film",
+    "self"), seeded so that every write shows."""
+    if fold is None:
+        return [(None, None), (None, None)]
+    host = np.random.default_rng(seed).random((2, 4, n), dtype=np.float32)
+
+    def sums(k, total):
+        cols = torch.as_tensor(host[k] * 8, device=dev)
+        return bounce.FrameSums(Vec3(cols[0], cols[1], cols[2]), cols[3],
+                                torch.tensor(total, dtype=torch.int64,
+                                             device=dev))
+
+    pairs = []
+    for _ in range(2):
+        out = sums(0, 12345)
+        pairs.append((out, {"zero": None, "self": out,
+                            "film": sums(1, 777)}[fold]))
+    return pairs
+
+
+def _hold_masked(n, mask, b, fold, per=None):
+    """K6 (the wrapper's geometry, or tiles of 256 * ``per`` lanes) against
+    its plain version on ``n`` masked lanes at bounce ``b`` of a 2-bounce
+    config: every column of the state and the sums as bits, the segment
+    counts equal."""
+    dev = _card()
+    rng = np.random.default_rng(n * 7 + MASKS.index(mask) * 3 + b)
+    _, ps = _tables(rng)
+    scene = SceneBuffers(*(None if x is None else type(x)(*(
+        c.to(dev) for c in x)) for x in ps))
+    lanes = _masked_lanes(rng, n, mask)
+    _, pcam = _cameras()
+    cfg = _config(level=3)
+    cpu_state = _port_state(lanes, pcam, cfg)
+    got = bounce.SampleState(*(
+        Vec3(*(c.to(dev) for c in x)) if isinstance(x, Vec3)
+        else x.to(dev) if isinstance(x, torch.Tensor) else x
+        for x in cpu_state))
+    want = _clone(got)
+    args = [b] + [torch.as_tensor(lanes[k], device=dev)
+                  for k in ("t", "idx", "tt", "ti")] + [scene, cfg]
+    (g_sums, g_base), (w_sums, w_base) = _fold_pair(n, fold, dev, b)
+    before = bounce.shade_bounce.launches
+    if per is None:
+        bounce.shade_bounce(got, *args, g_sums, g_base)
+        assert bounce.shade_bounce.launches == before + 1
+    else:
+        bounce._launch_shade(got, *args, g_sums, g_base, per=per)
+    bounce.shade_bounce_reference(want, *args, w_sums, w_base)
+    assert _states_equal(got, want)
+    assert int(got.segments) == int(want.segments)
+    if fold is not None:
+        assert all(_same(x, y) for x, y in zip(g_sums.columns(),
+                                               w_sums.columns()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fold", FOLDS)
+@pytest.mark.parametrize("b", [0, 2])
+@pytest.mark.parametrize("mask", MASKS)
+def test_cuda_shade_lists_under_masks(mask, b, fold):
+    """K6's lists of live lanes under masks that stress them, at bounce 0
+    and the last bounce, with every fold, bit-equal to the plain
+    version."""
+    _hold_masked(4096, mask, b, fold)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [-1, 1])
+@pytest.mark.parametrize("per", [1, 2, 4])
+def test_cuda_shade_ragged_tiles(per, offset):
+    """A tile of 256 * ``per`` lanes less or more one (one lane at per 1
+    less one), at the last bounce folding in place."""
+    _hold_masked(max(256 * per + offset, 1), "every 97th", 2, "self",
+                 per=per)
+    _hold_masked(256 * per + offset, "all", 2, "film", per=per)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per", [None, 4])
+def test_cuda_shade_one_lane_and_odd_lanes(per):
+    """One lane, and 100,003 lanes (off every tile's multiple) with the
+    wrapper's geometry and with the largest tiles."""
+    _hold_masked(1, "all", 0, "zero", per=per)
+    _hold_masked(100_003, "misses and a mixed warp", 2, "self", per=per)
+    _hold_masked(100_003, "all", 0, None, per=per)
+
+
+@pytest.mark.cuda
+def test_cuda_shade_probe_equals_default():
+    """K6's probe instance gives the default instance's bits and counts the
+    live lanes' paths: the warps entering the hit path and the miss path
+    hold every live lane."""
+    dev = _card()
+    rng = np.random.default_rng(5)
+    _, ps = _tables(rng)
+    scene = SceneBuffers(*(None if x is None else type(x)(*(
+        c.to(dev) for c in x)) for x in ps))
+    lanes = _masked_lanes(rng, 5000, "misses and a mixed warp")
+    _, pcam = _cameras()
+    cfg = _config(level=3)
+    cpu_state = _port_state(lanes, pcam, cfg)
+    got = bounce.SampleState(*(
+        Vec3(*(c.to(dev) for c in x)) if isinstance(x, Vec3)
+        else x.to(dev) if isinstance(x, torch.Tensor) else x
+        for x in cpu_state))
+    want = _clone(got)
+    args = [2] + [torch.as_tensor(lanes[k], device=dev)
+                  for k in ("t", "idx", "tt", "ti")] + [scene, cfg]
+    before = bounce.shade_bounce.launches
+    clocks = bounce.shade_bounce_probe(got, *args)
+    assert bounce.shade_bounce.launches == before
+    bounce.shade_bounce(want, *args)
+    assert _states_equal(got, want)
+    assert clocks["miss_lanes"] + clocks["record_lanes"] == int(
+        lanes["active"].sum())
+    assert clocks["metal_lanes"] + clocks["glass_lanes"] + clocks[
+        "diffuse_lanes"] == clocks["record_lanes"]
+    assert clocks["total"] > 0
 
 
 @pytest.mark.cuda

@@ -23,8 +23,8 @@ of host waits for the card (``bench/timing.py`` ``host_syncs``) over one
 headline frame at 1 spp, one 4,971-sphere "bvh" frame and one config-5
 round (``raster_layer`` + ``FusedRenderer.render``), and the card's busy
 time (torch's profiler: the summed durations of its kernels), which the
-host's launch rate does not enter, and the kernels it ran, over one 1-spp
-frame of the headline, config 5, the cube field and the tp headline. Then it times the
+host's launch rate does not enter, the kernels it ran and K6's share, over
+one 1-spp frame of the headline, config 5, the cube field and the tp headline. Then it times the
 ray tests alone (K1-K4 of ``kernels/cuda/csrc/wavefront.cu``) through the
 calls a frame makes (``engine.renderer.make_intersect_fn``, the
 triangle wrappers), on the rays that bounces 0 and 2 of sample 0 hand
@@ -32,12 +32,16 @@ them (``chip_smoke.capture_rays``), by CUDA events (the mean of 20
 launches after one, queued behind a spin kernel so that the host's
 launch time stays out of the reading): K1 at the headline and at 4,971
 spheres, K3 at 4,971 spheres (leaf 1 and 4), K2 and K4 at config 5 and on
-the cube field. The first arm of each tree saves its seed-1 frames, raster
-buffers and ray test results; the last lines give the card (name, power
-limit), each tree's p50s, census and ray test times (and the dense tests'
-issue slots a (ray, row) pair at the ``--fmad=false`` issue rate, 132 SMs
-x 128 lanes x 1.98 GHz), and each cell's and ray test's max |d| between
-the trees, with whether each cell's image and depth are bit-equal.
+the cube field; and K6 alone at every bounce of sample 0 of the headline
+and of the 4,971-sphere frame (``chip_smoke.capture_states`` of this
+tree), folding into sums in place.
+The first arm of each tree saves its seed-1 frames, raster buffers, ray
+test results and a digest of K6's outputs; the last lines give the card
+(name, power limit), each tree's p50s, census, ray test and K6 times (and
+the dense tests' issue slots a (ray, row) pair at the ``--fmad=false``
+issue rate, 132 SMs x 128 lanes x 1.98 GHz), and each cell's and ray
+test's max |d| between the trees, with whether each cell's image and
+depth and each bounce's K6 outputs are bit-equal.
 Needs one CUDA card; the two trees must share the public API.
 """
 
@@ -163,7 +167,7 @@ one = dataclasses.replace(headline, samples_per_pixel=1)
 one5 = dataclasses.replace(config5, samples_per_pixel=1)
 
 
-# [the card's busy ms, the kernels it ran] over one frame.
+# [the card's busy ms, the kernels it ran, K6's ms] over one frame.
 def busy_ms(render):
     render(3)
     torch.cuda.synchronize()
@@ -174,7 +178,9 @@ def busy_ms(render):
     device = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
     return [sum(e.self_device_time_total for e in device) / 1e3,
-            sum(e.count for e in device)]
+            sum(e.count for e in device),
+            sum(e.self_device_time_total for e in device
+                if "shade_kernel" in e.key) / 1e3]
 
 
 busy = {{
@@ -257,6 +263,40 @@ tests = [
         o, d, field_scene.triangles, field_scene.tri_bvh, active=a), "field",
      0, None),
 ]
+# K6 alone at every bounce of sample 0 of the headline and of the 4,971-
+# sphere frame, folding into sums in place as a frame's later samples do:
+# its ms and a digest of every column it writes.
+import hashlib
+from bevyray_tpu_torch.kernels import bounce as bounce_mod
+
+
+def digest(tensors):
+    h = hashlib.sha256()
+    for c in tensors:
+        h.update(c.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+shade = {{}}
+saved["shade"] = {{}}
+for cell, scn, camera, cfg in (("headline", scene, cam, headline),
+                               ("4,971 spheres", big_scene, big_cam,
+                                brute_big)):
+    _, states = ab_scenes.capture_states(
+        scn, camera, cfg, dev, bounces=tuple(range(cfg.bounces + 1)))
+    for b, (state, t, idx, tt, ti) in sorted(states.items()):
+        args = (b, t, idx, tt, ti, scn, cfg)
+        sums = ab_scenes.seeded_sums(t.numel(), dev, b)
+        got = ab_scenes.clone_state(state)
+        bounce_mod.shade_bounce(got, *args, sums, sums)
+        key = f"{{cell}} bounce {{b}}"
+        saved["shade"][key] = digest(got.columns() + sums.columns())
+        shade[key] = {{
+            "live": int(state.active.sum()),
+            "ms": ab_scenes.shade_ms(lambda st, *a: bounce_mod.shade_bounce(
+                st, *a, sums, sums), state, args, 20)}}
+    del states
+
 kernels = {{}}
 saved["ray tests"] = {{}}
 for name, fn, cell, bounce, table in tests:
@@ -270,7 +310,7 @@ if {save!r}:
     torch.save(saved, {save!r})
 print(json.dumps({{"cells": cells, "raster_p50_ms": sorted(raster_ms[1:])[2],
                    "host_syncs": syncs, "busy_ms_1spp": busy,
-                   "ray_tests": kernels,
+                   "ray_tests": kernels, "shade_by_bounce": shade,
                    "build_s": build_s}}))
 """
 
@@ -311,6 +351,7 @@ def main() -> int:
     got, want = (torch.load(out_dir / f"{arm}.pt") for arm in ("this",
                                                                "other"))
     tests_got, tests_want = got.pop("ray tests"), want.pop("ray tests")
+    shade_got, shade_want = got.pop("shade"), want.pop("shade")
     diffs = {cell: {"image": float((got[cell][0] - want[cell][0]).abs().max()),
                     "depth": float((got[cell][1] - want[cell][1]).abs().max()),
                     "bit_equal": all(torch.equal(g.view(torch.int32),
@@ -319,6 +360,8 @@ def main() -> int:
                                                      want[cell][:2])),
                     "segments": [got[cell][2], want[cell][2]]}
              for cell in got}
+    diffs.update({f"K6 {key}": {"bit_equal": shade_got[key] == shade_want[key]}
+                  for key in shade_got})
     diffs.update({name: {"t": float((tests_got[name][0]
                                      - tests_want[name][0]).abs().max()),
                          "index_equal": torch.equal(tests_got[name][1],
@@ -336,6 +379,9 @@ def main() -> int:
                             "ray_test_ms": {name: [r["ray_tests"][name]["ms"]
                                                    for r in rs]
                                             for name in rs[0]["ray_tests"]},
+                            "shade_ms_by_bounce": {
+                                b: [r["shade_by_bounce"][b]["ms"] for r in rs]
+                                for b in rs[0]["shade_by_bounce"]},
                             "dense_slots_a_pair": {
                                 name: [r["ray_tests"][name]["ms"] * 1e-3
                                        * ISSUE_RATE / (test["active"]
