@@ -1,0 +1,10 @@
+"""fused_kernel_ms: device time a frame of the fused kernel (ms; the
+profiler's records of ``render_kernel``, csrc/megakernel.cu)."""
+
+from timeline import kernel_ms_per_frame
+
+KERNELS = ("render_kernel",)
+
+
+def read(records: dict):
+    return kernel_ms_per_frame(records, KERNELS)
