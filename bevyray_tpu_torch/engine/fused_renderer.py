@@ -2,7 +2,12 @@
 ``PallasRenderer`` (``bevyray_tpu/engine/pallas_renderer.py``), with its hot
 path in :mod:`..kernels.cuda.megakernel` and its tail (the block order
 undone, the composite, the image) in one launch of
-:func:`..kernels.frame.resolve_frame`."""
+:func:`..kernels.frame.resolve_frame`.
+
+A frame is two spans (:func:`..utils.profiling.span`): ``frame_setup``,
+the kernel tables and the shortlists looked up or built, then ``queue``,
+the kernel's launch and the tail's. A cache miss builds inside
+``frame_setup``, in span ``tables_build`` or ``shortlists_build``."""
 
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ from ..kernels.cuda.megakernel import (KernelScene, kernel_fuse,
                                        morton_order, prepare_kernel_scene,
                                        render_tiles, resolve_exact_rng)
 from ..kernels.cuda.primary import device_shortlists_for
+from ..utils.profiling import span
 from .renderer import FrameResult, frame_result, passthrough_frame
 
 
@@ -55,10 +61,11 @@ class FusedRenderer:
         key, leaves = kernel_scene_cache_key(scene)
         if self._kscene_cache is not None and self._kscene_cache[0] == key:
             return self._kscene_cache[2]
-        order = (morton_order(scene.spheres)
-                 if self.config.pallas_grouping == "morton" else None)
-        kscene = prepare_kernel_scene(scene, self.config.pallas_cand_size,
-                                      order=order)
+        with span("tables_build"):
+            order = (morton_order(scene.spheres)
+                     if self.config.pallas_grouping == "morton" else None)
+            kscene = prepare_kernel_scene(scene, self.config.pallas_cand_size,
+                                          order=order)
         self._kscene_cache = (key, leaves, kscene)
         return kscene
 
@@ -73,8 +80,9 @@ class FusedRenderer:
         key = (self._kscene_cache[0], values)
         if self._sl_cache is not None and self._sl_cache[0] == key:
             return self._sl_cache[1]
-        out = device_shortlists_for(kscene, cam, self.config,
-                                    self.config.samples_per_pixel)
+        with span("shortlists_build"):
+            out = device_shortlists_for(kscene, cam, self.config,
+                                        self.config.samples_per_pixel)
         self._sl_cache = (key, out)
         return out
 
@@ -97,16 +105,18 @@ class FusedRenderer:
         dev = scene.spheres.cx.device
         # As PallasRenderer: the tables and the split gate come first, so a
         # forced split at level 0 raises there too.
-        kscene = self.prepare(scene)
-        sl, slmeta = self.shortlists(kscene, cam)
-        if config.level == 0:
-            return passthrough_frame(config, raster_color, dev)
-        r, g, b, depth, segs = render_tiles(kscene, cam, config,
-                                            seed & 0xFFFFFFFF,
-                                            exact_rng=self.exact_rng, sl=sl,
-                                            slmeta=slmeta)
-        self.last_mode = kernel_mode(kscene, config, sl)
-        self.last_fuse = kernel_fuse(kscene, config, sl)
-        self.last_exact_rng = resolve_exact_rng(self.exact_rng, dev)
-        return frame_result(config, cam, (r, g, b, depth), segs, None,
-                            raster_color, raster_depth, blocks=True)
+        with span("frame_setup"):
+            kscene = self.prepare(scene)
+            sl, slmeta = self.shortlists(kscene, cam)
+            if config.level == 0:
+                return passthrough_frame(config, raster_color, dev)
+        with span("queue"):
+            r, g, b, depth, segs = render_tiles(kscene, cam, config,
+                                                seed & 0xFFFFFFFF,
+                                                exact_rng=self.exact_rng,
+                                                sl=sl, slmeta=slmeta)
+            self.last_mode = kernel_mode(kscene, config, sl)
+            self.last_fuse = kernel_fuse(kscene, config, sl)
+            self.last_exact_rng = resolve_exact_rng(self.exact_rng, dev)
+            return frame_result(config, cam, (r, g, b, depth), segs, None,
+                                raster_color, raster_depth, blocks=True)

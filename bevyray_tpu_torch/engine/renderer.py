@@ -43,6 +43,7 @@ from ..kernels.intersect import intersect_spheres, intersect_triangles
 # the JAX package's engine/renderer.py.
 from ..kernels.raygen import pixel_uv  # noqa: F401
 from ..kernels.traverse import intersect_bvh, intersect_bvh_triangles
+from ..utils.profiling import span
 
 _M32 = 0xFFFFFFFF
 
@@ -188,21 +189,26 @@ def render_impl(scene: SceneBuffers, cam: CameraState, config: RenderConfig,
                 raster_depth=None) -> FrameResult:
     """One frame: ``config.samples_per_pixel`` samples of every pixel,
     averaged, composited over the raster layer at ``config.level`` (level 0
-    passes the raster layer through and traces nothing)."""
+    passes the raster layer through and traces nothing). Two spans
+    (:func:`..utils.profiling.span`): ``frame_setup``, the backend, the
+    sample state and the sums; ``queue``, the sample loop and the tail."""
     dev = scene.spheres.cx.device
-    if config.level == 0:
-        return passthrough_frame(config, raster_color, dev)
-    n = config.n_pixels
-    intersect_fn = make_intersect_fn(scene, config)
-    state = new_state(n, cam, config, dev)
-    sums = new_sums(n, dev)
-    for i in range(config.samples_per_pixel):
-        trace_sample(scene, cam, config, 0, None, None, i, frame_seed,
-                     intersect_fn, state=state, sums=sums,
-                     base=sums if i else None)
-    inv_spp = float(np.float32(1.0 / config.samples_per_pixel))
-    return frame_result(config, cam, (*sums.color, sums.depth),   # wgsl:169
-                        sums.segments, inv_spp, raster_color, raster_depth)
+    with span("frame_setup"):
+        if config.level == 0:
+            return passthrough_frame(config, raster_color, dev)
+        n = config.n_pixels
+        intersect_fn = make_intersect_fn(scene, config)
+        state = new_state(n, cam, config, dev)
+        sums = new_sums(n, dev)
+    with span("queue"):
+        for i in range(config.samples_per_pixel):
+            trace_sample(scene, cam, config, 0, None, None, i, frame_seed,
+                         intersect_fn, state=state, sums=sums,
+                         base=sums if i else None)
+        inv_spp = float(np.float32(1.0 / config.samples_per_pixel))
+        return frame_result(config, cam, (*sums.color, sums.depth),  # wgsl:169
+                            sums.segments, inv_spp, raster_color,
+                            raster_depth)
 
 
 class Renderer:

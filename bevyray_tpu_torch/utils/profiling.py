@@ -1,11 +1,12 @@
 """Profiling & observability — what the reference lacks entirely (SURVEY.md §5:
 no GPU timing, ``timestamp_writes: None``; labeled passes only).
 
-Counterpart of ``bevyray_tpu/utils/profiling.py``: named scopes are
-``torch.profiler.record_function`` ranges, the device trace is a
-``torch.profiler.profile`` (CUDA activity on a card) written into a
-directory as a Chrome/TensorBoard trace, and the frame-timing harness
-synchronizes the card where the JAX package blocks on its arrays.
+Counterpart of ``bevyray_tpu/utils/profiling.py``: the port's spans
+(:func:`span`) are ``torch.profiler.record_function`` ranges while a torch
+profiler records, the device trace is a ``torch.profiler.profile`` (CUDA
+activity on a card) written into a directory as a Chrome/TensorBoard
+trace, and the frame-timing harness synchronizes the card where the JAX
+package blocks on its arrays.
 """
 
 from __future__ import annotations
@@ -17,8 +18,34 @@ from typing import Callable, List, Optional
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
-named_scope = torch.profiler.record_function  # annotate ops for trace viewers
+# The namespace of every profiler range the port opens. The repository's
+# trace reader (``benchmark/timeline.py``) collects ranges under it as host
+# spans, on the profiler's clock, and counts any other range as work on the
+# device.
+SPAN_PREFIX = "bench."
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A profiler range named ``SPAN_PREFIX + name`` while a torch profiler
+    records; otherwise one shared no-op context manager, so that an
+    untraced frame pays a flag check and no call into torch."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch.profiler.record_function(SPAN_PREFIX + name)
+
+
+def device_kernels(prof) -> list:
+    """The ``key_averages()`` entries of a finished torch profile that are
+    the card's work: those on the CUDA timeline, less the copies of the
+    profiler ranges (:func:`span`) that the profiler puts there too."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
 
 
 @contextlib.contextmanager

@@ -642,8 +642,9 @@ def profiled(fn, warm=True) -> tuple:
     ``fn`` after a warm-up call (none with ``warm`` False; torch's
     profiler)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from bevyray_tpu_torch.utils.profiling import device_kernels
 
     if warm:
         fn()
@@ -652,8 +653,7 @@ def profiled(fn, warm=True) -> tuple:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    device = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
+    device = device_kernels(prof)
     return (sum(e.count for e in device),
             sum(e.self_device_time_total for e in device) / 1e3,
             sorted(((e.count, round(e.self_device_time_total / 1e3, 4),

@@ -279,7 +279,7 @@ def test_film_checkpoint_roundtrip(tmp_path):
 def test_profiling_helpers(tmp_path):
     """``time_frames`` takes its rays from the warm-up frame and reports
     JAX's summary keys; ``device_trace`` writes a trace into its directory
-    and ``named_scope`` ranges show in it."""
+    and ``span`` ranges show in it under ``SPAN_PREFIX``."""
     world = bt.rtiow.simple_scene()
     scene = world.extract(with_bvh=False, device="cpu")
     cam = world.camera_state(aspect=1.0, device="cpu")
@@ -293,9 +293,10 @@ def test_profiling_helpers(tmp_path):
     want = jprofiling.FrameStats(stats.times_s, stats.rays_per_frame)
     assert stats.summary() == want.summary()
     with profiling.device_trace(str(tmp_path)) as prof:
-        with profiling.named_scope("frame"):
+        with profiling.span("frame"):
             r.render(scene, cam, seed=1)
-    assert any(e.key == "frame" for e in prof.key_averages())
+    assert any(e.key == profiling.SPAN_PREFIX + "frame"
+               for e in prof.key_averages())
     assert any(p.name.endswith(".json") for p in tmp_path.iterdir())
 
 

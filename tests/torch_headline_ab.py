@@ -40,9 +40,10 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+PROFILING = str(ROOT / "bevyray_tpu_torch" / "utils" / "profiling.py")
 
 ARM = """
-import dataclasses, json, sys, time
+import dataclasses, json, runpy, sys, time
 sys.path.insert(0, ".")
 import torch
 from bevyray_tpu_torch import (FusedRenderer, RenderConfig, StandardMaterial,
@@ -52,8 +53,10 @@ from bevyray_tpu_torch.kernels.cuda import build, megakernel
 from bevyray_tpu_torch.kernels.cuda.primary import device_shortlists_for
 from bevyray_tpu_torch.parallel.sharding import (make_mesh,
                                                  render_frame_sharded_pallas)
-from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
+# The card's work in a profile, by this script's tree's helper: a tree
+# under test may predate it.
+device_kernels = runpy.run_path({profiling!r})["device_kernels"]
 {fuse}
 t0 = time.perf_counter()
 build.extension()
@@ -114,7 +117,7 @@ with profile(activities=[ProfilerActivity.CPU,
                          ProfilerActivity.CUDA]) as prof:
     renderer.render(scene, cam, seed=3)
     torch.cuda.synchronize()
-device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+device = device_kernels(prof)
 busy = [sum(e.self_device_time_total for e in device) / 1e3,
         sum(e.count for e in device)]
 cells["headline"].update(mode=renderer.last_mode,
@@ -172,7 +175,8 @@ def main() -> int:
                       ("other", other)):
         save = str(out_dir / f"{arm}.pt") if not runs[arm] else ""
         out = subprocess.run([sys.executable, "-c",
-                              ARM.format(frames=args.frames, save=save, rng=(
+                              ARM.format(frames=args.frames, save=save,
+                                         profiling=PROFILING, rng=(
                                   "exact_rng=True" if args.exact_rng
                                   else ""), fuse=(
                                   f"megakernel.PHASE_FUSE = {args.phase_fuse}"

@@ -42,10 +42,11 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+PROFILING = str(ROOT / "bevyray_tpu_torch" / "utils" / "profiling.py")
 SIZES = ((1280, 720), (1920, 1080))
 
 ARM = """
-import contextlib, io, json, sys, tempfile, time
+import contextlib, io, json, runpy, sys, tempfile, time
 sys.path.insert(0, ".")
 import numpy as np
 import torch
@@ -56,8 +57,10 @@ from bevyray_tpu_torch.core.types import make_triangles_np, upload
 from bevyray_tpu_torch.engine import raster
 from bevyray_tpu_torch.engine.denoise import atrous_denoise
 from bevyray_tpu_torch.kernels.cuda import build
-from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
+# The card's work in a profile, by this script's tree's helper: a tree
+# under test may predate it.
+device_kernels = runpy.run_path({profiling!r})["device_kernels"]
 
 dev = torch.device("cuda", 0)
 t0 = time.perf_counter()
@@ -91,8 +94,7 @@ def busy(fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    device = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
+    device = device_kernels(prof)
     return [sum(e.self_device_time_total for e in device) / 1e3,
             sum(e.count for e in device)]
 
@@ -198,7 +200,7 @@ def main() -> int:
         save = str(out_dir / f"{arm}.pt") if not runs[arm] else ""
         out = subprocess.run([sys.executable, "-c",
                               ARM.format(reps=args.reps, sizes=SIZES,
-                                         save=save)],
+                                         save=save, profiling=PROFILING)],
                              cwd=tree, capture_output=True, text=True,
                              timeout=1200)
         if out.returncode:

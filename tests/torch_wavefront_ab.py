@@ -54,10 +54,11 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+PROFILING = str(ROOT / "bevyray_tpu_torch" / "utils" / "profiling.py")
 ISSUE_RATE = 132 * 128 * 1.98e9   # fp32 instructions a second, no contraction
 
 ARM = """
-import dataclasses, importlib.util, json, sys, time
+import dataclasses, importlib.util, json, runpy, sys, time
 sys.path.insert(0, ".")
 import torch
 import bevyray_tpu_torch
@@ -67,8 +68,10 @@ from bevyray_tpu_torch.bench.timing import host_syncs
 from bevyray_tpu_torch.engine.raster import raster_layer
 from bevyray_tpu_torch.kernels.cuda import build
 from bevyray_tpu_torch.parallel.sharding import make_mesh, render_frame_sharded
-from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
+# The card's work in a profile, by this script's tree's helper: a tree
+# under test may predate it.
+device_kernels = runpy.run_path({profiling!r})["device_kernels"]
 
 dev = torch.device("cuda", 0)
 t0 = time.perf_counter()
@@ -175,8 +178,7 @@ def busy_ms(render):
                              ProfilerActivity.CUDA]) as prof:
         render(3)
         torch.cuda.synchronize()
-    device = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
+    device = device_kernels(prof)
     return [sum(e.self_device_time_total for e in device) / 1e3,
             sum(e.count for e in device),
             sum(e.self_device_time_total for e in device
@@ -336,7 +338,8 @@ def main() -> int:
         save = str(out_dir / f"{arm}.pt") if not runs[arm] else ""
         out = subprocess.run([sys.executable, "-c",
                               ARM.format(frames=args.frames, save=save,
-                                         smoke=str(ROOT / "chip_smoke.py"))],
+                                         smoke=str(ROOT / "chip_smoke.py"),
+                                         profiling=PROFILING)],
                              cwd=tree, capture_output=True, text=True,
                              timeout=1200)
         if out.returncode:
