@@ -106,10 +106,11 @@ void render_tiles(const torch::Tensor& cam, const torch::Tensor& sph,
               "the probe takes kProbeSlots int64 and the split/candidates fast instance");
   TORCH_CHECK(grid >= 1 && grid < (int64_t{1} << 31), "grid must be a positive int32");
   TORCH_CHECK(spp >= 1 && bounces >= 0, "spp must be >= 1 and bounces >= 0");
-  TORCH_CHECK(!candidates || (gc > 0 && n_cand > 0 && cand_off >= 0 &&
-                              cand_off + n_cand <= gaabb.size(1) &&
+  TORCH_CHECK(!candidates || (gc > 0 && n_cand > 0 && n_cand <= kMaxCandGroups &&
+                              cand_off >= 0 && cand_off + n_cand <= gaabb.size(1) &&
                               n_cand * gc >= sph.size(1)),
-              "candidate groups must cover the table and have gaabb columns");
+              "candidate groups must cover the table, have gaabb columns and number at "
+              "most ", kMaxCandGroups);
   int64_t sl_cap = 0;
   if (split) {
     check_f32(sl, sph, "sl");

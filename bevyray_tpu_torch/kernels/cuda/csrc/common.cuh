@@ -33,3 +33,21 @@ __device__ __forceinline__ float min2_nan(float x, float y) {
 __device__ __forceinline__ float max2_nan(float x, float y) {
   return (x != x || y != y) ? x + y : fmaxf(x, y);
 }
+
+// The same minimum and maximum in one instruction each (sm_80+: PTX
+// min.NaN.f32 / max.NaN.f32, one FMNMX with the NaN flag), for the fused
+// kernel's candidate walk. Where either input is NaN the result is NaN, as
+// min2_nan's x + y is; only the NaN's payload differs (the canonical NaN).
+// Otherwise it is the FMNMX that fminf / fmaxf emit, signed zeros and
+// denormals alike (no .ftz). So every comparison of the result, all false
+// for any NaN, reads as min2_nan's / max2_nan's does.
+__device__ __forceinline__ float min_nan1(float x, float y) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(x), "f"(y));
+  return r;
+}
+__device__ __forceinline__ float max_nan1(float x, float y) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(x), "f"(y));
+  return r;
+}

@@ -46,7 +46,7 @@ struct RenderArgs {
   int candidates;       // the full walk visits candidate groups only
   int sl_cap;           // shortlist capacity K (a multiple of 8, <= 512)
   int gc;               // spheres per candidate group
-  int n_cand;           // candidate groups
+  int n_cand;           // candidate groups (<= kMaxCandGroups)
   int cand_off;         // gaabb column of candidate group 0
   int fast_rng;         // the fast draw path (else the exact PCG streams)
   int draw_words;       // fast path: words per bounce, 6, 9 or 13
@@ -61,13 +61,19 @@ struct RenderArgs {
 // (candidates or every sphere) and the triangle loop; a lane's wait for its
 // warp once it has no pixel left in the item; then the warp-level segment
 // iterations (counted once per group of lanes that run one together) and the
-// lanes' segments. The rest of a thread's cycles (the item's closing barrier,
+// lanes' segments, and the candidate-box slab tests the lanes run in the
+// table walks. The rest of a thread's cycles (the item's closing barrier,
 // the loops' overhead) is the total less the stages.
 enum ProbeSlot {
   kProbeTotal, kProbeStage, kProbeFetch, kProbeSegment, kProbeWalk0,
   kProbeWalk, kProbeTriangles, kProbeWarpIdle, kProbeIssues, kProbeSegments,
-  kProbeSlots
+  kProbeSlabTests, kProbeSlots
 };
+
+// Candidate groups a launch may have: 31-group mask words x 6, the JAX
+// kernel's limit (megakernel.py MAX_CAND_WORDS). The candidate instances
+// stage every group's box in shared memory, 32 bytes a group.
+constexpr int kMaxCandGroups = 31 * 6;
 
 // Static facts of one kernel instance on the current device.
 struct KernelInfo {

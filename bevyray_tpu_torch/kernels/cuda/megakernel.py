@@ -669,7 +669,7 @@ def _launch(pscene: KernelScene, cam: CameraState, config: RenderConfig,
 
 # The probe's clock sums, in the kernel's ProbeSlot order (megakernel.h).
 PROBE_SLOTS = ("total", "stage", "fetch", "segment", "walk0", "walk",
-               "triangles", "warp_idle", "issues", "segments")
+               "triangles", "warp_idle", "issues", "segments", "slab_tests")
 
 
 def render_tiles_probe(pscene: KernelScene, cam: CameraState,
@@ -683,8 +683,9 @@ def render_tiles_probe(pscene: KernelScene, cam: CameraState,
     instance's, and a dict of the clock sums over all threads
     (:data:`PROBE_SLOTS`: cycles per stage; ``issues``, the warp-level
     segment iterations, and ``segments``, the lanes' segments, whose ratio
-    is the mean of active lanes per iteration). Takes CUDA tensors only; it
-    is not counted in ``render_tiles.launches``."""
+    is the mean of active lanes per iteration; ``slab_tests``, the
+    candidate-box tests the lanes' table walks run). Takes CUDA tensors
+    only; it is not counted in ``render_tiles.launches``."""
     from .build import extension
 
     dev = pscene.sph.device

@@ -2092,18 +2092,22 @@ def wavefront_shard_phase(scene, cam, headline, card) -> None:
         raise SystemExit("phase 8: the wavefront film differs from the frame")
 
 
-def sass_sqrt(library: Path, instance: str) -> dict:
-    """Phase 9(c): the SASS of ``instance`` (a mangled-name fragment) in the
-    built ``library``, by the toolkit's ``cuobjdump -sass``: its MUFU.RSQ
-    (the seed of each IEEE sqrt), the range check that follows each (the
-    inputs outside it leave the fast path), and the subroutines it calls."""
+def sass_function(library: Path, instance: str) -> str:
+    """The SASS of ``instance`` (a mangled-name fragment) in the built
+    ``library``, by the toolkit's ``cuobjdump -sass``."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
     funcs = sass.split("Function : ")
-    body = next(f for f in funcs if instance in f.splitlines()[0])
+    return next(f for f in funcs if instance in f.splitlines()[0])
+
+
+def sass_sqrt(body: str) -> dict:
+    """Phase 9(c): in one instance's SASS (``sass_function``), its MUFU.RSQ
+    (the seed of each IEEE sqrt), the range check that follows each (the
+    inputs outside it leave the fast path), and the subroutines it calls."""
     lines = [ln.split("*/")[1].strip().rstrip(";").strip()
              if "*/" in ln else "" for ln in body.splitlines()]
     lines = [ln for ln in lines if ln]
@@ -2121,14 +2125,80 @@ def sass_sqrt(library: Path, instance: str) -> dict:
             "range_checks": dict(checks), "calls": dict(calls)}
 
 
+# FSETP's NaN tests and unordered compares (true where an operand is NaN).
+UNORDERED = {"NAN", "NUM", "NEU", "LTU", "LEU", "GTU", "GEU", "EQU"}
+
+
+def sass_walk(body: str) -> dict:
+    """Phase 9(c): one group of the candidate walk in one instance's SASS
+    (``sass_function``). The walk's loop is the innermost loop (a backward
+    branch and its target) that holds a slab test's ten min/max (FMNMX);
+    a group whose box is not entered, the common case, runs from the loop's
+    head to the branch after them that skips the group's spheres, then the
+    loop's tail. Gives that path's instructions (``per_group``), its FMNMX,
+    FSETP (``unordered``: those true for a NaN operand, the NaN tests among
+    them), FSEL and loads by opcode, and ``lines``, its SASS; empty where no
+    such loop is found."""
+    import re
+
+    rows = []
+    for ln in body.splitlines():
+        m = re.match(r"\s*/\*([0-9a-f]+)\*/\s*(.*)$", ln)
+        if m and m.group(2).split(";")[0].strip():
+            rows.append((int(m.group(1), 16), m.group(2).split(";")[0].strip()))
+    at = {addr: i for i, (addr, _) in enumerate(rows)}
+
+    def opcode(k):
+        words = rows[k][1].split()
+        return words[1] if words[0].startswith("@") else words[0]
+
+    def target(k):
+        """The row a branch at row k jumps to (``BRA 0x...``), or None."""
+        last = rows[k][1].split()[-1]
+        if not (opcode(k).startswith("BRA") and last.startswith("0x")):
+            return None
+        return at.get(int(last, 16))
+
+    loops = [(target(k), k) for k in range(len(rows))
+             if target(k) is not None and target(k) <= k]
+    walk = [(lo, hi) for lo, hi in loops if sum(
+        opcode(k).startswith("FMNMX") for k in range(lo, hi + 1)) >= 10]
+    if not walk:
+        return {}
+    lo, hi = min(walk, key=lambda r: r[1] - r[0])
+    last = max(k for k in range(lo, hi + 1) if opcode(k).startswith("FMNMX"))
+    skip = next((k for k in range(last, hi) if rows[k][1].startswith("@")
+                 and target(k) is not None and k < target(k) <= hi), None)
+    if skip is None:
+        return {}
+    path = list(range(lo, skip + 1)) + list(range(target(skip), hi + 1))
+    ops = collections.Counter(opcode(k) for k in path)
+
+    def count(prefix):
+        return {op: n for op, n in sorted(ops.items()) if op.startswith(prefix)}
+
+    fsetp = count("FSETP")
+    return {"per_group": len(path), "FMNMX": count("FMNMX"), "FSETP": fsetp,
+            "unordered": sum(n for op, n in fsetp.items()
+                             if UNORDERED & set(op.split("."))),
+            "nan_tests": sum(n for op, n in fsetp.items()
+                             if {"NAN", "NUM"} & set(op.split("."))),
+            "FSEL": sum(count("FSEL").values()),
+            "loads": {op: n for op, n in sorted(ops.items())
+                      if op.startswith(("LDS", "LDG", "LD.", "LDC"))
+                      or op == "LD"},
+            "lines": [rows[k][1] for k in path]}
+
+
 def probe_phase(scene, cam, headline, card, map_pass) -> None:
     """Phase 9: what bounds the kernel on this card. (a) Registers, spills,
     shared memory and resident blocks per SM of every instance (and of the
     probe) at fuse 1, 4 and 8, and the work items each main-path grid holds
     against the resident blocks; (b) the probe instance (``clock64()`` per
     stage) at the headline, under the adaptive pass-3 map and at config 5,
-    its outputs bit-equal to the default instance's; (c) the SASS of the
-    default instance's IEEE sqrt."""
+    its outputs bit-equal to the default instance's, and the walk's cycles
+    per candidate slab test; (c) the SASS of the default instance's IEEE
+    sqrt and of its candidate walk's loop (FMNMX, FSETP, FSEL)."""
     import torch
 
     from bevyray_tpu_torch.kernels.cuda import build
@@ -2231,16 +2301,27 @@ def probe_phase(scene, cam, headline, card, map_pass) -> None:
               f"{mk.kernel_fuse(ks, cfg, s_l)}: bit-equal to the default "
               f"instance, {clk['segments']} segments; mean active lanes per "
               f"segment iteration {clk['segments'] / clk['issues']:.2f} of "
-              f"32; cycle shares {json.dumps(shares(clk))}; kernel "
+              f"32; cycle shares {json.dumps(shares(clk))}; "
+              f"{clk['slab_tests']} slab tests "
+              f"({clk['slab_tests'] / clk['segments']:.2f} a segment), "
+              f"walk cycles per slab test "
+              f"{clk['walk'] / max(clk['slab_tests'], 1):.2f}; kernel "
               f"{ms:.3f} ms, probe {probe_ms:.3f} ms | {card}", flush=True)
 
     # (c) The IEEE sqrt in the default instance's SASS.
     library = next(build.BUILD_DIR.glob("*.so"))
-    found = sass_sqrt(library, "render_kernelILb1ELb1ELb1ELb0E")
+    body = sass_function(library, "render_kernelILb1ELb1ELb1ELb0E")
+    found = sass_sqrt(body)
     print(f"phase 9(c) SASS of split/candidates/fast ({library.name}): "
           f"{json.dumps(found)}", flush=True)
     if not found["mufu_rsq"]:
         raise SystemExit("phase 9(c): no MUFU.RSQ in the default instance")
+    walk = sass_walk(body)
+    lines = walk.pop("lines", [])
+    print(f"phase 9(c) candidate walk loop of split/candidates/fast: "
+          f"{json.dumps(walk) if walk else 'not found'}", flush=True)
+    for line in lines:
+        print(f"phase 9(c) walk loop | {line}")
 
 
 def cli_phase(card, dev) -> tuple:

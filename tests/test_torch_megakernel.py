@@ -612,6 +612,109 @@ def test_probe_slots_follow_the_kernel_header():
     assert tuple(snake) == mk.PROBE_SLOTS
 
 
+def test_box_stage_holds_every_candidate_group():
+    """The candidate instances stage every group's box in shared memory,
+    sized by ``kMaxCandGroups`` (csrc/megakernel.h): as many groups as the
+    scene tables allow, 31 x MAX_CAND_WORDS; a table that would need more
+    is refused before any launch."""
+    import re
+    from pathlib import Path
+
+    header = (Path(mk.__file__).parent / "csrc" / "megakernel.h").read_text()
+    a, b = re.search(r"constexpr int kMaxCandGroups = (\d+) \* (\d+);",
+                     header).groups()
+    assert int(a) * int(b) == 31 * mk.MAX_CAND_WORDS
+    scene = bt.rtiow.final_scene(seed=42).extract(with_bvh=False,
+                                                  device="cpu")
+    assert mk.prepare_kernel_scene(scene).n_cand == 32
+    big = bt.rtiow.final_scene(seed=42, grid=20).extract(with_bvh=False,
+                                                         device="cpu")
+    assert mk.prepare_kernel_scene(big).n_cand <= 31 * mk.MAX_CAND_WORDS
+    with pytest.raises(ValueError, match="candidate groups"):
+        mk.prepare_kernel_scene(big, 8)
+
+
+# The helpers side by side in one small kernel, bound with ctypes.
+_NAN_MIN_MAX_SHIM = r"""
+#include "common.cuh"
+
+__global__ void nan_min_max(const float* x, const float* y, float* out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  out[i] = min_nan1(x[i], y[i]);
+  out[n + i] = max_nan1(x[i], y[i]);
+  out[2 * n + i] = min2_nan(x[i], y[i]);
+  out[3 * n + i] = max2_nan(x[i], y[i]);
+}
+
+extern "C" int nan_min_max_run(const float* x, const float* y, float* out, int n) {
+  nan_min_max<<<(n + 255) / 256, 256>>>(x, y, out, n);
+  return static_cast<int>(cudaDeviceSynchronize());
+}
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_one_instruction_nan_min_max_match_the_helpers(tmp_path):
+    """On the card: ``min_nan1`` / ``max_nan1`` (common.cuh, one FMNMX with
+    the NaN flag each) against ``min2_nan`` / ``max2_nan`` on every pair of
+    +-0, +-denormals, +-1, +-f32 max, +-inf and NaNs, and on 10^6 pairs of
+    random bit patterns: the same bits wherever the old helper's result is
+    not NaN, and NaN wherever it is. Built with the kernels' flags
+    (build.CUDA_FLAGS: --fmad=false, no fast math)."""
+    import ctypes
+    import shutil
+    import subprocess
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs the kernel there")
+    from pathlib import Path
+
+    csrc = Path(mk.__file__).parent / "csrc"
+    (tmp_path / "shim.cu").write_text(_NAN_MIN_MAX_SHIM)
+    lib = tmp_path / "libnanminmax.so"
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    subprocess.run([nvcc, *build.CUDA_FLAGS, "-std=c++17", "-shared",
+                    "-Xcompiler", "-fPIC", f"-I{csrc}", "-o", str(lib),
+                    str(tmp_path / "shim.cu")], check=True, timeout=300)
+    run = ctypes.CDLL(str(lib)).nan_min_max_run
+    run.restype = ctypes.c_int
+
+    special = np.array([0x00000000, 0x80000000, 0x00000001, 0x80000001,
+                        0x007FFFFF, 0x807FFFFF, 0x3F800000, 0xBF800000,
+                        0x7F7FFFFF, 0xFF7FFFFF, 0x7F800000, 0xFF800000,
+                        0x7FC00000, 0xFFC00000, 0x7F800001, 0x7FBFFFFF],
+                       dtype=np.uint32)
+    sx, sy = np.meshgrid(special, special, indexing="ij")
+    rng = np.random.default_rng(20231)
+    bits_x = np.concatenate([sx.ravel(), rng.integers(
+        0, 2**32, 10**6, dtype=np.uint64).astype(np.uint32)])
+    bits_y = np.concatenate([sy.ravel(), rng.integers(
+        0, 2**32, 10**6, dtype=np.uint64).astype(np.uint32)])
+    dev = torch.device("cuda", 0)
+    x = torch.as_tensor(bits_x.view(np.float32)).to(dev)
+    y = torch.as_tensor(bits_y.view(np.float32)).to(dev)
+    n = x.numel()
+    out = torch.empty(4 * n, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    assert run(ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(y.data_ptr()),
+               ctypes.c_void_p(out.data_ptr()), ctypes.c_int(n)) == 0
+    res = out.cpu().numpy().reshape(4, n)
+    bits = res.view(np.uint32)
+    assert np.isnan(bits_x.view(np.float32)).any()
+    for new, old in ((0, 2), (1, 3)):
+        nan = np.isnan(res[old])
+        assert np.array_equal(bits[new][~nan], bits[old][~nan])
+        assert np.isnan(res[new][nan]).all()
+        # The helpers are the minimum / maximum: checked against NumPy's
+        # (which keeps NaN) on the pairs of distinct values.
+        want = (np.minimum if new == 0 else np.maximum)(
+            bits_x.view(np.float32), bits_y.view(np.float32))
+        distinct = ~nan & (bits_x.view(np.float32) != bits_y.view(np.float32))
+        assert np.array_equal(res[new][distinct], want[distinct])
+        assert np.isnan(want[nan]).all()
+
+
 def test_probe_takes_cuda_tensors_only():
     """The probe measures the CUDA kernel: on CPU tensors it raises, and the
     extension is not built."""
