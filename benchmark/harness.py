@@ -6,7 +6,10 @@ A cell (``workloads/<cell>.json``) names its configuration
 parameters of its kind, ``traffic/<kind>.py``, the loop and the entry the
 frames go through, ``entries/<entry>.py``), how many frames it compares and
 the limits of its checks; the configuration names its scene
-(``scenes/<scene>.py``) and its reference (``reference/<module>.py``). Each
+(``scenes/<scene>.py``) and its reference (``reference/<module>.py``). A
+scene with an ``aperture`` above 0 and a ``focus_distance`` has a thin lens:
+the program's camera and frame take it (:func:`lens`), and so does the
+reference, which reads both from the scene's arrays. Each
 metric that ``BENCHMARK.json`` lists for the cell is read by
 ``metrics/<metric>.py`` from the run's records. Nothing here names a cell,
 a configuration, a traffic kind or a metric.
@@ -131,11 +134,36 @@ def edited(scene: dict, edits) -> dict:
     return out
 
 
+def lens(scene: dict):
+    """The scene's thin lens as the program's ``RaytracedCamera``, or None:
+    a pinhole where the scene gives no ``aperture`` (the lens's diameter)
+    above 0."""
+    from bevyray_tpu_torch import RaytracedCamera
+
+    aperture = float(scene.get("aperture", 0.0))
+    if aperture <= 0.0:
+        return None
+    return RaytracedCamera(aperture=aperture,
+                           focus_distance=float(scene["focus_distance"]))
+
+
+def render_config(config: dict, scene: dict):
+    """The configuration's frame as the program's ``RenderConfig``, with
+    the thin lens on where the scene has one."""
+    from bevyray_tpu_torch import RenderConfig
+
+    width, height = config["resolution"]
+    return RenderConfig(width=width, height=height,
+                        samples_per_pixel=config["samples_per_pixel"],
+                        bounces=config["bounces"], level=config["level"],
+                        defocus=lens(scene) is not None)
+
+
 def port_world(scene: dict):
-    """The scene's arrays as a ``World`` of the program, through its public
-    scene API."""
-    from bevyray_tpu_torch import (RaytracedMesh, RaytracedSphere, Transform,
-                                   World)
+    """The scene's arrays and camera as a ``World`` of the program, through
+    its public scene API."""
+    from bevyray_tpu_torch import (PerspectiveProjection, RaytracedMesh,
+                                   RaytracedSphere, Transform, World)
 
     world = World()
     for c, r, m in zip(scene["centers"], scene["radii"], scene["materials"]):
@@ -144,6 +172,10 @@ def port_world(scene: dict):
     for translation, vertices, indices, m in scene.get("raster_meshes", ()):
         world.spawn_raster_mesh(Transform.from_xyz(*translation),
                                 RaytracedMesh(vertices, indices), material(m))
+    world.set_camera(
+        Transform.from_xyz(*scene["eye"]).looking_at(scene["target"]),
+        PerspectiveProjection(fov=scene["fov"], near=scene["near"],
+                              far=scene["far"]), lens(scene))
     return world
 
 
@@ -343,16 +375,18 @@ def card_line(device) -> str:
 
 
 def run_cell(workload: str, seed: int, seconds: float, trace: bool, t_start,
-             device=None, overrides=None, wrap_entry=None) -> dict:
+             device=None, overrides=None, wrap_entry=None,
+             scene_overrides=None) -> dict:
     """One run; returns the result line as a dict (``checks`` last).
 
     ``device`` None is the card. ``overrides`` replace numbers of the
-    configuration and ``wrap_entry`` wraps the entry: the harness's own
-    tests use them to run on the CPU at a small size, to break the timed
-    path, and to put the reference in the program's place."""
+    configuration, ``scene_overrides`` keys of the scene's arrays, and
+    ``wrap_entry`` wraps the entry: the harness's own tests use them to run
+    on the CPU at a small size, to give the scene a lens, to break the
+    timed path, and to put the reference in the program's place."""
     import torch
 
-    from bevyray_tpu_torch import PerspectiveProjection, RenderConfig, Transform
+    from bevyray_tpu_torch import Transform
     from bevyray_tpu_torch.engine.raster import raster_layer
 
     phases = Phases(t_start)
@@ -364,18 +398,13 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, t_start,
     entry_mod = load_module("entries", mix["entry"])
     reference = importlib.import_module(f"reference.{config['reference']}")
     phases("imports")
-    scene = load_module("scenes", config["scene"]).build(config["scene_seed"])
+    scene = dict(load_module("scenes", config["scene"]).build(
+        config["scene_seed"]), **(scene_overrides or {}))
     width, height = config["resolution"]
     level = config["level"]
-    rconfig = RenderConfig(width=width, height=height,
-                           samples_per_pixel=config["samples_per_pixel"],
-                           bounces=config["bounces"], level=level)
+    rconfig = render_config(config, scene)
 
     world = port_world(scene)
-    world.set_camera(
-        Transform.from_xyz(*scene["eye"]).looking_at(scene["target"]),
-        PerspectiveProjection(fov=scene["fov"], near=scene["near"],
-                              far=scene["far"]))
     phases("world")
     buffers = world.extract(with_bvh=False, device=dev)
     phases("extract")

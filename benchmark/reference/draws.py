@@ -6,14 +6,19 @@ Both key every draw by the stream word of bevyray's counter-based PCG
 multiply (int64 products wrap mod 2^64, so the low 32 bits stay right).
 
 - **exact**: draw ``slot`` is ``f32(pcg(pcg(stream ^ slot * MIX2))) * 2^-32``
-  in the slot layout of four ray-generation slots and 13 a bounce
-  (3 branch tests, two balls of 5), with Box-Muller balls and a cube-root
-  radius from the C library's ``log``/``cos``/``sin``/``exp``.
+  in the slot layout of four ray-generation slots (0-1 the jitter, 2-3 the
+  lens) and 13 a bounce (3 branch tests, two balls of 5), with Box-Muller
+  balls, the lens's angle and a cube-root radius from the C library's
+  ``log``/``cos``/``sin``/``exp``.
 - **fast**: word ``row`` is one ``pcg(stream ^ row * MIX2)``; rows 0-1 are
   the jitter, 2-3 the lens, and bounce b owns rows ``4 + 6 b .. 9 + 6 b``:
   uniforms from the words' top 23 bits, 18-bit uniforms from their spare
   low bits, and balls drawn as a uniform z, an azimuth and a cube-root
-  radius through bit-trick ``log2``/``pow2`` and a parabolic ``sin``.
+  radius through bit-trick ``log2``/``pow2`` and a parabolic ``sin``, which
+  turns the lens's angle too.
+
+Each path's ``lens()`` gives the lens's radial uniform and the cosine and
+sine of its angle, ``2 pi`` times the second lens draw.
 
 Every value is float32, whatever precision the caller traces in.
 """
@@ -44,8 +49,10 @@ def pcg(state: torch.Tensor) -> torch.Tensor:
     return (word >> 22) ^ word
 
 
-def stream_words(pixel: torch.Tensor, sample: int,
+def stream_words(pixel: torch.Tensor, sample,
                  frame_seed: int) -> torch.Tensor:
+    """The stream word of each (pixel, sample): ``sample`` an int, or a
+    tensor of one a pixel."""
     base = (((pixel * _GOLD) & M32) ^ ((sample * _MIX1) & M32)
             ^ (frame_seed & M32))
     return pcg(pcg(base))
@@ -87,6 +94,10 @@ class ExactDraws:
 
     def jitter(self):
         return exact_draw(self.stream, 0), exact_draw(self.stream, 1)
+
+    def lens(self):
+        theta = _TWO_PI * exact_draw(self.stream, 3)
+        return exact_draw(self.stream, 2), torch.cos(theta), torch.sin(theta)
 
     def bounce(self, b: int):
         """(u_metal, u_trans, u_reflect, ball1, ball2) of bounce ``b``."""
@@ -176,6 +187,11 @@ class FastDraws:
     def jitter(self):
         return (mantissa_uniform(fast_word(self.stream, 0)),
                 mantissa_uniform(fast_word(self.stream, 1)))
+
+    def lens(self):
+        angle = mantissa_uniform(fast_word(self.stream, 3))
+        return (mantissa_uniform(fast_word(self.stream, 2)),
+                cos_2pi_approx(angle), sin_2pi_approx(angle))
 
     def bounce(self, b: int):
         first = RAYGEN_SLOTS + FAST_WORDS_PER_BOUNCE * b

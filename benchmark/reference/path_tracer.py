@@ -11,6 +11,12 @@ centre ray of each pixel against the raster meshes' triangles, shaded by
 Bevy's default ambient light alone (the app spawns no light), with Bevy's
 reverse-Z depth ``near / view_z``.
 
+A scene with an ``aperture`` above 0 has a thin lens, focused at
+``focus_distance``: each sample's origin moves on a disk of that diameter
+and its ray aims at the pinhole ray's point at the focus distance, as
+bevyray_tpu_torch's raygen does (beyond bevyray's shader, which has no
+lens). The raster layer's rays stay pinhole rays.
+
 It takes only the scene's arrays, a camera pose and the frame's numbers,
 and works out everything else itself: the camera basis, the linear colours,
 the draws (:mod:`.draws`), the raster buffers. ``dtype`` sets the precision
@@ -33,6 +39,9 @@ AMBIENT = float(np.float32(80.0 / (125.0 * 1.2)))
 BLOCK_ELEMS = {"cuda": 1 << 26, "cpu": 1 << 22}
 # Pixels traced together.
 PIXEL_BLOCK = 1 << 20
+# Paths traced together, by device: a pixel block's samples in groups, so
+# that the long tails of deep paths share their bounces' launches.
+RAY_BLOCK = {"cuda": 1 << 24, "cpu": 1 << 20}
 
 
 class V3:
@@ -90,7 +99,8 @@ def srgb_to_linear(c: np.ndarray) -> np.ndarray:
 def camera(pose: dict, scene: dict, width: int, height: int) -> dict:
     """The camera's float32 numbers: Bevy's ``looking_at`` basis in float64
     (forward to the target, up re-orthogonalised), then right = forward x
-    up, tan(fov / 2), the aspect and the frame's size."""
+    up, tan(fov / 2), the aspect and the frame's size, and the lens's
+    diameter (0: a pinhole) and focus distance."""
     eye = np.asarray(pose["eye"], np.float64)
     fwd = np.asarray(pose["target"], np.float64) - eye
     fwd /= np.linalg.norm(fwd)
@@ -105,7 +115,9 @@ def camera(pose: dict, scene: dict, width: int, height: int) -> dict:
     return {"pos": pos, "dir": d, "up": u, "right": r,
             "scale": f32(np.tan(np.float64(half))),
             "aspect": f32(width / height), "near": f32(scene["near"]),
-            "far": f32(scene["far"]), "width": width, "height": height}
+            "far": f32(scene["far"]), "width": width, "height": height,
+            "aperture": f32(scene.get("aperture", 0.0)),
+            "focus": f32(scene.get("focus_distance", 1.0))}
 
 
 def _const(cam, key, dtype, device):
@@ -113,9 +125,12 @@ def _const(cam, key, dtype, device):
     return V3(*(torch.tensor(float(c), dtype=dtype, device=device) for c in v))
 
 
-def pixel_rays(cam: dict, pixels: torch.Tensor, ju, jv, dtype):
+def pixel_rays(cam: dict, pixels: torch.Tensor, ju, jv, dtype, lens=None):
     """(origin, direction) of the rays through ``pixels`` (row-major ids)
-    with jitter (ju, jv) in [0, 1) (0.5, 0.5: the pixel's centre)."""
+    with jitter (ju, jv) in [0, 1) (0.5, 0.5: the pixel's centre). With
+    ``lens``, a draws path's ``(u, cos, sin)``, the origin moves to radius
+    ``aperture / 2 * sqrt(u)`` on the lens and the ray aims at the pinhole
+    ray's point at the focus distance."""
     dev = pixels.device
     w, h = cam["width"], cam["height"]
     px = (pixels % w).to(torch.float32)
@@ -133,16 +148,29 @@ def pixel_rays(cam: dict, pixels: torch.Tensor, ju, jv, dtype):
          + _const(cam, "up", dtype, dev).scale(ndc_y * scale)).normalize()
     pos = _const(cam, "pos", dtype, dev)
     o = V3(*(c.expand_as(d.x).clone() for c in (pos.x, pos.y, pos.z)))
+    if lens is not None:
+        lu, cos_t, sin_t = (x.to(dtype) for x in lens)
+        half = torch.tensor(float(cam["aperture"]), dtype=dtype,
+                            device=dev) * 0.5
+        r = half * sqrt(lu)
+        focal = o + d.scale(torch.tensor(float(cam["focus"]), dtype=dtype,
+                                         device=dev))
+        o = (o + _const(cam, "right", dtype, dev).scale(r * cos_t)
+             + _const(cam, "up", dtype, dev).scale(r * sin_t))
+        d = (focal - o).normalize()
     return o, d
 
 
 def nearest_sphere(o: V3, d: V3, centers: V3, r2: torch.Tensor):
     """(t, index) of each ray's nearest accepted near root over the whole
-    table, the lowest index on ties; +inf / -1 on a miss."""
+    table, the lowest index on ties; +inf / -1 on a miss. The roots are
+    compared as q = a t (a = d.d), accepted where q > a T_MIN, and the
+    nearest one's t is q (1 / a), as bevyray_tpu_torch's walks do: a t
+    taken for every sphere first rounds some distinct roots to one."""
     n, s = o.x.shape[0], r2.shape[0]
     a = d.dot(d)
-    inv_a = 1.0 / a
-    best_t = torch.empty_like(a)
+    q_min = a * T_MIN
+    best_q = torch.empty_like(a)
     best_i = torch.empty(n, dtype=torch.int64, device=a.device)
     step = max(1, BLOCK_ELEMS[a.device.type] // s)
     for lo in range(0, n, step):
@@ -156,13 +184,15 @@ def nearest_sphere(o: V3, d: V3, centers: V3, r2: torch.Tensor):
         disc = h * h - a[sl, None] * c
         del c
         ok = disc >= 0.0
-        t = (h - sqrt(torch.clamp(disc, min=0.0))) * inv_a[sl, None]
-        t = torch.where(ok & (t > T_MIN), t, float("inf"))
+        q = h - sqrt(torch.clamp(disc, min=0.0))
+        q = torch.where(ok & (q > q_min[sl, None]), q, float("inf"))
         del h, disc, ok
-        i = torch.argmin(t, dim=1)
+        i = torch.argmin(q, dim=1)
         best_i[sl] = i
-        best_t[sl] = torch.gather(t, 1, i[:, None])[:, 0]
-    return best_t, torch.where(best_t < float("inf"), best_i, -1)
+        best_q[sl] = torch.gather(q, 1, i[:, None])[:, 0]
+    hit = best_q < float("inf")
+    return (torch.where(hit, best_q * (1.0 / a), float("inf")),
+            torch.where(hit, best_i, -1))
 
 
 def nearest_triangle(o: V3, d: V3, tri):
@@ -267,24 +297,31 @@ def trace(tables: dict, cam: dict, pixels: torch.Tensor, spp: int,
           bounces: int, level: int, frame_seed: int, draws: str, dtype):
     """(gamma-space colour V3, depth, segments) of ``pixels``, averaged
     over ``spp`` samples; the miss depth is ``far + 10`` at level 1 and
-    ``far - 1`` otherwise."""
+    ``far - 1`` otherwise. The samples are traced in groups (a path's
+    numbers do not depend on the others') and summed in their order."""
     dev = pixels.device
     n = pixels.shape[0]
     far = float(cam["far"])
     fallback = float(np.float32(far + 10.0 if level == 1 else far - 1.0))
     centers, r2, mat = tables["centers"], tables["r2"], tables["mat"]
-    zeros = lambda: torch.zeros(n, dtype=dtype, device=dev)   # noqa: E731
-    csum = V3(zeros(), zeros(), zeros())
-    dsum = zeros()
+    zeros = lambda m: torch.zeros(m, dtype=dtype, device=dev)   # noqa: E731
+    csum = V3(zeros(n), zeros(n), zeros(n))
+    dsum = zeros(n)
     segments = 0
     sky_top = (0.5, 0.7, 1.0)
-    for s in range(spp):
-        rng = DRAWS[draws](stream_words(pixels, s, frame_seed & M32))
-        o, d = pixel_rays(cam, pixels, *rng.jitter(), dtype)
-        throughput = V3(zeros() + 1.0, zeros() + 1.0, zeros() + 1.0)
-        radiance = V3(zeros(), zeros(), zeros())
-        first = torch.full((n,), float("inf"), dtype=dtype, device=dev)
-        live = torch.arange(n, device=dev)
+    group = max(1, RAY_BLOCK[dev.type] // n)
+    for s0 in range(0, spp, group):
+        k = min(group, spp - s0)
+        rays = pixels.repeat(k)
+        samples = torch.arange(s0, s0 + k, device=dev).repeat_interleave(n)
+        m = rays.shape[0]
+        rng = DRAWS[draws](stream_words(rays, samples, frame_seed & M32))
+        o, d = pixel_rays(cam, rays, *rng.jitter(), dtype,
+                          rng.lens() if cam["aperture"] > 0 else None)
+        throughput = V3(zeros(m) + 1.0, zeros(m) + 1.0, zeros(m) + 1.0)
+        radiance = V3(zeros(m), zeros(m), zeros(m))
+        first = torch.full((m,), float("inf"), dtype=dtype, device=dev)
+        live = torch.arange(m, device=dev)
         lo, ld, lrng = o, d, rng
         for b in range(bounces + 1):
             if live.numel() == 0:
@@ -359,8 +396,10 @@ def trace(tables: dict, cam: dict, pixels: torch.Tensor, spp: int,
         first = torch.where(first < float("inf"), first, fallback)
         g = V3(*(sqrt(torch.clamp(c, min=0.0)) for c in
                  (radiance.x, radiance.y, radiance.z)))
-        csum = csum + g
-        dsum = dsum + first
+        for j in range(k):
+            rows = slice(j * n, (j + 1) * n)
+            csum = csum + g.rows(rows)
+            dsum = dsum + first[rows]
     return csum.scale(1.0 / spp), dsum * (1.0 / spp), segments
 
 

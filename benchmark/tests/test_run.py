@@ -22,6 +22,8 @@ SMALL = {"resolution": [48, 27], "samples_per_pixel": 2}
 # The cells BENCHMARK.json lists, and those kept ready beside them.
 CELLS = sorted(p.stem for p in (HERE / "workloads").glob("*.json"))
 KEYS = ["correct", "attempted", "failed", "metrics", "device"]
+# The frozen scene behind a thin lens.
+LENS = {"aperture": 0.35, "focus_distance": 3.5}
 
 
 def run(cell, seed=123456789012, trace=False, **kw):
@@ -146,4 +148,18 @@ def test_control_fails(cell):
 @pytest.mark.parametrize("fault", sorted(control.FAULTS))
 def test_fault_fails(cell, fault):
     result = run(cell, wrap_entry=control.FAULTS[fault])
+    assert result["correct"] is False
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_lens_cell_is_correct(cell):
+    result = run(cell, scene_overrides=LENS)
+    assert result["correct"] is True
+    assert result["checks"]["mismatch_share"]["value"] == 0
+    assert result["checks"]["rays_gap"]["value"] == 0
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_lens_control_fails(cell):
+    result = run(cell, wrap_entry=control.ControlEntry, scene_overrides=LENS)
     assert result["correct"] is False
