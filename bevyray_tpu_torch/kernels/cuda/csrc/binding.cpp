@@ -50,7 +50,8 @@ void check_f32(const torch::Tensor& t, const torch::Tensor& like, const char* na
 // `fuse` pixel blocks share a work item's lane positions (the split only);
 // `grid` CUDA blocks take the items. `counters` holds two int64 zeros: the
 // segment count and the work counter. A non-empty `probe` (kProbeSlots
-// int64 zeros) launches the probe instance of the default kernel.
+// int64 zeros) launches the probe instance of the split/candidates or the
+// off/grouped kernel on the fast draws.
 void render_tiles(const torch::Tensor& cam, const torch::Tensor& sph,
                   const torch::Tensor& attr, const torch::Tensor& gaabb,
                   const torch::Tensor& tri, int64_t n_tris,
@@ -102,8 +103,9 @@ void render_tiles(const torch::Tensor& cam, const torch::Tensor& sph,
   }
   TORCH_CHECK(counters.numel() == 2, "counters must hold two int64: segments, work");
   const bool has_probe = probe.numel() > 0;
-  TORCH_CHECK(!has_probe || (probe.numel() == kProbeSlots && split && candidates && fast_rng),
-              "the probe takes kProbeSlots int64 and the split/candidates fast instance");
+  TORCH_CHECK(!has_probe || (probe.numel() == kProbeSlots && split == candidates && fast_rng),
+              "the probe takes kProbeSlots int64 and the split/candidates or off/grouped "
+              "fast instance");
   TORCH_CHECK(grid >= 1 && grid < (int64_t{1} << 31), "grid must be a positive int32");
   TORCH_CHECK(spp >= 1 && bounces >= 0, "spp must be >= 1 and bounces >= 0");
   TORCH_CHECK(!candidates || (gc > 0 && n_cand > 0 && n_cand <= kMaxCandGroups &&

@@ -62,12 +62,21 @@ struct RenderArgs {
 // warp once it has no pixel left in the item; then the warp-level segment
 // iterations (counted once per group of lanes that run one together) and the
 // lanes' segments, and the candidate-box slab tests the lanes run in the
-// table walks. The rest of a thread's cycles (the item's closing barrier,
-// the loops' overhead) is the total less the stages.
+// table walks (0 in the full walk over every sphere, which tests no box).
+// The rest of a thread's cycles (the item's closing barrier, the loops'
+// overhead) is the total less the stages. Then one thread of each block
+// times the block's run, from its start to the moment the block finds no
+// work item left: summed over blocks in nanoseconds (%globaltimer) and in
+// its SM's cycles, whose ratio is the SM clock the launch ran at; the
+// longest block's nanoseconds (the launch, as the blocks start together)
+// and cycles, which hold its threads' runs to within the few cycles between
+// their starts: their 32-bit sums hold only below 2^32. The last two are
+// maxima over the blocks, not sums.
 enum ProbeSlot {
   kProbeTotal, kProbeStage, kProbeFetch, kProbeSegment, kProbeWalk0,
   kProbeWalk, kProbeTriangles, kProbeWarpIdle, kProbeIssues, kProbeSegments,
-  kProbeSlabTests, kProbeSlots
+  kProbeSlabTests, kProbeBlockNs, kProbeBlockCycles, kProbeMaxNs,
+  kProbeMaxCycles, kProbeSlots
 };
 
 // Candidate groups a launch may have: 31-group mask words x 6, the JAX
@@ -87,11 +96,12 @@ struct KernelInfo {
 
 // Launches on `stream`; allocates nothing. Returns the error of the set-up
 // before the launch (a shared-memory limit); the caller checks the launch.
-// A non-null `args.probe` launches the probe instance of the default kernel
-// (split, candidates, fast draws).
+// A non-null `args.probe` launches a probe instance, on the fast draws: of
+// the default kernel (split, candidates) or of the unsplit full walk (off,
+// grouped), which frames over MAX_SPLIT_SPP samples a pixel run.
 cudaError_t launch_render_tiles(const RenderArgs& args, cudaStream_t stream);
 
 // The facts of the instance (split, candidates, fast, probe) at `fuse`
-// staged shortlists of `sl_cap` entries each.
+// staged shortlists of `sl_cap` entries each; a probe instance as above.
 cudaError_t kernel_info(bool split, bool candidates, bool fast, bool probe, int fuse,
                         int sl_cap, KernelInfo* out);

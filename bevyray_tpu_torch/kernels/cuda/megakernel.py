@@ -669,25 +669,44 @@ def _launch(pscene: KernelScene, cam: CameraState, config: RenderConfig,
 
 # The probe's clock sums, in the kernel's ProbeSlot order (megakernel.h).
 PROBE_SLOTS = ("total", "stage", "fetch", "segment", "walk0", "walk",
-               "triangles", "warp_idle", "issues", "segments", "slab_tests")
+               "triangles", "warp_idle", "issues", "segments", "slab_tests",
+               "block_ns", "block_cycles", "max_ns", "max_cycles")
+# A thread's clock sums are 32-bit, so a run of 2^32 cycles wraps them; the
+# longest block's run (``max_cycles``) holds its threads' to within the
+# cycles between their starts, far below the 2^20 kept spare.
+PROBE_WRAP_CYCLES = 2 ** 32 - 2 ** 20
+# The (primary, intersect) modes that have a probe instance: the default
+# kernel's, and the unsplit full walk that a frame of more than
+# MAX_SPLIT_SPP samples a pixel takes below 1025 padded spheres.
+PROBE_MODES = (("split", "candidates"), ("off", "grouped"))
 
 
 def render_tiles_probe(pscene: KernelScene, cam: CameraState,
                        config: RenderConfig, frame_seed, sample_offset=0,
                        normalize: bool = True, sl=None, slmeta=None,
                        spp_map=None):
-    """One launch of the probe instance of the default kernel (the split,
-    the candidate walk, the fast draw path; :func:`kernel_fuse`'s fuse):
-    the kernel with ``clock64()`` reads around its stages, for measurement
-    only. Returns :func:`render_tiles`' outputs, which equal the default
-    instance's, and a dict of the clock sums over all threads
-    (:data:`PROBE_SLOTS`: cycles per stage; ``issues``, the warp-level
-    segment iterations, and ``segments``, the lanes' segments, whose ratio
-    is the mean of active lanes per iteration; ``slab_tests``, the
-    candidate-box tests the lanes' table walks run). Takes CUDA tensors
-    only; it is not counted in ``render_tiles.launches``."""
+    """One launch of the probe instance of the kernel in one of
+    :data:`PROBE_MODES` (the mode :func:`kernel_mode` gives these inputs,
+    the fast draw path, :func:`kernel_fuse`'s fuse): the kernel with
+    ``clock64()`` reads around its stages, for measurement only. Returns
+    :func:`render_tiles`' outputs, which equal the default instance's, and
+    a dict of the clock sums over all threads (:data:`PROBE_SLOTS`: cycles
+    per stage; ``issues``, the warp-level segment iterations, and
+    ``segments``, the lanes' segments, whose ratio is the mean of active
+    lanes per iteration; ``slab_tests``, the candidate-box tests the lanes'
+    table walks run, 0 in the off/grouped walk, which tests no box; so is
+    ``walk0``, the shortlist walk of the split); then the blocks' runs
+    (``block_ns`` and ``block_cycles``, summed over the blocks, whose ratio
+    is the SM clock in GHz; ``max_ns`` and ``max_cycles``, the longest
+    block's, maxima). Raises where a thread may have run long enough to
+    wrap its sums (:func:`check_probe_clocks`). Takes
+    CUDA tensors only; it is not counted in ``render_tiles.launches``."""
     from .build import extension
 
+    mode = kernel_mode(pscene, config, sl)
+    if mode not in PROBE_MODES:
+        raise ValueError(f"no probe instance runs {'/'.join(mode)}: only "
+                         + ", ".join("/".join(m) for m in PROBE_MODES))
     dev = pscene.sph.device
     if dev.type != "cuda":
         raise ValueError("render_tiles_probe measures the CUDA kernel; it "
@@ -695,14 +714,25 @@ def render_tiles_probe(pscene: KernelScene, cam: CameraState,
     n_tiles = local_blocks(config)
     _check_shortlists(pscene, config, sl, slmeta, n_tiles)
     _check_accumulation(pscene, sample_offset, spp_map, n_tiles)
-    if kernel_mode(pscene, config, sl) != ("split", "candidates"):
-        raise ValueError("the probe instance runs split/candidates only")
     probe = torch.zeros(extension().probe_slots, dtype=torch.int64,
                         device=dev)
     outs = _launch(pscene, cam, config, frame_seed, False, 0, sample_offset,
                    n_tiles, normalize, sl, slmeta, spp_map,
                    kernel_fuse(pscene, config, sl), probe)
-    return outs, dict(zip(PROBE_SLOTS, probe.tolist()))
+    clocks = dict(zip(PROBE_SLOTS, probe.tolist()))
+    check_probe_clocks(clocks)
+    return outs, clocks
+
+
+def check_probe_clocks(clocks: dict) -> None:
+    """Raises unless the longest block's run (``max_cycles``) stayed under
+    :data:`PROBE_WRAP_CYCLES`, so that no thread's 32-bit stage sums
+    wrapped."""
+    if clocks["max_cycles"] >= PROBE_WRAP_CYCLES:
+        raise RuntimeError(
+            f"a probe block ran {clocks['max_cycles']} cycles "
+            f"({clocks['max_ns'] / 1e6:.0f} ms), too near the 2^32 that a "
+            "thread's 32-bit clock sums hold: probe a shorter launch")
 
 
 def _inv_spp(config: RenderConfig, normalize: bool) -> float:

@@ -60,7 +60,14 @@ the work items of each main-path grid against them; (b) the probe instance
 of the default kernel (``clock64()`` per stage, active lanes per segment
 iteration) at the headline, under the adaptive pass-3 map and at config 5,
 each launch bit-equal to the default instance; (c) the default instance's
-IEEE sqrt in the SASS of the built library (``cuobjdump -sass``).
+IEEE sqrt in the SASS of the built library (``cuobjdump -sass``); (d) the
+book's final render (Ray Tracing in One Weekend v4, 14.1: 1200x675, 500
+spp, depth 50, thin lens; the benchmark's configuration and scene) through
+``FusedRenderer`` at its defaults, which must take the unsplit full walk
+(off/grouped) on the fast draws, and the off/grouped probe instance on that
+frame, bit-equal to the default instance: cycles by stage, lanes live per
+issue, segments a sample, the SM clock and the blocks' runs against the
+launch's.
 
 Phase 10 drives the port's command line in-process (``app.cli.main``) at
 its defaults (final scene, 1280x720, 16 spp, 4 bounces, level 3): (a)
@@ -263,6 +270,14 @@ WAVE_MESHES = ((2, 1, 2), (1, 2, 2), (40, 1, 1))
 # The wavefront sharded step with tp at the headline: (2, 2, 2) is
 # default_mesh_shape(8), the JAX package's default mesh.
 TP_MESHES = ((1, 1, 2), (2, 2, 2))
+# Phase 9(d). The book's final render (Ray Tracing in One Weekend v4, 14.1
+# "A Final Render") as the benchmark defines it: its configuration
+# (benchmark/configs/, 1200x675, 500 spp, max_depth 50 as 49 bounces) and
+# scene (benchmark/scenes/rtiow_book.py, the book's camera and thin lens),
+# read by `book_inputs`. Over MAX_SPLIT_SPP samples a pixel the split's gate
+# declines, and below 1025 padded spheres "auto" takes no candidate walk.
+BOOK_CONFIG = "rtiow-book-final"
+BOOK_MODE = ("off", "grouped")
 # Phase 10. The command line at its defaults (bevyray_tpu_torch/app/cli.py:
 # final scene, scene seed 42, 1280x720, 16 spp, 4 bounces, level 3, seed 1),
 # held against direct calls of the same renderers. CLI_ARGV goes after each
@@ -1070,6 +1085,7 @@ def main() -> int:
                                fast_entries[0]["bound_ms"],
                                fast_entries[0]["bound_by"]))
     probe_phase(scene, cam, headline, card, map_pass)
+    book_phase(card)
     denoise_inputs, denoise_launches = cli_phase(card, dev)
     oracle_phase(card, dev)
     bench_phase(scene, cam, headline, card, dev)
@@ -2214,13 +2230,14 @@ def probe_phase(scene, cam, headline, card, map_pass) -> None:
     infos = {}
     for split in (False, True):
         for candidates in (False, True):
+            mode = ("split" if split else "off",
+                    "candidates" if candidates else "grouped")
             for fast_rng in (False, True):
                 for probe in (False, True):
-                    if probe and not (split and candidates and fast_rng):
+                    if probe and not (fast_rng and mode in mk.PROBE_MODES):
                         continue
-                    name = (f"{'split' if split else 'off'}/"
-                            f"{'candidates' if candidates else 'grouped'}/"
-                            f"{'fast' if fast_rng else 'exact'}"
+                    name = ("/".join(mode)
+                            + f"/{'fast' if fast_rng else 'exact'}"
                             + ("/probe" if probe else ""))
                     by_fuse = {f: mk.instance_info(dev, split, candidates,
                                                    fast_rng, f, sl_cap, probe)
@@ -2256,22 +2273,6 @@ def probe_phase(scene, cam, headline, card, map_pass) -> None:
 
     # (b) The probe at three cells, each launch against the default
     # instance's bits, with both kernels' ms.
-    def shares(clk) -> dict:
-        total = clk["total"]
-        shade = (clk["segment"] - clk["walk0"] - clk["walk"]
-                 - clk["triangles"])
-        parts = {"walk0 (bounce-0 shortlist)": clk["walk0"],
-                 "walk (candidates)": clk["walk"],
-                 "triangles": clk["triangles"],
-                 "shading, draws, raygen, harvest": shade,
-                 "taking pixels": clk["fetch"],
-                 "taking items, staging": clk["stage"],
-                 "lane idle in its warp": clk["warp_idle"]}
-        # The clock reads around the item's barrier may be scheduled across
-        # it, so its wait is counted with the loop's other overhead.
-        parts["item barrier, other"] = total - sum(parts.values())
-        return {k: round(v / total, 4) for k, v in parts.items()}
-
     world5, config5 = config5_world()
     cam5 = world5.camera_state(aspect=16 / 9)
     k5 = mk.prepare_kernel_scene(world5.extract(with_bvh=False))
@@ -2301,7 +2302,7 @@ def probe_phase(scene, cam, headline, card, map_pass) -> None:
               f"{mk.kernel_fuse(ks, cfg, s_l)}: bit-equal to the default "
               f"instance, {clk['segments']} segments; mean active lanes per "
               f"segment iteration {clk['segments'] / clk['issues']:.2f} of "
-              f"32; cycle shares {json.dumps(shares(clk))}; "
+              f"32; cycle shares {json.dumps(probe_shares(clk))}; "
               f"{clk['slab_tests']} slab tests "
               f"({clk['slab_tests'] / clk['segments']:.2f} a segment), "
               f"walk cycles per slab test "
@@ -2322,6 +2323,120 @@ def probe_phase(scene, cam, headline, card, map_pass) -> None:
           f"{json.dumps(walk) if walk else 'not found'}", flush=True)
     for line in lines:
         print(f"phase 9(c) walk loop | {line}")
+
+
+def probe_shares(clk, walk="walk (candidates)") -> dict:
+    """The probe's clock sums as shares of the threads' total cycles, by
+    stage; ``walk`` names the table walk."""
+    total = clk["total"]
+    shade = clk["segment"] - clk["walk0"] - clk["walk"] - clk["triangles"]
+    parts = {"walk0 (bounce-0 shortlist)": clk["walk0"],
+             walk: clk["walk"],
+             "triangles": clk["triangles"],
+             "shading, draws, raygen, harvest": shade,
+             "taking pixels": clk["fetch"],
+             "taking items, staging": clk["stage"],
+             "lane idle in its warp": clk["warp_idle"]}
+    # The clock reads around the item's barrier may be scheduled across it,
+    # so its wait is counted with the loop's other overhead.
+    parts["item barrier, other"] = total - sum(parts.values())
+    return {k: round(v / total, 4) for k, v in parts.items()}
+
+
+def book_inputs():
+    """The book's final render as the benchmark's harness builds it
+    (phase 9(d)): the scene of the configuration ``BOOK_CONFIG`` as a
+    ``World``, the frame as a ``RenderConfig`` with the lens on, and the
+    scene's arrays (``aperture``, ``focus_distance``, ...)."""
+    bench = ROOT / "benchmark"
+    if str(bench) not in sys.path:
+        sys.path.insert(0, str(bench))
+    import harness
+
+    config = harness.load_json(bench / "configs" / f"{BOOK_CONFIG}.json")
+    scene = harness.load_module("scenes", config["scene"]).build(
+        config["scene_seed"])
+    return (harness.port_world(scene), harness.render_config(config, scene),
+            scene)
+
+
+def book_phase(card) -> None:
+    """Phase 9(d): the book's final render through ``FusedRenderer`` at its
+    defaults, which must take the unsplit full walk (``BOOK_MODE``) on the
+    fast draws, then the probe instance of that walk on the frame's inputs,
+    bit-equal to the default instance: the threads' cycles by stage, lanes
+    live per warp-level segment iteration and segments a sample, the SM
+    clock the probe ran at and how long its blocks ran against the longest
+    (the share of the launch after a block found no work left), beside the
+    two instances' registers, resident blocks and kernel ms."""
+    import torch
+
+    from bevyray_tpu_torch import FusedRenderer
+    from bevyray_tpu_torch.kernels.cuda import megakernel as mk
+
+    dev = torch.device("cuda", 0)
+    world, config, arrays = book_inputs()
+    scene = world.extract(with_bvh=False, device=dev)
+    cam = world.camera_state(aspect=config.width / config.height, device=dev)
+    renderer = FusedRenderer(config)
+    renderer.render(scene, cam, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frame = renderer.render(scene, cam, 2)
+    torch.cuda.synchronize()
+    frame_ms = (time.perf_counter() - t0) * 1e3
+    if (renderer.last_mode != BOOK_MODE or renderer.last_exact_rng
+            is not False or renderer.last_fuse != 1):
+        raise SystemExit(
+            f"phase 9(d): the book's frame ran {renderer.last_mode}, fuse "
+            f"{renderer.last_fuse}, exact_rng {renderer.last_exact_rng}, not "
+            f"{BOOK_MODE} at fuse 1 on the fast draws")
+    kscene = renderer.prepare(scene)
+    want = mk.render_tiles(kscene, cam, config, 2, exact_rng=False)
+    got, clk = mk.render_tiles_probe(kscene, cam, config, 2)
+    torch.cuda.synchronize()
+    if (not all(torch.equal(g, w) for g, w in zip(got, want))
+            or clk["segments"] != int(want[4])
+            or int(frame.rays_traced) != int(want[4])):
+        raise SystemExit("phase 9(d) book frame: the probe instance differs "
+                         "from the default instance")
+    if clk["walk0"] or clk["slab_tests"]:
+        raise SystemExit("phase 9(d): the unsplit full walk ran a shortlist "
+                         "walk or a slab test")
+    ms = cuda_ms(lambda: mk.render_tiles(kscene, cam, config, 2,
+                                         exact_rng=False), 2)
+    probe_ms = cuda_ms(lambda: mk.render_tiles_probe(kscene, cam, config,
+                                                     2), 2)
+    infos = {probe: mk.instance_info(dev, False, False, True, 1, 0, probe)
+             for probe in (False, True)}
+    grid = mk.persistent_grid(mk.local_blocks(config),
+                              infos[True]["blocks_per_sm"],
+                              infos[True]["n_sms"])
+    block_ms = clk["block_ns"] / grid / 1e6
+    after = 1 - block_ms * 1e6 / clk["max_ns"]
+    samples = config.width * config.height * config.samples_per_pixel
+    print(f"phase 9(d) book frame {config.width}x{config.height}, "
+          f"{config.samples_per_pixel} spp, {config.bounces} bounces, lens "
+          f"{arrays['aperture']!r} at {arrays['focus_distance']}: "
+          f"FusedRenderer {'/'.join(renderer.last_mode)} fuse "
+          f"{renderer.last_fuse}, fast "
+          f"draws, {frame_ms:.1f} ms a frame (host, synchronised), "
+          f"{int(want[4])} segments ({int(want[4]) / samples:.4f} a sample) "
+          f"| {card}", flush=True)
+    print(f"phase 9(d) probe book frame, off/grouped fast fuse 1: bit-equal "
+          f"to the default instance; mean active lanes per segment "
+          f"iteration {clk['segments'] / clk['issues']:.2f} of 32; cycle "
+          f"shares {json.dumps(probe_shares(clk, 'walk (every sphere)'))}; "
+          f"clock sums {json.dumps(clk)}; SM clock "
+          f"{clk['block_cycles'] / clk['block_ns']:.4f} GHz; {grid} blocks "
+          f"ran {block_ms:.1f} ms on average, the longest "
+          f"{clk['max_ns'] / 1e6:.1f} ms: {after:.4f} of the launch's "
+          f"block time after a block found no work left; the longest block "
+          f"{clk['max_cycles']} cycles; kernel {ms:.3f} ms, probe "
+          f"{probe_ms:.3f} ms; registers {infos[False]['num_regs']} / probe "
+          f"{infos[True]['num_regs']}, resident blocks per SM "
+          f"{infos[False]['blocks_per_sm']} / probe "
+          f"{infos[True]['blocks_per_sm']} | {card}", flush=True)
 
 
 def cli_phase(card, dev) -> tuple:
