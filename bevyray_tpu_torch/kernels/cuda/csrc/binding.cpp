@@ -48,10 +48,15 @@ void check_f32(const torch::Tensor& t, const torch::Tensor& like, const char* na
 // not empty; the first `n_tris` rows of `tri` only when it is not 0.
 // `fast_rng` takes the fast draw path with `draw_words` words per bounce;
 // `fuse` pixel blocks share a work item's lane positions (the split only);
-// `grid` CUDA blocks take the items. `counters` holds two int64 zeros: the
-// segment count and the work counter. A non-empty `probe` (kProbeSlots
-// int64 zeros) launches the probe instance of the split/candidates or the
-// off/grouped kernel on the fast draws.
+// `grid` CUDA blocks take the items (the full walk's threads, the pixels).
+// `counters` holds two int64 zeros: the segment count and the work counter.
+// A non-empty `probe` (kProbeSlots int64 zeros) launches the probe instance
+// of the split/candidates or the off/grouped kernel on the fast draws. The
+// full walk (off/grouped) alone takes the last three: its main launch
+// continues the outputs' sums from sample `first_sample` on and takes its
+// lanes in the order of `order` (int32, a permutation of the lanes); its
+// pilot adds each pixel's segments to `cost` (int32, one a lane). Empty
+// tensors leave them out.
 void render_tiles(const torch::Tensor& cam, const torch::Tensor& sph,
                   const torch::Tensor& attr, const torch::Tensor& gaabb,
                   const torch::Tensor& tri, int64_t n_tris,
@@ -66,7 +71,8 @@ void render_tiles(const torch::Tensor& cam, const torch::Tensor& sph,
                   bool cosine, bool split, bool candidates, int64_t gc,
                   int64_t n_cand, int64_t cand_off, bool fast_rng,
                   int64_t draw_words, int64_t fuse, int64_t grid,
-                  const torch::Tensor& probe) {
+                  const torch::Tensor& probe, int64_t first_sample,
+                  const torch::Tensor& order, const torch::Tensor& cost) {
   check_f32(sph, sph, "sph");
   check_f32(cam, sph, "cam");
   check_f32(attr, sph, "attr");
@@ -108,6 +114,16 @@ void render_tiles(const torch::Tensor& cam, const torch::Tensor& sph,
               "fast instance");
   TORCH_CHECK(grid >= 1 && grid < (int64_t{1} << 31), "grid must be a positive int32");
   TORCH_CHECK(spp >= 1 && bounces >= 0, "spp must be >= 1 and bounces >= 0");
+  for (const torch::Tensor* t : {&order, &cost}) {
+    TORCH_CHECK(t->numel() == 0 || (!split && !candidates && t->is_cuda() &&
+                                    t->device() == sph.device() &&
+                                    t->scalar_type() == torch::kInt32 &&
+                                    t->is_contiguous() && t->numel() == n_lanes),
+                "order and cost are the full walk's: contiguous int32, one a lane");
+  }
+  TORCH_CHECK(first_sample >= 0 && first_sample < spp &&
+                  (first_sample == 0 || (!split && !candidates)),
+              "first_sample must lie in [0, spp), and above 0 in the full walk only");
   TORCH_CHECK(!candidates || (gc > 0 && n_cand > 0 && n_cand <= kMaxCandGroups &&
                               cand_off >= 0 && cand_off + n_cand <= gaabb.size(1) &&
                               n_cand * gc >= sph.size(1)),
@@ -184,6 +200,9 @@ void render_tiles(const torch::Tensor& cam, const torch::Tensor& sph,
   args.draw_words = static_cast<int>(draw_words);
   args.fuse = static_cast<int>(fuse);
   args.grid = static_cast<int>(grid);
+  args.first_sample = static_cast<int>(first_sample);
+  args.order = order.numel() > 0 ? order.data_ptr<int32_t>() : nullptr;
+  args.cost = cost.numel() > 0 ? cost.data_ptr<int32_t>() : nullptr;
 
   const c10::cuda::CUDAGuard guard(sph.device());
   C10_CUDA_CHECK(launch_render_tiles(args, c10::cuda::getCurrentCUDAStream().stream()));

@@ -20,7 +20,8 @@ struct RenderArgs {
   float* out_b;
   float* out_depth;
   // Two int64 counters, zero at launch: [0] the traced segments, added to;
-  // [1] the work counter, the next work item a CUDA block takes.
+  // [1] the work counter: the next work item a CUDA block takes, or in the
+  // full walk (neither split nor candidates) the next pixel a thread takes.
   unsigned long long* counters;
   // The probe instance's per-stage clock sums (kProbeSlots), or null.
   unsigned long long* probe;
@@ -52,21 +53,31 @@ struct RenderArgs {
   int draw_words;       // fast path: words per bounce, 6, 9 or 13
   int fuse;             // pixel blocks per work item's lane positions: 1, 2, 4, 8
   int grid;             // CUDA blocks of the persistent grid
+  // The full walk's two launches (megakernel.py `pilot_samples`): the main
+  // launch continues each lane's sums in the outputs from sample
+  // first_sample on (0: none) and takes the lanes in `order`'s order (or
+  // null: block order); the pilot adds each pixel's segments to `cost` (or
+  // null).
+  int first_sample;
+  const int* order;
+  int* cost;
 };
 
 // Slots of the probe's clock sums (cycles summed over threads, as unsigned
 // 64-bit): the thread's whole run, taking an item and staging its
-// shortlists, taking pixels (and writing finished ones), the segment
-// iterations, within them the bounce-0 shortlist walk, the table walks
-// (candidates or every sphere) and the triangle loop; a lane's wait for its
-// warp once it has no pixel left in the item; then the warp-level segment
+// shortlists (0 in the full walk, which takes no items), taking pixels (and
+// writing finished ones), the segment iterations, within them the bounce-0
+// shortlist walk, the table walks (candidates or every sphere) and the
+// triangle loop; a lane's wait for its warp once it has no pixel left in the
+// item (the full walk: in the launch); then the warp-level segment
 // iterations (counted once per group of lanes that run one together) and the
 // lanes' segments, and the candidate-box slab tests the lanes run in the
 // table walks (0 in the full walk over every sphere, which tests no box).
-// The rest of a thread's cycles (the item's closing barrier, the loops'
-// overhead) is the total less the stages. Then one thread of each block
-// times the block's run, from its start to the moment the block finds no
-// work item left: summed over blocks in nanoseconds (%globaltimer) and in
+// The rest of a thread's cycles (the item's closing barrier, or the full
+// walk's one wait at the block's end; the loops' overhead) is the total less
+// the stages. Then one thread of each block times the block's run, from its
+// start to the moment the block finds no work left (the full walk: its last
+// thread): summed over blocks in nanoseconds (%globaltimer) and in
 // its SM's cycles, whose ratio is the SM clock the launch ran at; the
 // longest block's nanoseconds (the launch, as the blocks start together)
 // and cycles, which hold its threads' runs to within the few cycles between

@@ -5,9 +5,15 @@ Counterpart of ``bevyray_tpu/kernels/pallas/megakernel.py``. The TPU kernel
 (``render_tiles`` -> ``_render_kernel``) traces the whole frame in one
 ``pallas_call``; here ``render_tiles`` launches ``csrc/megakernel.cu``, one
 thread per pixel looping over samples, bounces and spheres, on a persistent
-grid: as many CUDA blocks as the card holds at once take work items (runs of
-256-lane slices, :func:`work_items`, :func:`persistent_grid`) from a
-counter, and a thread that has finished its pixel takes the item's next one.
+grid: as many CUDA blocks as the card holds at once (:func:`persistent_grid`)
+take work from one counter, and a thread that has finished its pixel takes
+the next one. The unsplit full walk (off/grouped) takes each pixel from the
+launch's counter, over the whole grid (:func:`item_pixels`), and at many
+samples a pixel first runs a pilot launch of a few samples whose segment
+counts order the main launch's pixels, costliest first
+(:func:`pilot_samples`, :func:`walk_order`); the split and candidate walks
+take work items (runs of 256-lane slices, :func:`work_items`) closed by a
+block barrier, and a thread takes the item's next pixel.
 It draws from
 the exact PCG streams (``exact_rng=True``) or from the fast path's keyed
 words and bit-trick balls (``exact_rng=False``, :mod:`.fast_rng`);
@@ -534,8 +540,10 @@ def render_tiles(pscene: KernelScene, cam: CameraState, config: RenderConfig,
 
     On CPU tensors this runs :func:`render_tiles_reference`. On CUDA tensors
     it launches the CUDA kernel (built on first use) or raises; it never
-    falls back. ``render_tiles.launches`` counts the kernel's launches and
-    ``render_tiles.launches_by`` splits them by ("exact" | "fast", fuse).
+    falls back. ``render_tiles.launches`` counts the calls that launched the
+    kernel (the full walk's pilot and main launches count once,
+    :func:`pilot_samples`) and ``render_tiles.launches_by`` splits them by
+    ("exact" | "fast", fuse).
     """
     dev = pscene.sph.device
     exact_rng = resolve_exact_rng(exact_rng, dev)
@@ -554,11 +562,12 @@ def render_tiles(pscene: KernelScene, cam: CameraState, config: RenderConfig,
     if dev.type != "cuda":
         raise ValueError(f"render_tiles takes CPU or CUDA tensors, not {dev}")
     fuse = kernel_fuse(pscene, config, sl, n_blocks_local)
-    outs = _launch(pscene, cam, config, frame_seed, exact_rng, block_offset,
-                   sample_offset, n_tiles, normalize, sl, slmeta, spp_map, fuse)
+    outs, segments = _frame(pscene, cam, config, frame_seed, exact_rng,
+                            block_offset, sample_offset, n_tiles, normalize,
+                            sl, slmeta, spp_map, fuse)
     render_tiles.launches += 1
     render_tiles.launches_by["exact" if exact_rng else "fast", fuse] += 1
-    return outs
+    return (*outs, sum(segments))
 
 
 render_tiles.launches = 0
@@ -569,10 +578,13 @@ GUIDE = 2   # under a sample map an item takes <= 1 / (GUIDE x grid) of the unit
 
 
 def work_items(n_tiles: int, fuse: int, grid: int, sampled: bool) -> list:
-    """The work items of a launch over ``n_tiles`` local pixel blocks on a
-    grid of ``grid`` CUDA blocks, as (lo, hi) ranges of units, a unit being
-    one 256-lane slice of one block (unit u: slice u % SLICES of local block
-    u // SLICES), in the order the kernel's counter hands them out. Without
+    """The work items of a launch of the split or candidate instances over
+    ``n_tiles`` local pixel blocks on a grid of ``grid`` CUDA blocks, as (lo,
+    hi) ranges of units, a unit being one 256-lane slice of one block (unit
+    u: slice u % SLICES of local block u // SLICES), in the order the
+    kernel's counter hands them out. The full walk (off/grouped) takes no
+    items: its threads take single pixels from the counter, as one item of
+    every unit (:func:`item_pixels` with ``lo`` 0). Without
     a sample map each item is one unit: a thread traces one pixel and the
     warps of a CUDA block trace neighbouring rows together. Under one
     (``sampled``) an item takes at most 1 / (GUIDE x grid) of the units
@@ -589,6 +601,24 @@ def work_items(n_tiles: int, fuse: int, grid: int, sampled: bool) -> list:
         items.append((lo, lo + size))
         lo += size
     return items
+
+
+def item_pixels(k: torch.Tensor, lo: int, block_offset: int, nbx: int):
+    """The kernel's map (``csrc/megakernel.cu`` ``trace_item``) from the
+    indices ``k`` of a work item's pixels to (local block, lane within it,
+    px, py): pixel k of the item that starts at unit ``lo`` is lane k % 256
+    of unit lo + k // 256, and the local block's global index
+    ``block_offset`` + local, in a grid ``nbx`` blocks wide, gives the
+    coordinates and so the draw keys. The full walk's one item starts at unit
+    0, so its counter's value k is local lane k, in the plain version's lane
+    order."""
+    unit = lo + k // 256
+    blk = unit // SLICES
+    r = (unit % SLICES) * 256 + k % 256
+    block = block_offset + blk
+    px = (block % nbx) * BLOCK_W + r % BLOCK_W
+    py = (block // nbx) * BLOCK_H + r // BLOCK_W
+    return blk, r, px, py
 
 
 def persistent_grid(n_tiles: int, blocks_per_sm: int, n_sms: int) -> int:
@@ -621,13 +651,91 @@ def instance_info(device, split: bool, candidates: bool, fast: bool,
     return _INFO[key]
 
 
+# Samples a pixel of the full walk's pilot launch (:func:`pilot_samples`).
+PILOT_SPP = 8
+
+
+def pilot_samples(mode: tuple, spp: int) -> int:
+    """The samples a pixel that the unsplit full walk (off/grouped) traces
+    in a pilot launch before its main launch, or 0 for one launch. A frame
+    of at least 4 x :data:`PILOT_SPP` samples a pixel traces the first
+    PILOT_SPP of them in the block order, and the kernel counts each pixel's
+    segments; the main launch traces the rest, each pixel's sums continued
+    in sample order (so the bits are one launch's), and takes the costliest
+    pixels first (:func:`walk_order`). A pixel at 500 samples may cost as
+    much as a thread's whole share of the frame, so one taken late sets the
+    frame's end; the pilot's counts say which to take early. On an H100 a
+    pilot took 10-22% off the counter alone on the book's frame at 40 and
+    100 samples and 8-11% at 16, but added 1-3% to the final scene's 1080p
+    frame of 16 samples and 4 bounces, whose pixels cost nearly alike, so a
+    frame of fewer samples takes one launch."""
+    if mode == ("off", "grouped") and spp >= 4 * PILOT_SPP:
+        return PILOT_SPP
+    return 0
+
+
+def walk_order(cost: torch.Tensor, nbx: int, nby: int,
+               block_offset: int = 0) -> torch.Tensor:
+    """The local lanes in the order the full walk's main launch takes them:
+    by the pilot's segment counts ``cost`` (int32, one a lane) averaged over
+    each pixel's 3x3 neighbours in the padded frame of ``nbx`` x ``nby``
+    pixel blocks (those inside it; lanes of other shards count 0), the
+    costliest first, and lanes of equal mean in block order. A few samples
+    rank one pixel's cost roughly; its neighbours mostly see the same
+    surfaces, so their mean ranks it better, and a costly pixel ranked
+    low is taken late and sets the launch's end. Lanes outside the frame
+    count 0."""
+    lane = torch.arange(cost.numel(), device=cost.device)
+    _, _, px, py = item_pixels(lane, 0, block_offset, nbx)
+    width = nbx * BLOCK_W
+    at = py * width + px
+    image = torch.zeros(nby * BLOCK_H * width, device=cost.device)
+    image[at] = cost.float()
+    mean = torch.nn.functional.avg_pool2d(
+        image.view(1, 1, nby * BLOCK_H, width), 3, stride=1, padding=1,
+        count_include_pad=False)
+    return torch.argsort(mean.view(-1)[at], descending=True,
+                         stable=True).to(torch.int32)
+
+
+def _frame(pscene: KernelScene, cam: CameraState, config: RenderConfig,
+           frame_seed, exact_rng: bool, block_offset: int,
+           sample_offset: int, n_tiles: int, normalize: bool, sl, slmeta,
+           spp_map, fuse: int, probe=None):
+    """The launches of one :func:`render_tiles` call on the card: one, or the
+    full walk's pilot and main launches (:func:`pilot_samples`), the main
+    one continuing the pilot's sums in place. Returns the four outputs and
+    the segments each launch counted, the pilot's first. A ``probe`` takes
+    the main launch."""
+    pilot = pilot_samples(kernel_mode(pscene, config, sl),
+                          config.samples_per_pixel)
+    run = (pscene, cam, config, frame_seed, exact_rng, block_offset,
+           sample_offset, n_tiles, normalize, sl, slmeta, spp_map, fuse)
+    if not pilot:
+        *outs, segments = _launch(*run, probe=probe)
+        return outs, (segments,)
+    cost = torch.zeros(n_tiles * TILE, dtype=torch.int32,
+                       device=pscene.sph.device)
+    *sums, pilot_segments = _launch(*run, spp=pilot, cost=cost)
+    order = walk_order(cost, *block_grid(config), block_offset)
+    *outs, segments = _launch(*run, probe=probe, first_sample=pilot,
+                              order=order, outs=sums)
+    return outs, (pilot_segments, segments)
+
+
 def _launch(pscene: KernelScene, cam: CameraState, config: RenderConfig,
             frame_seed, exact_rng: bool, block_offset: int,
             sample_offset: int, n_tiles: int, normalize: bool, sl, slmeta,
-            spp_map, fuse: int, probe=None):
+            spp_map, fuse: int, probe=None, spp=None, cost=None,
+            first_sample=0, order=None, outs=None):
     """One launch of the CUDA kernel on the persistent grid; ``probe`` (an
     int64 tensor of the extension's ``probe_slots`` zeros) takes the probe
-    instance and receives its clock sums."""
+    instance and receives its clock sums. The full walk's pilot gives
+    ``spp`` (its samples a pixel, summed unnormalised) and ``cost`` (int32
+    zeros, one a lane, that receive each pixel's segments); its main launch
+    ``first_sample`` (the samples the pilot traced), ``order`` (the lanes in
+    the order its threads take them) and ``outs`` (the pilot's sums, which
+    it continues in place)."""
     from .build import extension
 
     dev = pscene.sph.device
@@ -641,10 +749,11 @@ def _launch(pscene: KernelScene, cam: CameraState, config: RenderConfig,
     nbx, _ = block_grid(config)
     n_lanes = n_tiles * TILE
     cam_row = camera_rows(cam, config).fused.to(dev)
-    outs = [torch.empty(n_lanes, dtype=torch.float32, device=dev)
-            for _ in range(4)]
+    if outs is None:
+        outs = [torch.empty(n_lanes, dtype=torch.float32, device=dev)
+                for _ in range(4)]
     # [0] the segment count, [1] the work counter the CUDA blocks take items
-    # from: fresh for every launch.
+    # (the full walk's threads, pixels) from: fresh for every launch.
     counters = torch.zeros(2, dtype=torch.int64, device=dev)
     if sl is None:
         sl = slmeta = torch.empty(0, dtype=torch.float32, device=dev)
@@ -652,18 +761,21 @@ def _launch(pscene: KernelScene, cam: CameraState, config: RenderConfig,
         spp_map = torch.empty(0, dtype=torch.int32, device=dev)
     if probe is None:
         probe = torch.empty(0, dtype=torch.int64, device=dev)
+    none = torch.empty(0, dtype=torch.int32, device=dev)
     ext.render_tiles(cam_row, pscene.sph, pscene.attr, pscene.gaabb,
                      pscene.tri, pscene.n_tris, sl.contiguous(),
                      slmeta.contiguous(),
                      spp_map.contiguous(), *outs, counters,
                      nbx, block_offset, config.width, config.height,
-                     config.samples_per_pixel, config.bounces,
+                     spp or config.samples_per_pixel, config.bounces,
                      int(frame_seed) & _M32, int(sample_offset),
-                     _inv_spp(config, normalize),
+                     1.0 if spp else _inv_spp(config, normalize),
                      config.level, config.defocus,
                      config.diffuse_sampling == "cosine", split, candidates,
                      pscene.gc, pscene.n_cand, pscene.cand_off, not exact_rng,
-                     fast_rng.words_per_bounce(), fuse, grid, probe)
+                     fast_rng.words_per_bounce(), fuse, grid, probe,
+                     first_sample, none if order is None else order,
+                     none if cost is None else cost)
     return (*outs, counters[0])
 
 
@@ -685,7 +797,7 @@ def render_tiles_probe(pscene: KernelScene, cam: CameraState,
                        config: RenderConfig, frame_seed, sample_offset=0,
                        normalize: bool = True, sl=None, slmeta=None,
                        spp_map=None):
-    """One launch of the probe instance of the kernel in one of
+    """A launch of the probe instance of the kernel in one of
     :data:`PROBE_MODES` (the mode :func:`kernel_mode` gives these inputs,
     the fast draw path, :func:`kernel_fuse`'s fuse): the kernel with
     ``clock64()`` reads around its stages, for measurement only. Returns
@@ -698,9 +810,14 @@ def render_tiles_probe(pscene: KernelScene, cam: CameraState,
     ``walk0``, the shortlist walk of the split); then the blocks' runs
     (``block_ns`` and ``block_cycles``, summed over the blocks, whose ratio
     is the SM clock in GHz; ``max_ns`` and ``max_cycles``, the longest
-    block's, maxima). Raises where a thread may have run long enough to
-    wrap its sums (:func:`check_probe_clocks`). Takes
-    CUDA tensors only; it is not counted in ``render_tiles.launches``."""
+    block's, maxima). Besides the clocks, ``launch_segments``: the segments
+    each launch counted on its own counter, in launch order. Where the full
+    walk takes a pilot launch first (:func:`pilot_samples`), the pilot runs
+    the default instance and the clocks are the main launch's, so the
+    probe's ``segments`` equal the last launch's count, and the outputs'
+    count is the launches' sum. Raises where a thread may have run long
+    enough to wrap its sums (:func:`check_probe_clocks`). Takes CUDA tensors
+    only; it is not counted in ``render_tiles.launches``."""
     from .build import extension
 
     mode = kernel_mode(pscene, config, sl)
@@ -716,12 +833,13 @@ def render_tiles_probe(pscene: KernelScene, cam: CameraState,
     _check_accumulation(pscene, sample_offset, spp_map, n_tiles)
     probe = torch.zeros(extension().probe_slots, dtype=torch.int64,
                         device=dev)
-    outs = _launch(pscene, cam, config, frame_seed, False, 0, sample_offset,
-                   n_tiles, normalize, sl, slmeta, spp_map,
-                   kernel_fuse(pscene, config, sl), probe)
+    outs, segments = _frame(pscene, cam, config, frame_seed, False, 0,
+                            sample_offset, n_tiles, normalize, sl, slmeta,
+                            spp_map, kernel_fuse(pscene, config, sl), probe)
     clocks = dict(zip(PROBE_SLOTS, probe.tolist()))
     check_probe_clocks(clocks)
-    return outs, clocks
+    clocks["launch_segments"] = [int(n) for n in segments]
+    return (*outs, sum(segments)), clocks
 
 
 def check_probe_clocks(clocks: dict) -> None:
@@ -1017,10 +1135,7 @@ def render_tiles_reference(pscene: KernelScene, cam: CameraState,
     nbx, _ = block_grid(config)
     lane = torch.arange(local_blocks(config, n_blocks_local) * TILE,
                         device=dev)
-    blk, r = lane // TILE, lane % TILE
-    block = block_offset + blk
-    px = (block % nbx) * BLOCK_W + r % BLOCK_W
-    py = (block // nbx) * BLOCK_H + r // BLOCK_W
+    blk, _, px, py = item_pixels(lane, 0, block_offset, nbx)
     in_image = (px < config.width) & (py < config.height)
     pixel = py * config.width + px        # row-major id keys the streams
     u = (px.to(cam_row.dtype) + 0.5) / cam_row[C_WIDTH]

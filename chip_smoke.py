@@ -278,6 +278,11 @@ TP_MESHES = ((1, 1, 2), (2, 2, 2))
 # declines, and below 1025 padded spheres "auto" takes no candidate walk.
 BOOK_CONFIG = "rtiow-book-final"
 BOOK_MODE = ("off", "grouped")
+# What the full walk's instances (off/grouped) may take on the card, by draw
+# path: 64 registers a thread hold 4 resident blocks of 256 threads per SM;
+# the exact draws' PCG state spills 32 bytes, the fast draws none.
+BOOK_INSTANCE = {"fast": dict(num_regs=64, local_bytes=0, blocks_per_sm=4),
+                 "exact": dict(num_regs=64, local_bytes=32, blocks_per_sm=4)}
 # Phase 10. The command line at its defaults (bevyray_tpu_torch/app/cli.py:
 # final scene, scene seed 42, 1280x720, 16 spp, 4 bounces, level 3, seed 1),
 # held against direct calls of the same renderers. CLI_ARGV goes after each
@@ -2368,7 +2373,13 @@ def book_phase(card) -> None:
     live per warp-level segment iteration and segments a sample, the SM
     clock the probe ran at and how long its blocks ran against the longest
     (the share of the launch after a block found no work left), beside the
-    two instances' registers, resident blocks and kernel ms."""
+    two instances' registers, resident blocks and kernel ms; then the full
+    walk's schedule in one line (that tail share, lanes live per issue, the
+    lanes' idle and the barrier's share), and the registers, spills and
+    resident blocks of its exact and fast instances, held to
+    ``BOOK_INSTANCE``; last, the kernel's launches on a shard of the book's
+    bottom block rows at its samples and depth, bit-equal to the plain
+    version."""
     import torch
 
     from bevyray_tpu_torch import FusedRenderer
@@ -2395,8 +2406,15 @@ def book_phase(card) -> None:
     want = mk.render_tiles(kscene, cam, config, 2, exact_rng=False)
     got, clk = mk.render_tiles_probe(kscene, cam, config, 2)
     torch.cuda.synchronize()
+    # The probe's clocks are the last launch's, the main one after a pilot:
+    # its segments that launch's own count, the launches' counts the frame's.
+    launches = clk["launch_segments"]
+    pilot = launches[0] if len(launches) > 1 else 0
+    piloted = bool(mk.pilot_samples(BOOK_MODE, config.samples_per_pixel))
     if (not all(torch.equal(g, w) for g, w in zip(got, want))
-            or clk["segments"] != int(want[4])
+            or clk["segments"] != launches[-1]
+            or sum(launches) != int(want[4])
+            or len(launches) != 1 + piloted
             or int(frame.rays_traced) != int(want[4])):
         raise SystemExit("phase 9(d) book frame: the probe instance differs "
                          "from the default instance")
@@ -2409,11 +2427,14 @@ def book_phase(card) -> None:
                                                      2), 2)
     infos = {probe: mk.instance_info(dev, False, False, True, 1, 0, probe)
              for probe in (False, True)}
+    exact_info = mk.instance_info(dev, False, False, False, 1, 0)
     grid = mk.persistent_grid(mk.local_blocks(config),
                               infos[True]["blocks_per_sm"],
                               infos[True]["n_sms"])
     block_ms = clk["block_ns"] / grid / 1e6
     after = 1 - block_ms * 1e6 / clk["max_ns"]
+    lanes = clk["segments"] / clk["issues"]
+    shares = probe_shares(clk, "walk (every sphere)")
     samples = config.width * config.height * config.samples_per_pixel
     print(f"phase 9(d) book frame {config.width}x{config.height}, "
           f"{config.samples_per_pixel} spp, {config.bounces} bounces, lens "
@@ -2421,12 +2442,12 @@ def book_phase(card) -> None:
           f"FusedRenderer {'/'.join(renderer.last_mode)} fuse "
           f"{renderer.last_fuse}, fast "
           f"draws, {frame_ms:.1f} ms a frame (host, synchronised), "
-          f"{int(want[4])} segments ({int(want[4]) / samples:.4f} a sample) "
-          f"| {card}", flush=True)
+          f"{int(want[4])} segments ({int(want[4]) / samples:.4f} a sample), "
+          f"{pilot} of them in the pilot launch of {mk.PILOT_SPP} samples a "
+          f"pixel | {card}", flush=True)
     print(f"phase 9(d) probe book frame, off/grouped fast fuse 1: bit-equal "
           f"to the default instance; mean active lanes per segment "
-          f"iteration {clk['segments'] / clk['issues']:.2f} of 32; cycle "
-          f"shares {json.dumps(probe_shares(clk, 'walk (every sphere)'))}; "
+          f"iteration {lanes:.2f} of 32; cycle shares {json.dumps(shares)}; "
           f"clock sums {json.dumps(clk)}; SM clock "
           f"{clk['block_cycles'] / clk['block_ns']:.4f} GHz; {grid} blocks "
           f"ran {block_ms:.1f} ms on average, the longest "
@@ -2437,6 +2458,51 @@ def book_phase(card) -> None:
           f"{infos[True]['num_regs']}, resident blocks per SM "
           f"{infos[False]['blocks_per_sm']} / probe "
           f"{infos[True]['blocks_per_sm']} | {card}", flush=True)
+    # The full walk's schedule: its threads take each pixel from the
+    # launch's counter, so the blocks end together and lanes refill at once.
+    print(f"phase 9(d) full walk schedule: tail share {after:.4f} (1 - mean "
+          f"block run / longest), live lanes per issue {lanes:.2f} of 32, "
+          f"lanes idle in their warp {shares['lane idle in its warp']:.4f}, "
+          f"barrier and loop {shares['item barrier, other']:.4f} of the "
+          f"threads' cycles | {card}", flush=True)
+    for name, info in (("fast", infos[False]), ("exact", exact_info)):
+        print(f"phase 9(d) off/grouped/{name}: {info['num_regs']} registers, "
+              f"{info['local_bytes']} spill bytes, {info['blocks_per_sm']} "
+              f"resident blocks per SM | {card}", flush=True)
+        most = BOOK_INSTANCE[name]
+        if (info["num_regs"] > most["num_regs"]
+                or info["local_bytes"] > most["local_bytes"]
+                or info["blocks_per_sm"] < most["blocks_per_sm"]):
+            raise SystemExit(f"phase 9(d): off/grouped/{name} takes more "
+                             f"than {most}")
+    # The main path's launches (the pilot, then the rest of each pixel's
+    # samples, costliest pixels first, its sums continued) against the
+    # plain version at the book's samples, depth and lens, on a shard of its
+    # two bottom block rows: more lanes than the grid has threads, so the
+    # main launch's threads take several pixels in its order.
+    nbx, nby = mk.block_grid(config)
+    rows = dict(block_offset=(nby - 2) * nbx, n_blocks_local=2 * nbx,
+                exact_rng=False)
+    shard_grid = mk.persistent_grid(2 * nbx, infos[False]["blocks_per_sm"],
+                                    infos[False]["n_sms"])
+    shard = mk.render_tiles(kscene, cam, config, 3, **rows)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = mk.render_tiles_reference(kscene, cam, config, 3, **rows)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    if (not piloted or shard_grid * 256 >= 2 * nbx * mk.TILE
+            or not all(torch.equal(g, w) for g, w in zip(shard, plain))):
+        raise SystemExit("phase 9(d) book shard: the kernel's launches differ "
+                         "from the plain version, or took no pilot or no "
+                         "second pixel a thread")
+    print(f"phase 9(d) book shard, block rows {nby - 2}-{nby - 1} (blocks "
+          f"{rows['block_offset']}-{rows['block_offset'] + 2 * nbx - 1}), "
+          f"{config.samples_per_pixel} spp, {config.bounces} bounces, lens, "
+          f"fast draws: {2 * nbx * mk.TILE} lanes on {shard_grid * 256} "
+          f"threads, pilot of {mk.PILOT_SPP} samples; bit-equal to the plain "
+          f"version, {int(plain[4])} segments both; plain {plain_s:.1f} s "
+          f"| {card}", flush=True)
 
 
 def cli_phase(card, dev) -> tuple:

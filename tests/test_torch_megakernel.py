@@ -525,6 +525,104 @@ def test_cuda_kernel_matches_plain_version_on_card(scene_fn, options):
     assert abs(int(got[4]) - int(want[4])) <= 1e-3 * int(want[4])
 
 
+# The unsplit full walk (off/grouped), whose threads take each pixel from
+# the launch's counter: (scene, width, height, config options, render_tiles
+# options); a sample map is drawn from the seed for "spp_map".
+FULL_WALK = dict(pallas_primary="off", pallas_intersect="grouped", level=3)
+FULL_WALK_CASES = {
+    # more samples than the split takes, the lens, 13-deep paths
+    "over_32_spp_lens": (
+        lambda: bt.rtiow.material_test_scene(bt.RaytracedCamera(**LENS)),
+        64, 64, dict(samples_per_pixel=40, bounces=12, defocus=True), {}),
+    # 128 blocks, 2,048 units: several pixels a thread of the 528-block grid
+    "pixels_over_threads": (lambda: bt.rtiow.final_scene(seed=42, grid=4),
+                            1024, 512, dict(samples_per_pixel=32, bounces=4),
+                            {}),
+    # 2 blocks, 32 units: a grid of fewer blocks than the card holds, both
+    # blocks partly outside the frame
+    "units_under_blocks": (bt.rtiow.night_scene, 96, 60,
+                           dict(samples_per_pixel=40, bounces=6), {}),
+    # the second of two shards of 3 blocks
+    "shard": (lambda: bt.rtiow.final_scene(seed=42, grid=4), 128, 192,
+              dict(samples_per_pixel=32, bounces=4),
+              dict(block_offset=3, n_blocks_local=3, normalize=False)),
+    # targets 0-40 at a sample offset, some within the pilot's samples,
+    # target-0 lanes written as zeros
+    "spp_map": (lambda: bt.rtiow.final_scene(seed=42, grid=4), 192, 100,
+                dict(samples_per_pixel=40, bounces=4),
+                dict(spp_map=True, sample_offset=32, normalize=False)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FULL_WALK_CASES))
+@pytest.mark.parametrize("exact_rng", [True, False], ids=["exact", "fast"])
+def test_cuda_full_walk_matches_plain_version_on_card(case, exact_rng):
+    """On the card: the off/grouped kernel, whose threads take their pixels
+    from the launch's counter, in its pilot and main launches (the main one
+    continues the pilot's sums, costliest pixels first), bit-equal to its
+    plain version with equal segments, and on the fast draws its probe
+    instance to the default instance (a shard has no probe launch)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; chip_smoke.py runs this check there")
+    scene_fn, width, height, options, run = FULL_WALK_CASES[case]
+    dev = torch.device("cuda", 0)
+    cfg = bt.RenderConfig(width=width, height=height, **FULL_WALK, **options)
+    world = scene_fn()
+    kscene = mk.prepare_kernel_scene(world.extract(with_bvh=False, device=dev))
+    cam = world.camera_state(aspect=width / height, device=dev)
+    assert mk.kernel_mode(kscene, cfg, None) == ("off", "grouped")
+    run = dict(run, exact_rng=exact_rng)
+    assert mk.pilot_samples(("off", "grouped"),
+                            cfg.samples_per_pixel) == mk.PILOT_SPP
+    if run.get("spp_map"):
+        targets = np.random.default_rng(3).integers(0, 41, width * height)
+        run["spp_map"] = mk.shuffle_blocks(
+            torch.as_tensor(targets, dtype=torch.int32), cfg).to(dev)
+    n_tiles = mk.local_blocks(cfg, run.get("n_blocks_local"))
+    info = mk.instance_info(dev, False, False, not exact_rng, 1, 0)
+    grid = mk.persistent_grid(n_tiles, info["blocks_per_sm"], info["n_sms"])
+    threads, units = grid * 256, n_tiles * mk.SLICES
+    if case == "pixels_over_threads":
+        assert width * height > 3 * threads
+    if case == "units_under_blocks":
+        assert grid == units < info["blocks_per_sm"] * info["n_sms"]
+    got = mk.render_tiles(kscene, cam, cfg, 7, **run)
+    want = mk.render_tiles_reference(kscene, cam, cfg, 7, **run)
+    _bit_equal(got, want)
+    # The pilot alone: the plain version's unnormalised sums and segments for
+    # its samples, each lane's segments in its cost, whose sum is the
+    # launch's count.
+    pilot_cfg = dataclasses.replace(cfg, samples_per_pixel=mk.PILOT_SPP)
+    pilot_run = dict(run, normalize=False)
+    cost = torch.zeros(n_tiles * mk.TILE, dtype=torch.int32, device=dev)
+    pilot = mk._launch(kscene, cam, cfg, 7, exact_rng,
+                       run.get("block_offset", 0), run.get("sample_offset", 0),
+                       n_tiles, False, None, None, run.get("spp_map"),
+                       mk.kernel_fuse(kscene, cfg, None,
+                                      run.get("n_blocks_local")),
+                       spp=mk.PILOT_SPP, cost=cost)
+    _bit_equal(pilot, mk.render_tiles_reference(kscene, cam, pilot_cfg, 7,
+                                                **pilot_run))
+    assert int(cost.sum()) == int(pilot[4])
+    if run.get("spp_map") is not None:
+        idle = run["spp_map"].reshape(-1) == 0
+        assert bool(idle.any())
+        for out in got[:4]:
+            assert not bool(out[idle].any())
+    if exact_rng or "block_offset" in run:
+        return
+    extra = {k: run[k] for k in ("spp_map", "sample_offset", "normalize")
+             if k in run}
+    probed, clk = mk.render_tiles_probe(kscene, cam, cfg, 7, **extra)
+    _bit_equal(probed, got)
+    # The probe's clocks are the main launch's: its segments that launch's
+    # count, which with the pilot's makes the frame's.
+    assert clk["launch_segments"] == [int(pilot[4]), clk["segments"]]
+    assert sum(clk["launch_segments"]) == int(want[4])
+    assert clk["stage"] == 0 and clk["walk0"] == 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("exact_rng", [True, False], ids=["exact", "fast"])
 def test_cuda_shards_match_plain_version_on_card(exact_rng):
@@ -585,6 +683,110 @@ def test_work_items_partition_the_units(n_tiles, fuse, grid, sampled):
     elif n_units >= 4 * mk.GUIDE * grid:
         assert len(items) < n_units
     assert mk.SLICES * 256 == mk.TILE
+
+
+@pytest.mark.parametrize("n_tiles,block_offset,nbx,width,height", [
+    (209, 0, 19, 1200, 675), (510, 0, 30, 1920, 1080), (3, 3, 2, 128, 192),
+    (2, 0, 2, 96, 60), (1, 0, 1, 40, 30)],
+    ids=["book", "headline", "second_shard", "two_blocks", "one_block"])
+def test_full_walk_counter_names_each_lane_once(n_tiles, block_offset, nbx,
+                                                width, height):
+    """The full walk's threads take pixels from the launch's counter: value
+    k names local lane k, in local block k // TILE, whose global block
+    ``block_offset`` + local holds the pixel; the launch's values cover each
+    of its lanes once, and so each pixel of the frame in its global blocks
+    once. The book's frame, the headline, a shard and frames partly outside
+    their blocks."""
+    k = torch.arange(n_tiles * mk.TILE)
+    blk, r, px, py = mk.item_pixels(k, 0, block_offset, nbx)
+    assert torch.equal(blk * mk.TILE + r, k)
+    assert torch.equal(px // mk.BLOCK_W + py // mk.BLOCK_H * nbx,
+                       block_offset + blk)
+    inside = (px < width) & (py < height)
+    ids = py[inside] * width + px[inside]
+    assert ids.unique().numel() == ids.numel()
+    yy, xx = torch.meshgrid(torch.arange(height), torch.arange(width),
+                            indexing="ij")
+    block = xx // mk.BLOCK_W + yy // mk.BLOCK_H * nbx
+    mine = (block >= block_offset) & (block < block_offset + n_tiles)
+    assert torch.equal(ids.sort().values, (yy * width + xx)[mine].sort().values)
+
+
+@pytest.mark.parametrize("n_tiles,fuse,grid", [
+    (209, 1, 528), (170, 4, 528), (6, 8, 96), (3, 2, 48)])
+@pytest.mark.parametrize("sampled", [False, True], ids=["dense", "sampled"])
+def test_work_items_take_the_lanes_the_counter_names(n_tiles, fuse, grid,
+                                                     sampled):
+    """The split and candidate instances' work items, each's pixels in the
+    order its threads take them, name the launch's lanes in the order the
+    full walk's counter values do: a counter value names the same local
+    lane, block and pixel in every instance."""
+    lanes = []
+    for lo, hi in mk.work_items(n_tiles, fuse, grid, sampled):
+        blk, r, _, _ = mk.item_pixels(torch.arange((hi - lo) * 256), lo, 0, 1)
+        lanes.append(blk * mk.TILE + r)
+    assert torch.equal(torch.cat(lanes), torch.arange(n_tiles * mk.TILE))
+
+
+@pytest.mark.parametrize("mode,spp,want", [
+    (("off", "grouped"), 500, mk.PILOT_SPP),
+    (("off", "grouped"), 4 * mk.PILOT_SPP, mk.PILOT_SPP),
+    (("off", "grouped"), 4 * mk.PILOT_SPP - 1, 0),
+    (("off", "grouped"), 2, 0),
+    (("off", "candidates"), 500, 0),
+    (("split", "grouped"), 500, 0),
+    (("split", "candidates"), 16, 0)])
+def test_pilot_only_for_the_full_walk_at_many_samples(mode, spp, want):
+    """The full walk alone takes a pilot launch, and only where its
+    PILOT_SPP samples are at most a quarter of the frame's: the book's 500,
+    not the headline's 16 or a mode with work items."""
+    assert mk.pilot_samples(mode, spp) == want
+
+
+@pytest.mark.parametrize("nbx,nby,n_tiles,block_offset", [
+    (2, 1, 2, 0), (3, 2, 6, 0), (3, 2, 2, 3)],
+    ids=["two_blocks", "six_blocks", "shard"])
+def test_walk_order_takes_the_costliest_pixels_first(nbx, nby, n_tiles,
+                                                     block_offset):
+    """The main launch's order: a permutation of the local lanes by the
+    pilot's counts averaged over each pixel's 3x3 neighbours in the padded
+    frame (those inside it, across block edges; other shards' lanes count
+    0), the costliest first, ties in block order; held against a twin that
+    averages each neighbourhood exactly, on counts whose means are whole."""
+    gen = torch.Generator().manual_seed(5 + n_tiles)
+    cost = 36 * torch.randint(0, 50, (n_tiles * mk.TILE,), generator=gen,
+                              dtype=torch.int32)
+    order = mk.walk_order(cost, nbx, nby, block_offset)
+    assert order.dtype == torch.int32
+    assert torch.equal(order.long().sort().values,
+                       torch.arange(n_tiles * mk.TILE))
+    _, _, px, py = mk.item_pixels(torch.arange(n_tiles * mk.TILE), 0,
+                                  block_offset, nbx)
+    width, height = nbx * mk.BLOCK_W, nby * mk.BLOCK_H
+    image = np.zeros((height, width), dtype=np.int64)
+    image[py.numpy(), px.numpy()] = cost.numpy()
+    means = []
+    for x, y in zip(px.tolist(), py.tolist()):
+        box = image[max(y - 1, 0):y + 2, max(x - 1, 0):x + 2]
+        assert int(box.sum()) % box.size == 0
+        means.append(int(box.sum()) // box.size)
+    want = sorted(range(len(means)), key=lambda k: -means[k])
+    assert order.tolist() == want
+
+
+def test_walk_order_ranks_a_costly_patch_above_a_lone_costly_pixel():
+    """One pixel that the pilot found costly among cheap neighbours ranks
+    below a patch of slightly cheaper pixels: its neighbours' counts say the
+    few samples overrated it."""
+    cost = torch.full((mk.TILE,), 8, dtype=torch.int32)
+    lone = 10 * mk.BLOCK_W + 10
+    cost[lone] = 90
+    patch = [(40 + dy) * mk.BLOCK_W + 40 + dx for dy in (-1, 0, 1)
+             for dx in (-1, 0, 1)]
+    cost[patch] = 60
+    order = mk.walk_order(cost, 1, 1).tolist()
+    assert order[0] == patch[4]
+    assert order.index(lone) > max(order.index(k) for k in patch)
 
 
 def test_persistent_grid_fills_the_card_or_the_work():

@@ -100,8 +100,9 @@ def test_cuda_probe_instance_matches_the_default_instance(mode):
     """On the card, the book's camera and lens with 50-deep paths at 192x128:
     each probe instance bit-equal to the default instance and to the plain
     version, with equal segments; its stages' clocks positive, the walks
-    inside the segment iterations, and the shortlist walk and the slab
-    tests counted only where the split and the candidate walk run."""
+    inside the segment iterations, and the shortlist walk, the slab tests
+    and the items' staging counted only where the split and the candidate
+    walk run."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py phase 9 runs the probe "
                     "there")
@@ -120,14 +121,18 @@ def test_cuda_probe_instance_matches_the_default_instance(mode):
     for g, w, p in zip(got, want, plain):
         assert torch.equal(g, w) and torch.equal(g, p)
     assert clk["segments"] == int(want[4])
+    assert clk["launch_segments"] == [int(want[4])]
     assert 0 < clk["issues"] <= clk["segments"]
-    for slot in ("total", "stage", "fetch", "segment", "walk"):
+    for slot in ("total", "fetch", "segment", "walk"):
         assert clk[slot] > 0, slot
     assert clk["segment"] > clk["walk0"] + clk["walk"]
     assert clk["total"] > clk["segment"]
     split = mode == ("split", "candidates")
     assert (clk["walk0"] > 0) == split
     assert (clk["slab_tests"] > 0) == split
+    # Only the split takes work items (and stages them); the full walk takes
+    # each pixel from the launch's counter.
+    assert (clk["stage"] > 0) == split
     # The blocks' runs: a clock between the H100's idle and top clocks,
     # the blocks' summed runs no shorter than the longest, and the longest
     # in cycles below the wrap and within 1% of its nanoseconds at that
@@ -143,8 +148,10 @@ def test_cuda_probe_instance_matches_the_default_instance(mode):
 def test_cuda_book_frame_probed_at_the_renderers_defaults():
     """On the card, the book's frame cut to 128x72 with 40 samples a pixel
     (still over MAX_SPLIT_SPP): ``FusedRenderer`` at its defaults runs
-    off/grouped on the fast draws, and the probe on the same inputs gives
-    the frame's segments and the default instance's bits."""
+    off/grouped on the fast draws, in a pilot and a main launch, and the
+    probe on the same inputs gives the default instance's bits; its
+    segments are the main launch's count, and the pilot's count is the plain
+    version's for the pilot's samples, the two adding up to the frame's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py phase 9(d) runs the "
                     "book's frame there")
@@ -161,5 +168,12 @@ def test_cuda_book_frame_probed_at_the_renderers_defaults():
     got, clk = mk.render_tiles_probe(kscene, cam, config, 11)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    assert clk["segments"] == int(want[4]) == int(frame.rays_traced)
+    assert mk.pilot_samples(BOOK_MODE, 40) == mk.PILOT_SPP
+    pilot = mk.render_tiles_reference(
+        kscene, cam, dataclasses.replace(config,
+                                         samples_per_pixel=mk.PILOT_SPP),
+        11, normalize=False, exact_rng=False)
+    assert clk["launch_segments"] == [int(pilot[4]), clk["segments"]]
+    assert sum(clk["launch_segments"]) == int(want[4])
+    assert int(want[4]) == int(frame.rays_traced)
     assert clk["walk0"] == 0 and clk["slab_tests"] == 0
